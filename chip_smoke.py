@@ -4,8 +4,11 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the projection kernel from ``psa_tpu_torch/csrc`` at first use,
-checks it against its plain PyTorch version, checks the chain-dispersion
+It builds the projection kernel from ``psa_tpu_torch/csrc``,
+checks it against its plain PyTorch version (two ragged shapes and the
+working chunk, which must also come out bit for bit the same twice, and
+whose error against a float64 sum of the same float32 operands is printed
+for the kernel and the plain version), checks the chain-dispersion
 physics, runs ``SEDCalculator.calculate`` at the working size (10^5 atoms x
 10^4 steps x 2,500 k-points, coherent, parity precision) and the rest of the
 slice (incoherent groups, chiral phase, iSED).  Each phase prints one line;
@@ -15,6 +18,7 @@ the last line is ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero
 before printing any result.
 """
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -28,6 +32,8 @@ K_CHUNK = 500                                   # calculate()'s default k_chunk_
 SEED = 0
 TOL_KERNEL = 1e-5   # kernel vs plain: same f32 products, other sum order over 1e5 atoms
 TOL_PARITY = 1e-6   # small systems vs the float64 oracle (the repo's parity bar)
+TOL_SAME_OPERANDS = 5e-6   # kernel vs a float64 sum of its own float32 operands
+DESIGN = "3xtf32-wgmma"   # how csrc/sed_projection.cu multiplies
 
 
 def log(phase, msg):
@@ -66,19 +72,54 @@ def si_sites(n_atoms):
     return sites, side, a0
 
 
+def ptxas_counts(log):
+    """Registers, static shared memory and spills of the kernel from ``-Xptxas -v``."""
+    def num(pattern):
+        found = re.search(pattern, log)
+        return int(found.group(1)) if found else None
+    return {"registers": num(r'Used (\d+) registers'), "smem_static_bytes": num(r'(\d+) bytes smem') or 0,
+            "spill_stores_bytes": num(r'(\d+) bytes spill stores'),
+            "spill_loads_bytes": num(r'(\d+) bytes spill loads')}
+
+
+def pair_err(got, want):
+    """Max abs error and max|want| over a (re, im) pair."""
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return err, max(float(w.abs().max()) for w in want)
+
+
 def compare_kernel(proj, data, hi, lo, kv, reps):
     """Kernel vs plain on one input: (max_abs_err, rel_err, kernel ms, plain ms)."""
-    re_k, im_k = proj.sed_projection(data, hi, lo, kv)
-    re_p, im_p = proj.sed_projection_plain(data, hi, lo, kv)
+    kern = proj.sed_projection(data, hi, lo, kv)
+    plain = proj.sed_projection_plain(data, hi, lo, kv)
     torch.cuda.synchronize()
-    err_abs = max(float((re_k - re_p).abs().max()), float((im_k - im_p).abs().max()))
-    scale = max(float(re_p.abs().max()), float(im_p.abs().max()))
-    del re_k, im_k, re_p, im_p
-    # alternate plain, kernel, kernel, plain on one card
+    err_abs, scale = pair_err(kern, plain)
+    del kern, plain
+    return (err_abs, err_abs / scale) + time_kernel(proj, data, hi, lo, kv, reps)
+
+
+def time_kernel(proj, data, hi, lo, kv, reps):
+    """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain on one card."""
     plain = [cuda_ms(lambda: proj.sed_projection_plain(data, hi, lo, kv), reps)]
     kern = [cuda_ms(lambda: proj.sed_projection(data, hi, lo, kv), reps) for _ in range(2)]
     plain.append(cuda_ms(lambda: proj.sed_projection_plain(data, hi, lo, kv), reps))
-    return err_abs, err_abs / scale, float(np.mean(kern)), float(np.mean(plain))
+    return float(np.mean(kern)), float(np.mean(plain))
+
+
+def same_operand_errors(proj, data, hi, lo, kv, kern, plain, n_cols=8, atoms=5000):
+    """Errors of the kernel and the plain version over the first ``n_cols``
+    k-columns against a float64 sum of the same float32 operands (data and
+    the float32 cos/sin table), relative to max|sum|."""
+    cs = proj.phase_table(hi, lo, kv[:n_cols]).double()
+    ref = torch.zeros((data.shape[0], 3, 2 * n_cols), dtype=torch.float64, device=data.device)
+    for a0 in range(0, data.shape[1], atoms):
+        ref += torch.einsum('tac,an->tcn', data[:, a0:a0 + atoms].double(), cs[a0:a0 + atoms])
+    scale = float(ref.abs().max())
+
+    def err(pair):
+        got = torch.cat([pair[0][..., :n_cols], pair[1][..., :n_cols]], dim=2).double()
+        return float((got - ref).abs().max()) / scale
+    return err(kern), err(plain)
 
 
 def main():
@@ -107,10 +148,14 @@ def main():
 
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load()
+    _build.build()   # from the checkout's sources, whatever _build/ holds
+    lib = _build.load()
     ptxas = [ln.strip() for ln in _build.build_log.splitlines() if 'registers' in ln or 'spill' in ln]
+    ptxas_info = ptxas_counts(_build.build_log)
+    ptxas_info["smem_dynamic_bytes"] = lib.psa_sed_projection_smem_bytes()
     log('build', f"{_build.LIB_PATH.name} ready in {time.perf_counter() - t0:.2f} s "
                  f"(nvcc {_build.build_seconds} s); ptxas: {' | '.join(ptxas)}")
+    check(ptxas_info["registers"] is not None, "no ptxas register count in the build log")
 
     # -- 3. kernel against its plain version ------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -119,14 +164,18 @@ def main():
     def dev32(x):
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
 
-    n_t, n_a, n_k = 9, 1000, 77
-    hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
-    small = (torch.randn((n_t, n_a, 3), generator=gen, device=dev), dev32(hi), dev32(lo),
-             dev32(rng.uniform(-3, 3, size=(n_k, 3))))
-    err_abs, err_rel, ms_k, ms_p = compare_kernel(proj, *small, reps=20)
-    check(err_rel <= TOL_KERNEL, f"ragged kernel vs plain {err_rel:.3e} > {TOL_KERNEL}")
-    log('kernel', f"ragged (n_t,A,K)=({n_t},{n_a},{n_k}): rel err {err_rel:.3e} "
-                  f"(tol {TOL_KERNEL}); kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    for n_t, n_a, n_k in ((9, 1000, 77), (197, 5003, 201)):   # remainders on every axis
+        hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
+        small = (torch.randn((n_t, n_a, 3), generator=gen, device=dev), dev32(hi), dev32(lo),
+                 dev32(rng.uniform(-3, 3, size=(n_k, 3))))
+        err_abs, err_rel, ms_k, ms_p = compare_kernel(proj, *small, reps=20)
+        check(err_rel <= TOL_KERNEL, f"ragged kernel vs plain {err_rel:.3e} > {TOL_KERNEL}")
+        log('kernel', f"ragged (n_t,A,K)=({n_t},{n_a},{n_k}): rel err {err_rel:.3e} "
+                      f"(tol {TOL_KERNEL}); kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
+    view = small[0][1:]   # time steps of 3*5003 floats: this view starts off a 16-byte boundary
+    err_abs, err_rel, _, _ = compare_kernel(proj, view, *small[1:], reps=1)
+    check(view.data_ptr() % 16 and err_rel <= TOL_KERNEL, f"unaligned view vs plain {err_rel:.3e}")
+    log('kernel', f"unaligned view (n_t,A,K)=({view.shape[0]},{n_a},{n_k}): rel err {err_rel:.3e}")
 
     sites, side, a0 = si_sites(N_ATOMS)
     t0 = time.perf_counter()
@@ -149,9 +198,26 @@ def main():
     hi_dev, lo_dev = dev32(hi), dev32(lo)
     log('kernel', f"mean positions of the {N_T}x{N_ATOMS} frames in "
                   f"{time.perf_counter() - t0:.2f} s")
-    work_abs, work_rel, work_ms, work_plain_ms = compare_kernel(
-        proj, velocities, hi_dev, lo_dev, dev32(k_vecs[:K_CHUNK]), reps=2)
+    work = (velocities, hi_dev, lo_dev, dev32(k_vecs[:K_CHUNK]))
+    kern = proj.sed_projection(*work)
+    again = proj.sed_projection(*work)
+    plain = proj.sed_projection_plain(*work)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(kern, again))
+    del again
+    check(same_bits, "two kernel runs at the working chunk differ")
+    work_abs, work_scale = pair_err(kern, plain)
+    work_rel = work_abs / work_scale
     check(work_rel <= TOL_KERNEL, f"working-shape kernel vs plain {work_rel:.3e} > {TOL_KERNEL}")
+    kern_f64, plain_f64 = same_operand_errors(proj, *work, kern, plain)
+    del kern, plain
+    check(kern_f64 <= TOL_SAME_OPERANDS,
+          f"kernel vs f64 sum of its operands {kern_f64:.3e} > {TOL_SAME_OPERANDS}")
+    log('kernel', f"working chunk, first 8 k-columns vs a float64 sum of the same float32 "
+                  f"operands: kernel {kern_f64:.3e} (tol {TOL_SAME_OPERANDS}), plain {plain_f64:.3e}; "
+                  f"two kernel runs bitwise identical")
+    work_ms, work_plain_ms = time_kernel(proj, *work, reps=2)
+    del work
     flop = 4.0 * N_T * 3 * N_ATOMS * K_CHUNK
     log('kernel', f"working chunk (n_t,A,K)=({N_T},{N_ATOMS},{K_CHUNK}): rel err {work_rel:.3e}, "
                   f"max abs err {work_abs:.3e} (tol {TOL_KERNEL}); kernel {work_ms:.3f} ms "
@@ -263,11 +329,11 @@ def main():
     log('slice', f"iSED dump: {n_frames} frames of {ichain.n_atoms} atoms; launches {proj.launches}")
 
     print(json.dumps({"kernels": [{
-        "name": "sed_projection", "route": "cuda",
+        "name": "sed_projection", "route": "cuda", "design": DESIGN,
         "source": "psa_tpu_torch/csrc/sed_projection.cu",
         "replaces": "psa_tpu/ops/pallas_sed.py:116",
         "launches": main_launches, "max_abs_err": work_abs,
-        "ms": work_ms, "plain_ms": work_plain_ms}]}), flush=True)
+        "ms": work_ms, "plain_ms": work_plain_ms, "ptxas": ptxas_info}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

@@ -2,12 +2,15 @@
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
 with a plain C interface under ``_build/`` (listed in ``.gitignore``), and
-:func:`load` opens it with :mod:`ctypes`.  Importing this module needs
-neither ``nvcc`` nor a GPU, so the CPU tests can import every module.
+:func:`load` opens it with :mod:`ctypes`.  A stamp file beside the library
+holds the hash of the sources, the headers and the nvcc flags it was built
+from; the library is rebuilt when that hash changes.  Importing this module
+needs neither ``nvcc`` nor a GPU, so the CPU tests can import every module.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -48,17 +51,30 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def fingerprint() -> str:
+    """Hash of the nvcc flags and of every ``csrc/*.cu`` and ``csrc/*.cuh``."""
+    h = hashlib.sha256('\0'.join(NVCC_FLAGS).encode())
+    for path in sorted([*SOURCE_DIR.glob('*.cu'), *SOURCE_DIR.glob('*.cuh')]):
+        h.update(b'\0' + path.name.encode() + b'\0' + path.read_bytes())
+    return h.hexdigest()
+
+
+def _stamp_path() -> Path:
+    return LIB_PATH.with_suffix('.stamp')
+
+
 def _stale() -> bool:
-    if not LIB_PATH.is_file():
+    stamp = _stamp_path()
+    if not (LIB_PATH.is_file() and stamp.is_file()):
         return True
-    built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources())
+    return stamp.read_text() != fingerprint()
 
 
 def build() -> None:
-    """Compile ``csrc/*.cu`` into :data:`LIB_PATH` (atomic rename)."""
+    """Compile ``csrc/*.cu`` into :data:`LIB_PATH` (atomic rename), then stamp it."""
     global build_seconds, build_log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    stamp = fingerprint()
     tmp = LIB_PATH.with_name(f'{LIB_PATH.name}.{os.getpid()}.tmp')
     cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
@@ -68,11 +84,12 @@ def build() -> None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
     os.replace(tmp, LIB_PATH)
+    _stamp_path().write_text(stamp)
     build_seconds = time.perf_counter() - t0
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built first if missing or older than a source."""
+    """The kernel library, built first if missing or built from other sources or flags."""
     global _lib
     with _lock:
         if _lib is None:
@@ -83,5 +100,7 @@ def load() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
                 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.psa_sed_projection_smem_bytes.argtypes = []
+            lib.psa_sed_projection_smem_bytes.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -90,7 +90,9 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         k_vectors: (n_k, 3) float32.
 
     Any n_t, n_atoms and n_k ≥ 1 are accepted; the kernel masks the edges.
-    On CUDA the inputs must be contiguous.
+    On CUDA the inputs must be contiguous; a ``data`` view that does not
+    start on a 16-byte boundary is copied first (the kernel copies 16-byte
+    blocks).
     """
     global launches
     _check(data, mp_hi, mp_lo, k_vectors)
@@ -102,6 +104,8 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     tensors = (data, mp_hi, mp_lo, k_vectors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("sed_projection's CUDA kernel takes contiguous tensors")
+    if data.data_ptr() % 16:
+        data = data.clone()
     lib = _build.load()
     n_t, n_atoms, _ = data.shape
     n_k = k_vectors.shape[0]
