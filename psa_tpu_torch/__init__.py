@@ -2,10 +2,14 @@
 
 The PyTorch port of :mod:`psa_tpu`'s SED main path: ``Trajectory`` →
 ``SEDCalculator`` (``get_k_path``/``get_k_grid``) → ``calculate`` over
-k-chunks → chiral phase and iSED.  The projection runs in a hand-written
-CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc`` at first use)
-on a GPU, and in its plain PyTorch version on CPU tensors.  This package
-imports ``torch`` and never ``jax``.
+k-chunks → chiral phase and iSED; and of the direct engine's on-device grid
+reductions: ``calculate_kgrid_browse``, ``calculate_kgrid_peaks``,
+``calculate_lt``, ``calculate_welch``, with group velocities and the
+kinetic thermal conductivity on top of the peaks.  The projection runs in
+a hand-written CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc``
+at first use) on a GPU, and in its plain PyTorch version on CPU tensors;
+the reductions are torch ops on the same device.  This package imports
+``torch`` and never ``jax``.
 """
 
 __version__ = "0.1.0"

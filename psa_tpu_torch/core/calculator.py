@@ -3,15 +3,21 @@
 Same public API and numbers as the JAX class for what is ported: lattice
 setup, ``get_k_path``, ``get_k_grid``, ``calculate`` (coherent and
 incoherent, velocities or displacements, optional mass weighting),
-``calculate_chiral_phase`` and fixed-cell ``ised``.  Group bookkeeping and
-k generation run on the host in NumPy; per (group, k-chunk) spectra run on
-``device`` through :mod:`psa_tpu_torch.ops.spectral`, and each chunk's
-result is copied back into a host array.
+``calculate_chiral_phase``, fixed-cell ``ised``, and the direct engine's
+on-device grid reductions: ``calculate_welch``, ``calculate_kgrid_browse``,
+``calculate_lt``, ``calculate_kgrid_peaks``, and on top of the peaks
+``calculate_group_velocity_path``/``_surface`` and
+``calculate_thermal_conductivity``.  Group bookkeeping and k generation run
+on the host in NumPy; per (group, k-chunk) spectra and their reductions run
+on ``device`` through :mod:`psa_tpu_torch.ops.spectral`.  ``calculate`` and
+the browse-type methods copy each chunk's result back; the peaks path keeps
+its planes on the device and reads the peak triplets back once.
 
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
 shard cache (``cache_dir``), groups larger than ``max_device_bytes`` (the
-atom-streamed path), NPT iSED and iSED plotting.  The JAX class's other
-public methods are absent.
+atom-streamed path), the gridded NUFFT engine (``engine='gridded'``),
+device meshes (``mesh=``), NPT iSED and iSED plotting.  The JAX class's
+other public methods are absent.
 """
 from __future__ import annotations
 
@@ -31,6 +37,65 @@ from .trajectory import Trajectory
 logger = logging.getLogger(__name__)
 
 _DEFAULT_MAX_DEVICE_BYTES = int(8e9)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """Copy a result tensor to a host NumPy array (waits for the device)."""
+    return t.cpu().numpy()
+
+
+def _not_ported(what: str, row: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported (ROADMAP {row})")
+
+
+def peaks_np(intensity: np.ndarray, freqs_kept: np.ndarray, n_peaks: int = 1,
+             exclusion_bins: int = 4, width_method: str = 'rms'):
+    """NumPy float64 mirror of :func:`psa_tpu_torch.ops.spectral.peak_reduce`
+    over (n_freq_kept, n_k) intensity planes: the oracle of the device path."""
+    if width_method not in ('rms', 'lorentzian'):
+        raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
+                         f"got {width_method!r}")
+    inten = np.array(intensity, dtype=np.float64, copy=True)
+    fk = np.asarray(freqs_kept, dtype=np.float64)
+    n_f, n_k = inten.shape
+    row = np.arange(n_f)
+    pf = np.zeros((n_peaks, n_k), dtype=np.float32)
+    ph = np.zeros((n_peaks, n_k), dtype=np.float32)
+    pw = np.zeros((n_peaks, n_k), dtype=np.float32)
+    for p in range(n_peaks):
+        idx = np.argmax(inten, axis=0)
+        ph[p] = inten[idx, np.arange(n_k)]
+        in_win = np.abs(row[:, None] - idx[None, :]) <= exclusion_bins
+        w = np.where(in_win, inten, 0.0)
+        pf[p] = fk[idx]
+        if width_method == 'rms':
+            wsum = np.maximum(w.sum(axis=0), 1e-30)
+            mu = (w * fk[:, None]).sum(axis=0) / wsum
+            var = (w * (fk[:, None] - mu[None, :]) ** 2).sum(axis=0) / wsum
+            pw[p] = np.sqrt(np.maximum(var, 0.0))
+        else:
+            # closed-form Lorentzian FWHM: I²-weighted regression of 1/I on
+            # (ν−ν₀)², peak-height-normalized like the device path
+            x = (fk[:, None] - pf[p][None, :].astype(np.float64)) ** 2
+            wn = w / np.maximum(ph[p], 1e-30)[None, :]
+            y = 1.0 / np.maximum(wn, 1e-30)
+            wt = np.where(in_win, wn * wn, 0.0)
+            sw = wt.sum(axis=0)
+            sx = (wt * x).sum(axis=0)
+            sy = (wt * y).sum(axis=0)
+            sxx = (wt * x * x).sum(axis=0)
+            sxy = (wt * x * y).sum(axis=0)
+            det = sw * sxx - sx * sx
+            with np.errstate(invalid='ignore', divide='ignore'):
+                slope = np.where(np.abs(det) > 1e-30,
+                                 (sw * sxy - sx * sy) / det, 0.0)
+                intercept = np.where(sw > 1e-30, (sy - slope * sx) / sw, 0.0)
+                gsq = np.where(slope > 1e-30,
+                               np.maximum(intercept, 0.0) / slope, np.inf)
+            df = (fk[-1] - fk[0]) / (n_f - 1) if n_f > 1 else 1.0
+            pw[p] = np.minimum(2.0 * np.sqrt(gsq), 2.0 * exclusion_bins * df)
+        inten[in_win] = 0.0
+    return pf, ph, pw
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -321,8 +386,11 @@ class SEDCalculator:
                     else self.traj.velocities[:, group_idx, :])
         return data, mp_hi, mp_lo
 
-    def _to_device(self, host: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(host, dtype=np.float32, order='C')).to(self.device)
+    def _to_device(self, host: np.ndarray, dtype=np.float32) -> torch.Tensor:
+        # An upload from pageable memory is staged before the call returns, so
+        # non_blocking never reads a freed buffer; it only skips a stream sync.
+        return torch.from_numpy(np.array(host, dtype=dtype, order='C')).to(
+            self.device, non_blocking=True)
 
     def clear_device_cache(self) -> None:
         """Drop cached device-resident group data (frees device memory)."""
@@ -400,6 +468,16 @@ class SEDCalculator:
     def _group_bytes(self, group_idx: np.ndarray) -> int:
         return 4 * self.traj.n_frames * int(group_idx.size) * 3
 
+    def _resident_group_arrays(self, group_idx: np.ndarray):
+        """:meth:`_group_device_arrays` for a group within ``max_device_bytes``;
+        a larger group raises (the atom-streamed path is not ported)."""
+        if self._group_bytes(group_idx) > self.max_device_bytes:
+            raise NotImplementedError(
+                f"group of {self._group_bytes(group_idx)} bytes exceeds max_device_bytes="
+                f"{self.max_device_bytes}; the atom-streamed path is not ported "
+                "(ROADMAP A3, 'atom-streamed path'). Raise max_device_bytes if the group fits the device.")
+        return self._group_device_arrays(group_idx)
+
     # ------------------------------------------------------------------
     # Core spectrum computation for one group / one k-chunk
     # ------------------------------------------------------------------
@@ -412,12 +490,7 @@ class SEDCalculator:
             if want_intensity:
                 return np.zeros((n_t, len(k_chunk)), dtype=np.float32)
             return np.zeros((n_t, len(k_chunk), 3), dtype=np.complex64)
-        if self._group_bytes(group_idx) > self.max_device_bytes:
-            raise NotImplementedError(
-                f"group of {self._group_bytes(group_idx)} bytes exceeds max_device_bytes="
-                f"{self.max_device_bytes}; the atom-streamed path is not ported "
-                "(ROADMAP A3, 'atom-streamed path'). Raise max_device_bytes if the group fits the device.")
-        data_dev, hi_dev, lo_dev = self._group_device_arrays(group_idx)
+        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
         k_dev = self._to_device(k_chunk)
         if want_intensity:
             out = spectral.sed_intensity(data_dev, hi_dev, lo_dev, k_dev,
@@ -425,7 +498,7 @@ class SEDCalculator:
         else:
             out = spectral.sed_spectrum(data_dev, hi_dev, lo_dev, k_dev,
                                         precision=self.precision)
-        return out.cpu().numpy()
+        return _to_host(out)
 
     # ------------------------------------------------------------------
     # Public: calculate
@@ -449,8 +522,7 @@ class SEDCalculator:
         if summation_mode not in ('coherent', 'incoherent'):
             raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
         if cache_dir is not None:
-            raise NotImplementedError("cache_dir (the per-chunk shard cache) is not "
-                                      "ported (ROADMAP A3, 'shard cache')")
+            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
 
         n_t, n_atoms_tot = self.traj.n_frames, self.traj.n_atoms
         if n_t == 0 or n_atoms_tot == 0:
@@ -460,52 +532,543 @@ class SEDCalculator:
                        k_grid_shape=k_grid_shape, is_complex=True, phase=None)
 
         freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
-        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
-                                                summation_mode)
+        groups, is_complex_output = self._spectrum_groups(
+            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
+            summation_mode)
 
         num_k = len(k_vectors_3d)
-        block = min(max(1, k_chunk_size), num_k) if num_k > 0 else 1
-        num_chunks = (num_k + block - 1) // block if num_k > 0 else 0
-
-        is_complex_output = summation_mode == 'coherent' or len(atom_groups) <= 1
         if is_complex_output:
             full_sed = np.zeros((len(freqs), num_k, 3), dtype=np.complex64)
-            if len(atom_groups) > 1:
-                union = np.unique(np.concatenate(atom_groups)).astype(int)
-            elif len(atom_groups) == 1:
-                union = atom_groups[0]
-            else:
-                union = np.array([], dtype=int)
         else:
             full_sed = np.zeros((len(freqs), num_k), dtype=np.float32)
 
         if num_k == 0:
             logger.warning("k_vectors_3d is empty. Returning SED object with empty SED data.")
 
-        for i_chunk in range(num_chunks):
-            start = i_chunk * block
-            end = min(start + block, num_k)
+        chunks = self._chunk_bounds(num_k, k_chunk_size)
+        for i_chunk, (start, end) in enumerate(chunks):
             k_chunk = np.asarray(k_vectors_3d[start:end], dtype=np.float32)
-            logger.debug("Processing k-chunk %d/%d (indices %d-%d)", i_chunk + 1, num_chunks,
+            logger.debug("Processing k-chunk %d/%d (indices %d-%d)", i_chunk + 1, len(chunks),
                          start, end - 1)
             if is_complex_output:
-                if union.size == 0:
-                    logger.warning("Final atom group for SED k-chunk %d is empty; chunk stays zero.",
-                                   i_chunk + 1)
-                    continue
                 full_sed[:, start:end, :] = self._group_spectrum_np(
-                    union, k_chunk, want_intensity=False)
+                    groups[0], k_chunk, want_intensity=False)
             else:
                 acc = np.zeros((len(freqs), end - start), dtype=np.float32)
-                for grp_idx in atom_groups:
-                    if grp_idx.size == 0:
-                        continue
-                    acc += self._group_spectrum_np(grp_idx, k_chunk, want_intensity=True)
+                for grp_idx in groups:
+                    acc +=self._group_spectrum_np(grp_idx, k_chunk, want_intensity=True)
                 full_sed[:, start:end] = acc
 
         return SED(full_sed, freqs, k_points_mags, k_vectors_3d,
                    k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
                    dt_ps=self.dt_ps)
+
+    # ------------------------------------------------------------------
+    # Shared set-up: spectrum groups, k-chunks, kept frequency rows
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _spectrum_groups(atom_groups: List[np.ndarray], summation_mode: str):
+        """(groups, single_spectrum): coherent mode (or one group) reduces the
+        union group's spectrum once; incoherent mode sums per-group planes.
+        Only a 0-atom trajectory resolves to an empty group; it is dropped,
+        so a sweep over no groups leaves its planes at zero."""
+        if summation_mode == 'coherent' or len(atom_groups) <= 1:
+            if len(atom_groups) > 1:
+                union = np.unique(np.concatenate(atom_groups)).astype(int)
+            else:
+                union = atom_groups[0] if atom_groups else np.array([], dtype=int)
+            return ([union] if union.size else []), True
+        return atom_groups, False
+
+    def _kept_freqs(self, max_freq: Optional[float], segments: int = 1):
+        """(freqs_kept float32, freq_idx int64) of the ω ≥ 0 (and ≤ max_freq)
+        rows of the n_t // segments spectrum."""
+        freqs = spectral.fftfreq_thz(self.traj.n_frames // segments, self.dt_ps)
+        mask = freqs >= 0
+        if max_freq is not None:
+            mask &= freqs <= max_freq
+        return freqs[mask].astype(np.float32), np.flatnonzero(mask)
+
+    @staticmethod
+    def _chunk_bounds(num_k: int, k_chunk_size: int) -> List[Tuple[int, int]]:
+        """(start, end) of each k-chunk; the last may be ragged (the kernel
+        masks it, so nothing is padded)."""
+        block = min(max(1, k_chunk_size), num_k) if num_k > 0 else 1
+        return [(s, min(s + block, num_k)) for s in range(0, num_k, block)]
+
+    def _welch_segments(self, welch_segments, welch_window: str) -> int:
+        """Validate (welch_segments, welch_window); returns segments (1 =
+        single-window estimator)."""
+        if welch_segments is None:
+            return 1
+        if (not isinstance(welch_segments, (int, np.integer))
+                or welch_segments < 1):
+            raise ValueError("welch_segments must be a positive int, got "
+                             f"{welch_segments!r}")
+        seg = self.traj.n_frames // int(welch_segments)
+        if seg < 2:
+            raise ValueError(
+                f"welch_segments={welch_segments} leaves {seg} frames per "
+                f"segment (n_frames={self.traj.n_frames}); need at least 2")
+        spectral.welch_window(seg, welch_window)  # validates the name
+        return int(welch_segments)
+
+    # ------------------------------------------------------------------
+    # Welch/Bartlett segment-averaged spectra
+    # ------------------------------------------------------------------
+
+    def _group_welch_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
+                        segments: int, window: str) -> np.ndarray:
+        """Segment-averaged intensity of one non-empty group on one device k-chunk."""
+        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
+        return _to_host(spectral.sed_welch_intensity(
+            data_dev, hi_dev, lo_dev, k_chunk, segments=segments, window=window,
+            precision=self.precision))
+
+    def calculate_welch(self, k_points_mags: np.ndarray,
+                        k_vectors_3d: np.ndarray, segments: int,
+                        window: str = 'hann',
+                        basis_atom_indices=None, basis_atom_types=None,
+                        summation_mode: str = 'coherent',
+                        k_grid_shape: Optional[Tuple[int, int]] = None,
+                        k_chunk_size: int = 500) -> SED:
+        """Welch/Bartlett estimate: the SED intensity averaged over ``segments``
+        non-overlapping time windows of n_t // segments frames.
+
+        Averaging S windows cuts the per-bin relative variance by ~1/S at
+        n_t // S frequency bins.  ``window='hann'`` tapers each segment (unit
+        coherent gain); ``'rect'`` is the plain Bartlett split.  Group
+        semantics follow :meth:`calculate`.  Returns an intensity SED
+        (``is_complex=False``) with n_t // segments frequency rows.
+        Resident groups only.
+        """
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError("summation_mode must be 'coherent' or "
+                             f"'incoherent', got {summation_mode}")
+        if self.traj.n_frames == 0 or self.traj.n_atoms == 0:
+            logger.warning("Cannot calculate Welch SED: 0 frames or 0 atoms.")
+            return SED(np.zeros((0, len(k_vectors_3d)), dtype=np.float32),
+                       np.array([], dtype=np.float32), k_points_mags,
+                       k_vectors_3d, k_grid_shape=k_grid_shape,
+                       is_complex=False)
+        segments = self._welch_segments(segments, window)
+        seg = self.traj.n_frames // segments
+
+        freqs = spectral.fftfreq_thz(seg, self.dt_ps)
+        groups, _ = self._spectrum_groups(
+            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
+            summation_mode)
+        full = np.zeros((seg, len(k_vectors_3d)), dtype=np.float32)
+        k_dev = self._to_device(k_vectors_3d)
+        for start, end in self._chunk_bounds(len(k_vectors_3d), k_chunk_size):
+            for grp in groups:
+                full[:, start:end] += self._group_welch_np(grp, k_dev[start:end], segments,
+                                                           window)
+        return SED(full, freqs, k_points_mags, k_vectors_3d,
+                   k_grid_shape=k_grid_shape, is_complex=False, dt_ps=self.dt_ps,
+                   trajectory_metadata={'welch_segments': int(segments), 'window': window})
+
+    # ------------------------------------------------------------------
+    # Device-reduced k-grid browsing
+    # ------------------------------------------------------------------
+
+    def _group_browse_dev(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
+                          freq_idx_dev: torch.Tensor, comp_pair, angle_range_opt: str,
+                          segments: int = 1, window: str = 'hann'):
+        """Device (intensity, phase or None) planes of one non-empty group on
+        one device k-chunk; ``segments`` > 1 runs the Welch estimator
+        (``freq_idx_dev`` then indexes the segment spectrum)."""
+        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
+        if segments > 1:
+            return spectral.sed_grid_browse_welch(
+                data_dev, hi_dev, lo_dev, k_chunk, freq_idx_dev, segments, window=window,
+                precision=self.precision, comp_pair=comp_pair, angle_range_opt=angle_range_opt)
+        return spectral.sed_grid_browse(
+            data_dev, hi_dev, lo_dev, k_chunk, freq_idx_dev, precision=self.precision,
+            comp_pair=comp_pair, angle_range_opt=angle_range_opt)
+
+    def _group_browse_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
+                         freq_idx_dev: torch.Tensor, comp_pair, angle_range_opt: str,
+                         segments: int = 1, window: str = 'hann', f16: bool = False):
+        """:meth:`_group_browse_dev` copied to the host.  ``f16`` ships the
+        planes in the compressed display form (one scale per chunk and group,
+        :func:`psa_tpu_torch.ops.spectral.compress_browse`) and rescales here."""
+        inten, ph = self._group_browse_dev(group_idx, k_chunk, freq_idx_dev, comp_pair,
+                                           angle_range_opt, segments, window)
+        if f16:
+            packed = [_to_host(t) for t in spectral.compress_browse(inten, ph)]
+            return (spectral.decompress_plane(packed[0], packed[1]),
+                    packed[2].astype(np.float32) if ph is not None else None)
+        return _to_host(inten), (_to_host(ph) if ph is not None else None)
+
+    def calculate_kgrid_browse(self, k_vectors_3d: np.ndarray,
+                               basis_atom_indices=None, basis_atom_types=None,
+                               summation_mode: str = 'coherent',
+                               max_freq: Optional[float] = None,
+                               chiral: bool = False, chiral_axis: str = 'z',
+                               angle_range_opt: str = 'C',
+                               k_chunk_size: int = 2048,
+                               engine: str = 'direct',
+                               k_grid_shape: Optional[Tuple[int, int]] = None,
+                               welch_segments: Optional[int] = None,
+                               welch_window: str = 'hann',
+                               readback_dtype: str = 'float32',
+                               cache_dir=None):
+        """K-grid sweep reduced on the device to what a heat-map browser reads.
+
+        Only the ω ≥ 0 (and ≤ ``max_freq``) intensity planes, plus the chiral
+        phase when ``chiral`` is set, leave the device, one k-chunk at a
+        time.  Group semantics follow :meth:`calculate`: coherent (or
+        single-group) reduces the union group's spectrum; incoherent sums
+        per-group intensities (chiral then raises).
+
+        ``welch_segments`` switches to the segment-averaged estimator (the
+        chiral phase becomes the segment-averaged cross-spectral phase).
+        ``readback_dtype='float16'`` ships each chunk's intensity as
+        sqrt-domain float16 with one float32 scale and the phase as float16;
+        the returned arrays are float32 either way.
+
+        ``engine`` is 'direct' ('auto' resolves to it); ``engine='gridded'``
+        and ``cache_dir`` are not ported and raise.  ``k_grid_shape`` is
+        read only by the gridded engine.
+
+        Returns:
+            (freqs_kept (n_keep,), intensity (n_keep, n_k) float32,
+             phase (n_keep, n_k) float32 or None)
+        """
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
+        if readback_dtype not in ('float32', 'float16'):
+            raise ValueError("readback_dtype must be 'float32' or 'float16', "
+                             f"got {readback_dtype!r}")
+        if engine == 'gridded':
+            raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
+        if engine not in ('direct', 'auto'):
+            raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
+        if cache_dir is not None:
+            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
+        segments = self._welch_segments(welch_segments, welch_window)
+        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
+        groups, single_spectrum = self._spectrum_groups(
+            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
+            summation_mode)
+        if chiral and not single_spectrum:
+            raise ValueError("Chiral phase needs a single complex spectrum; "
+                             "use coherent summation.")
+        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
+
+        num_k = len(k_vectors_3d)
+        intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
+        phase = np.zeros_like(intensity) if comp_pair is not None else None
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        k_dev = self._to_device(k_vectors_3d)
+        for start, end in self._chunk_bounds(num_k, k_chunk_size):
+            for grp in groups:
+                inten, ph = self._group_browse_np(grp, k_dev[start:end], freq_idx_dev,
+                                                  comp_pair, angle_range_opt, segments,
+                                                  welch_window, readback_dtype == 'float16')
+                intensity[:, start:end] += inten
+                if ph is not None:
+                    phase[:, start:end] = ph
+        return freqs_kept, intensity, phase
+
+    # ------------------------------------------------------------------
+    # Longitudinal / transverse polarization decomposition
+    # ------------------------------------------------------------------
+
+    def _group_lt_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
+                     ku_chunk: torch.Tensor, freq_idx_dev: torch.Tensor):
+        """Host (I_L, I_T) planes of one non-empty group on one device k-chunk."""
+        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
+        i_l, i_t = spectral.sed_lt(data_dev, hi_dev, lo_dev, k_chunk, ku_chunk, freq_idx_dev,
+                                   precision=self.precision)
+        return _to_host(i_l), _to_host(i_t)
+
+    def calculate_lt(self, k_vectors_3d: np.ndarray,
+                     basis_atom_indices=None, basis_atom_types=None,
+                     summation_mode: str = 'coherent',
+                     max_freq: Optional[float] = None,
+                     k_chunk_size: int = 2048):
+        """Longitudinal and transverse SED intensities, reduced on the device:
+
+            I_L(ω,k) = |Σ_c k̂_c Φ_c(ω,k)|²,   I_T = Σ_c |Φ_c|² − I_L.
+
+        I_L carries the longitudinal branches, I_T the two transverse ones;
+        I_L + I_T is :meth:`calculate_kgrid_browse`'s intensity.  At Γ
+        (|k| = 0) the convention is I_L = 0, I_T = total.  Group semantics
+        follow :meth:`calculate`; incoherent mode sums per-group planes.
+
+        Returns:
+            (freqs_kept (n_keep,), I_L (n_keep, n_k) float32,
+             I_T (n_keep, n_k) float32)
+        """
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or "
+                             f"'incoherent', got {summation_mode}")
+        freqs_kept, freq_idx = self._kept_freqs(max_freq)
+        groups, _ = self._spectrum_groups(
+            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
+            summation_mode)
+        num_k = len(k_vectors_3d)
+        i_long = np.zeros((len(freq_idx), num_k), dtype=np.float32)
+        i_trans = np.zeros_like(i_long)
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        k_dev = self._to_device(k_vectors_3d)
+        ku_dev = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
+        for start, end in self._chunk_bounds(num_k, k_chunk_size):
+            for grp in groups:
+                i_l, i_t = self._group_lt_np(grp, k_dev[start:end], ku_dev[start:end],
+                                             freq_idx_dev)
+                i_long[:, start:end] += i_l
+                i_trans[:, start:end] += i_t
+        return freqs_kept, i_long, i_trans
+
+    # ------------------------------------------------------------------
+    # On-device peak extraction (dispersion surfaces)
+    # ------------------------------------------------------------------
+
+    def calculate_kgrid_peaks(self, k_vectors_3d: np.ndarray,
+                              basis_atom_indices=None, basis_atom_types=None,
+                              summation_mode: str = 'coherent',
+                              max_freq: Optional[float] = None,
+                              n_peaks: int = 1, exclusion_bins: int = 4,
+                              k_chunk_size: int = 2048,
+                              engine: str = 'auto',
+                              k_grid_shape: Optional[Tuple[int, int]] = None,
+                              chiral: bool = False, chiral_axis: str = 'z',
+                              angle_range_opt: str = 'C',
+                              width_method: str = 'rms',
+                              welch_segments: Optional[int] = None,
+                              welch_window: str = 'hann',
+                              cache_dir=None):
+        """Top-``n_peaks`` spectral peaks per k-point, extracted on the device.
+
+        Computes the planes of :meth:`calculate_kgrid_browse` chunk by chunk
+        and finds their peaks (:func:`psa_tpu_torch.ops.spectral.peak_reduce`)
+        where they lie: the planes never leave the device, the chunk loop
+        never waits for it, and only the 3·n_peaks·n_k peak floats are read
+        back, once, at the end.  Incoherent mode sums the per-group
+        intensities on the device before the peaks are found.  ``chiral``
+        (coherent) also gathers the chiral phase at each peak and appends a
+        fourth array.  ``width_method`` is 'rms' (a spread proxy) or
+        'lorentzian' (calibrated FWHM); ``welch_segments`` takes the peaks of
+        the segment-averaged planes.
+
+        ``engine='auto'`` runs the direct engine.  (The JAX package routes
+        big uniform grids to its NUFFT engine on TPU measurements; the port
+        keeps that rule out until that engine is ported and measured on the
+        GPU, ROADMAP A12.)  ``engine='gridded'``, ``cache_dir`` and groups
+        over ``max_device_bytes`` are not ported and raise.
+
+        Returns:
+            (peak_freqs, peak_heights, peak_widths[, peak_phase]): each
+            (n_peaks, n_k) float32, by descending height per k-column.
+        """
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
+        if n_peaks < 1:
+            raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
+        if engine == 'gridded':
+            raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
+        if engine not in ('direct', 'auto'):
+            raise ValueError(f"engine must be 'auto', 'direct' or 'gridded', got {engine!r}")
+        if cache_dir is not None:
+            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
+        if width_method not in ('rms', 'lorentzian'):
+            raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
+                             f"got {width_method!r}")
+        segments = self._welch_segments(welch_segments, welch_window)
+        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
+        if freq_idx.size == 0:
+            raise ValueError("No frequencies retained; check max_freq.")
+        groups, single_spectrum = self._spectrum_groups(
+            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
+            summation_mode)
+        comp_pair = None
+        if chiral:
+            if not single_spectrum:
+                raise ValueError("chiral peaks need coherent summation.")
+            comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis]
+        n_out = 4 if comp_pair is not None else 3
+        num_k = len(k_vectors_3d)
+        if num_k == 0 or not groups:
+            return tuple(np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out))
+
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        freqs_dev = self._to_device(freqs_kept)
+        k_dev = self._to_device(k_vectors_3d)
+        found = []
+        for start, end in self._chunk_bounds(num_k, k_chunk_size):
+            inten = phase = None
+            for grp in groups:
+                iv, phase = self._group_browse_dev(grp, k_dev[start:end], freq_idx_dev,
+                                                   comp_pair, angle_range_opt, segments,
+                                                   welch_window)
+                inten = iv if inten is None else inten + iv
+            found.append(torch.stack(spectral.peak_reduce(
+                inten, freqs_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                phase=phase, width_method=width_method)))
+        return tuple(_to_host(torch.cat(found, dim=-1)))
+
+    def calculate_group_velocity_path(self, k_points_mags: np.ndarray,
+                                      k_vectors_3d: np.ndarray,
+                                      n_bands: int = 1,
+                                      sort_bands: bool = True,
+                                      **peaks_kwargs):
+        """Band frequencies and group velocities v_g = 2π·∂ν/∂k along a k-path.
+
+        Runs :meth:`calculate_kgrid_peaks` (``peaks_kwargs`` pass through),
+        reorders the per-k peaks into continuous branches
+        (:func:`psa_tpu_torch.ops.dispersion.sort_bands_path`) and takes
+        central differences over ``k_points_mags``.
+
+        Returns:
+            (band_freqs, v_g, band_heights): each (n_bands, n_k) float32;
+            v_g in Å/ps (1 Å/ps = 100 m/s).
+        """
+        from ..ops import dispersion
+        if peaks_kwargs.get('chiral'):
+            raise ValueError("group-velocity extraction reads intensity "
+                             "peaks; drop chiral=True.")
+        k_mags = np.asarray(k_points_mags, dtype=np.float64)
+        freqs, heights, _ = self.calculate_kgrid_peaks(
+            k_vectors_3d, n_peaks=n_bands, **peaks_kwargs)
+        if sort_bands:
+            freqs, heights = dispersion.sort_bands_path(freqs, heights)
+        return freqs, dispersion.group_velocity_path(freqs, k_mags), heights
+
+    def calculate_group_velocity_surface(self, k_vectors_3d: np.ndarray,
+                                         k_grid_shape: Tuple[int, int],
+                                         n_bands: int = 1,
+                                         sort_bands: bool = True,
+                                         **peaks_kwargs):
+        """Band sheets and group-velocity fields (v_x, v_y) = 2π·∇_k ν over a
+        tensor-product k-grid (axes from :meth:`_detect_grid_axes`), with the
+        peaks band-sorted into continuous sheets before differencing.
+
+        Returns:
+            (band_freqs, v_x, v_y, band_heights): each (n_bands, gx, gy)
+            float32; velocities in Å/ps along the plane's slow and fast axes.
+        """
+        from ..ops import dispersion
+        if peaks_kwargs.get('chiral'):
+            raise ValueError("group-velocity extraction reads intensity "
+                             "peaks; drop chiral=True.")
+        kx_vals, ky_vals, _, _ = self._detect_grid_axes(
+            np.asarray(k_vectors_3d, dtype=np.float32), k_grid_shape)
+        freqs, heights, _ = self.calculate_kgrid_peaks(
+            k_vectors_3d, n_peaks=n_bands, k_grid_shape=tuple(k_grid_shape),
+            **peaks_kwargs)
+        gx, gy = int(k_grid_shape[0]), int(k_grid_shape[1])
+        freqs = freqs.reshape(n_bands, gx, gy)
+        heights = heights.reshape(n_bands, gx, gy)
+        if sort_bands:
+            freqs, heights = dispersion.sort_bands_grid(freqs, heights)
+        vx, vy = dispersion.group_velocity_grid(freqs, kx_vals, ky_vals)
+        return freqs, vx, vy, heights
+
+    def calculate_thermal_conductivity(self, k_vectors_3d: np.ndarray,
+                                       k_grid_shape: Tuple[int, int],
+                                       n_bands: int = 1,
+                                       volume_a3: Optional[float] = None,
+                                       mode_weights=None,
+                                       resolution_factor: float = 2.0,
+                                       mesh=None,
+                                       **peaks_kwargs):
+        """Kinetic-theory in-plane thermal conductivity from one k-grid sweep
+        (the SED method of Thomas et al., PRB 81, 081411 (2010)).
+
+        On-device peaks with calibrated Lorentzian FWHMs → band sorting →
+        group-velocity fields → τ = 1/(2π·FWHM) → κ_αβ = (k_B/V)·Σ v_α v_β τ
+        (classical per-mode heat capacity).  See
+        :mod:`psa_tpu_torch.ops.transport` for conventions and units.  Modes
+        whose linewidth is at or below ``resolution_factor``/(n_t·dt) are
+        skipped (``KappaResult.n_modes_used``).  ``volume_a3`` defaults to
+        det(box_matrix); ``width_method`` is pinned to 'lorentzian';
+        ``mesh`` is not ported and raises.
+
+        Returns:
+            (result, band_freqs, v_x, v_y): a
+            :class:`psa_tpu_torch.ops.transport.KappaResult` plus the
+            band-sorted (n_bands, gx, gy) frequency sheets and velocity fields.
+        """
+        from ..ops import dispersion, transport
+        if mesh is not None:
+            raise _not_ported("mesh= (the multi-device sweep)", "A13")
+        if peaks_kwargs.get('chiral'):
+            raise ValueError("thermal conductivity reads intensity peaks; "
+                             "drop chiral=True.")
+        if peaks_kwargs.pop('width_method', 'lorentzian') != 'lorentzian':
+            raise ValueError("thermal conductivity requires the calibrated "
+                             "width_method='lorentzian'.")
+        kx_vals, ky_vals, _, _ = self._detect_grid_axes(
+            np.asarray(k_vectors_3d, dtype=np.float32), k_grid_shape)
+        pf, ph, pw = self.calculate_kgrid_peaks(
+            k_vectors_3d, n_peaks=n_bands, k_grid_shape=tuple(k_grid_shape),
+            width_method='lorentzian', **peaks_kwargs)
+        gx, gy = int(k_grid_shape[0]), int(k_grid_shape[1])
+        pf = pf.reshape(n_bands, gx, gy)
+        ph = ph.reshape(n_bands, gx, gy)
+        pw = pw.reshape(n_bands, gx, gy)
+        pf, ph, pw = dispersion.sort_bands_grid(pf, ph, pw)
+        vx, vy = dispersion.group_velocity_grid(pf, kx_vals, ky_vals)
+        df = 1.0 / (self.traj.n_frames * self.dt_ps)
+        tau = transport.phonon_lifetimes(
+            pw, resolution_fwhm_thz=resolution_factor * df)
+        if volume_a3 is None:
+            volume_a3 = float(abs(np.linalg.det(
+                self.traj.box_matrix.astype(np.float64))))
+        result = transport.kinetic_kappa(vx, vy, tau, volume_a3,
+                                         mode_weights=mode_weights)
+        return result, pf, vx, vy
+
+    @staticmethod
+    def _detect_grid_axes(k_vectors_3d: np.ndarray, k_grid_shape):
+        """Classify a tensor-product k-grid's columns as (slow, fast, fixed).
+
+        Detection is by which grid axis each component varies along.  A
+        degenerate grid (n1==1 or n2==1) leaves its plane column constant,
+        indistinguishable by value from the fixed column, so unassigned roles
+        follow get_k_grid's cyclic plane convention (xy->(0,1,2),
+        yz->(1,2,0), zx->(2,0,1)).
+
+        Returns (kx_vals f64, ky_vals f64, k_fixed, (slow, fast, fixed)).
+        """
+        n1, n2 = k_grid_shape
+        if n1 * n2 != len(k_vectors_3d):
+            raise ValueError("k_grid_shape does not match k_vectors_3d")
+        mat = np.asarray(k_vectors_3d, dtype=np.float32).reshape(n1, n2, 3)
+        slow_col = fast_col = None
+        for c in range(3):
+            col = mat[:, :, c]
+            varies_slow = not np.allclose(col, col[:1, :], atol=1e-7)
+            varies_fast = not np.allclose(col, col[:, :1], atol=1e-7)
+            if varies_slow and varies_fast:
+                raise ValueError(
+                    "k_vectors_3d is not a tensor-product grid from get_k_grid")
+            if varies_slow:
+                if slow_col is not None:
+                    raise ValueError(
+                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
+                slow_col = c
+            elif varies_fast:
+                if fast_col is not None:
+                    raise ValueError(
+                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
+                fast_col = c
+        if slow_col is not None and fast_col is not None:
+            fixed_col = 3 - slow_col - fast_col
+        elif fast_col is not None:          # 1 x n2 grid
+            slow_col, fixed_col = (fast_col - 1) % 3, (fast_col + 1) % 3
+        elif slow_col is not None:          # n1 x 1 grid
+            fast_col, fixed_col = (slow_col + 1) % 3, (slow_col + 2) % 3
+        else:                               # 1 x 1 grid
+            slow_col, fast_col, fixed_col = 0, 1, 2
+        return (mat[:, 0, slow_col].astype(np.float64),
+                mat[0, :, fast_col].astype(np.float64),
+                float(mat[0, 0, fixed_col]),
+                (slow_col, fast_col, fixed_col))
 
     # ------------------------------------------------------------------
     # Chiral phase

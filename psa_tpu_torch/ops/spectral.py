@@ -10,10 +10,14 @@ The math (reference formula, src/psa/core/sed_calculator.py:58-84):
 Steps 1-3 (angles, cos/sin, the atom contraction) run in
 :func:`psa_tpu_torch.ops.sed_projection.sed_projection`; step 4 is
 ``torch.fft.fft`` over time.  Complex results are complex64 tensors.
+
+The grid reductions (browse planes, Welch segments, the L/T split, peak
+extraction) are plain torch ops on the device: the complex spectrum of a
+k-chunk never leaves it, only the reduced planes or peak triplets do.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,8 +76,277 @@ def sed_spectrum(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
 def sed_intensity(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
                   k_vectors: torch.Tensor, precision: str = 'parity') -> torch.Tensor:
     """Σ_α |Φ_α(ω,k)|² of one atom group, (n_t, n_k) float32."""
-    spec = sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision)
+    return _power(sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision))
+
+
+def _power(spec: torch.Tensor) -> torch.Tensor:
+    """Σ over the last (polarization) axis of |spec|², float32."""
     return (spec.real * spec.real + spec.imag * spec.imag).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Welch/Bartlett segment averaging
+# ---------------------------------------------------------------------------
+
+def welch_window(seg: int, window: str, device=None) -> Optional[torch.Tensor]:
+    """Per-segment taper with unit coherent gain (mean 1), float32, or None
+    for 'rect'.  'hann' is the periodic Hann 0.5·(1 − cos) divided by its
+    mean 0.5, i.e. 1 − cos(2πn/seg)."""
+    if window == 'rect':
+        return None
+    if window == 'hann':
+        n = torch.arange(seg, dtype=torch.float64, device=device)
+        return (1.0 - torch.cos(2.0 * torch.pi * n / seg)).float()
+    raise ValueError(f"window must be 'rect' or 'hann', got {window!r}")
+
+
+def _segment_spectra(re: torch.Tensor, im: torch.Tensor, segments: int,
+                     window: str) -> torch.Tensor:
+    """Per-segment spectra of (n_t, 3, K) projections, (S, seg, K, 3) complex64.
+
+    The time axis is cut into ``segments`` windows of n_t // segments frames
+    (the trailing n_t % segments frames are dropped), each tapered by
+    :func:`welch_window` and FFT'd with the same FFT/seg normalization as the
+    full spectrum.  The taper multiplies the projected signal: windowing
+    commutes with the atom contraction, so the kernel runs once per k-chunk.
+    """
+    n_t, _, n_k = re.shape
+    seg = n_t // segments
+    sig = torch.complex(re[:seg * segments], im[:seg * segments]).reshape(segments, seg, 3, n_k)
+    w = welch_window(seg, window, device=re.device)
+    if w is not None:
+        sig = sig * w[None, :, None, None]
+    spec = torch.fft.fft(sig, dim=1) / seg
+    return spec.transpose(2, 3)
+
+
+def welch_browse_reduce(re: torch.Tensor, im: torch.Tensor, freq_idx: torch.Tensor,
+                        segments: int, window: str,
+                        comp_pair: Optional[Tuple[int, int]] = None,
+                        angle_range_opt: str = 'C'):
+    """Segment-averaged browse planes from (n_t, 3, K) projections.
+
+    Intensity is mean_S Σ_α |Φ_α|² on the kept rows (``freq_idx`` indexes
+    the segment spectrum); the chiral phase, when ``comp_pair`` is given,
+    is that of the segment-averaged cross-spectrum ⟨Z₁·Z₂*⟩_S, which is the
+    single-window phase difference at segments=1.
+
+    Returns (intensity (n_keep, K) float32, phase (n_keep, K) float32 or None).
+    """
+    spec = _segment_spectra(re, im, segments, window).index_select(1, freq_idx)
+    inten = _power(spec).mean(dim=0)
+    if comp_pair is None:
+        return inten, None
+    c1, c2 = comp_pair
+    cross = (spec[..., c1] * spec[..., c2].conj()).mean(dim=0)
+    return inten, chiral_phase(cross, torch.ones_like(cross), angle_range_opt=angle_range_opt)
+
+
+def sed_grid_browse_welch(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
+                          k_vectors: torch.Tensor, freq_idx: torch.Tensor, segments: int,
+                          window: str = 'hann', precision: str = 'parity',
+                          comp_pair: Optional[Tuple[int, int]] = None,
+                          angle_range_opt: str = 'C'):
+    """Projection + Welch browse reduction of one atom group on one k-chunk
+    (the segment-averaged form of :func:`sed_grid_browse`)."""
+    check_precision(precision)
+    re, im = sed_projection(data, mp_hi, mp_lo, k_vectors)
+    return welch_browse_reduce(re, im, freq_idx, segments, window, comp_pair=comp_pair,
+                               angle_range_opt=angle_range_opt)
+
+
+def sed_welch_intensity(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
+                        k_vectors: torch.Tensor, segments: int, window: str = 'hann',
+                        precision: str = 'parity') -> torch.Tensor:
+    """Segment-averaged (Welch/Bartlett) intensity of one atom group,
+    (n_t // segments, n_k) float32 over every row of the segment spectrum."""
+    check_precision(precision)
+    re, im = sed_projection(data, mp_hi, mp_lo, k_vectors)
+    return _power(_segment_spectra(re, im, segments, window)).mean(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Device-reduced grid browsing: only the planes a heat-map browser reads
+# ---------------------------------------------------------------------------
+
+#: Chiral axis -> the two polarization components perpendicular to it.
+CHIRAL_AXIS_COMPONENTS = {'x': (1, 2), 'y': (0, 2), 'z': (0, 1)}
+
+
+def browse_reduce(spec: torch.Tensor, freq_idx: torch.Tensor,
+                  comp_pair: Optional[Tuple[int, int]] = None,
+                  angle_range_opt: str = 'C'):
+    """Browse planes of a complex spectrum, on its device.
+
+    Args:
+        spec: (n_t, K, 3) complex64 spectrum.
+        freq_idx: (n_keep,) int64 indices of the kept frequency rows.
+        comp_pair: polarization pair for the chiral phase, or None.
+
+    Returns:
+        (intensity (n_keep, K) float32, phase (n_keep, K) float32 or None).
+    """
+    kept = spec.index_select(0, freq_idx)
+    inten = _power(kept)
+    if comp_pair is None:
+        return inten, None
+    c1, c2 = comp_pair
+    return inten, chiral_phase(kept[..., c1], kept[..., c2], angle_range_opt=angle_range_opt)
+
+
+def sed_grid_browse(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
+                    k_vectors: torch.Tensor, freq_idx: torch.Tensor,
+                    precision: str = 'parity',
+                    comp_pair: Optional[Tuple[int, int]] = None,
+                    angle_range_opt: str = 'C'):
+    """:func:`sed_spectrum` + :func:`browse_reduce` of one atom group on one
+    k-chunk; the complex spectrum stays on the device."""
+    spec = sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision)
+    return browse_reduce(spec, freq_idx, comp_pair=comp_pair, angle_range_opt=angle_range_opt)
+
+
+def compress_plane(plane: torch.Tensor):
+    """(float16 sqrt-domain plane, float32 scale): the display readback form.
+
+    Raw intensities overflow float16, so the plane is divided by its maximum
+    and shipped as sqrt(plane/max) in float16.  The decompressed intensity's
+    relative error is ≤ ~2·2⁻¹¹ for every pixel ≥ ~4e-9 of the plane max;
+    below that the absolute error is ≤ 4e-9 of max.
+    """
+    m = plane.max()
+    scale = torch.where(m > 0, m, torch.ones_like(m)).float()
+    return torch.sqrt(torch.clamp(plane / scale, min=0.0)).half(), scale
+
+
+def decompress_plane(plane16, scale) -> np.ndarray:
+    """Host inverse of :func:`compress_plane` (NumPy float32 out)."""
+    root = np.asarray(plane16, dtype=np.float32)
+    return root * root * np.float32(scale)
+
+
+def compress_browse(inten: torch.Tensor, phase: Optional[torch.Tensor] = None):
+    """Browse planes packed for the float16 readback: the intensity as
+    :func:`compress_plane`, the chiral phase (within ±π/2) as plain float16.
+    Returns (i16, scale) or (i16, scale, p16)."""
+    i16, scale = compress_plane(inten)
+    if phase is None:
+        return i16, scale
+    return i16, scale, phase.half()
+
+
+# ---------------------------------------------------------------------------
+# Longitudinal / transverse split:  Φ_L = Σ_c k̂_c Φ_c,  I_L = |Φ_L|²,
+# I_T = Σ_c |Φ_c|² − I_L
+# ---------------------------------------------------------------------------
+
+def lt_reduce(spec: torch.Tensor, k_unit: torch.Tensor, freq_idx: torch.Tensor):
+    """Longitudinal and transverse intensity planes of a complex spectrum.
+
+    Args:
+        spec: (n_t, K, 3) complex64 spectrum.
+        k_unit: (K, 3) float32 unit k-vectors.  An all-zero row (Γ, where
+            the split is undefined) gives I_L = 0 and I_T = the total.
+        freq_idx: (n_keep,) int64 kept frequency rows.
+
+    Returns:
+        (I_L (n_keep, K) float32, I_T (n_keep, K) float32).
+    """
+    kept = spec.index_select(0, freq_idx)
+    ku = k_unit[None]
+    re_l = (kept.real * ku).sum(dim=-1)
+    im_l = (kept.imag * ku).sum(dim=-1)
+    i_l = re_l * re_l + im_l * im_l
+    # total − I_L ≥ 0 by Cauchy-Schwarz; clamp the float32 rounding
+    return i_l, torch.clamp(_power(kept) - i_l, min=0.0)
+
+
+def sed_lt(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
+           k_vectors: torch.Tensor, k_unit: torch.Tensor, freq_idx: torch.Tensor,
+           precision: str = 'parity'):
+    """:func:`sed_spectrum` + :func:`lt_reduce` of one atom group on one k-chunk."""
+    spec = sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision)
+    return lt_reduce(spec, k_unit, freq_idx)
+
+
+def unit_k_vectors(k_vectors: np.ndarray) -> np.ndarray:
+    """k/|k| with all-zero rows left at zero (host, NumPy float32)."""
+    kv = np.asarray(k_vectors, dtype=np.float32)
+    norms = np.linalg.norm(kv, axis=-1, keepdims=True)
+    return np.where(norms > 0, kv / np.where(norms > 0, norms, 1.0), 0.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Peak extraction on the device: the dispersion surface without the planes
+# ---------------------------------------------------------------------------
+
+def peak_reduce(inten: torch.Tensor, freqs_kept: torch.Tensor, n_peaks: int = 1,
+                exclusion_bins: int = 4, phase: Optional[torch.Tensor] = None,
+                width_method: str = 'rms'):
+    """Top-``n_peaks`` spectral peaks of each k-column, on the planes' device.
+
+    Greedy per column: take the argmax (the first of equal maxima), record
+    (frequency, height, width), zero the rows within ±``exclusion_bins`` of
+    it, repeat.  Widths:
+
+    * ``'rms'``: the intensity-weighted RMS frequency spread inside the
+      window, a linewidth proxy.
+    * ``'lorentzian'``: the FWHM of a closed-form I²-weighted least-squares
+      fit of 1/I = 1/h + (ν−ν₀)²/(hγ²) over the window, γ² = intercept /
+      slope, FWHM = 2γ, clamped to the window span.  The window is divided
+      by the peak height first: γ does not change under I → cI, and raw
+      intensities near 1e10 would overflow the float32 I⁴-sized sums.
+
+    Args:
+        inten: (n_f, K) intensity planes of one k-chunk; columns are
+            independent.
+        freqs_kept: (n_f,) float32 frequencies of the rows (THz).
+        phase: optional planes of ``inten``'s shape; the phase at each peak
+            row is gathered too.
+
+    Returns:
+        (peak_freq, peak_height, peak_width[, peak_phase]), each
+        (n_peaks, K) float32.
+    """
+    if width_method not in ('rms', 'lorentzian'):
+        raise ValueError(f"width_method must be 'rms' or 'lorentzian', got {width_method!r}")
+    n_f = inten.shape[0]
+    fk = freqs_kept.float()[:, None]
+    row = torch.arange(n_f, device=inten.device)[:, None]
+    if width_method == 'lorentzian':
+        df = (fk[-1, 0] - fk[0, 0]) / (n_f - 1) if n_f > 1 else torch.ones_like(fk[0, 0])
+        span = 2.0 * exclusion_bins * df
+    cur = inten.float()
+    outs = []
+    for _ in range(n_peaks):
+        idx = torch.argmax(cur, dim=0)
+        height = cur.gather(0, idx[None])[0]
+        in_win = (row - idx[None]).abs() <= exclusion_bins
+        w = torch.where(in_win, cur, 0.0)
+        peak_f = fk[:, 0].index_select(0, idx)
+        if width_method == 'rms':
+            wsum = torch.clamp(w.sum(dim=0), min=1e-30)
+            mu = (w * fk).sum(dim=0) / wsum
+            var = (w * (fk - mu[None]) ** 2).sum(dim=0) / wsum
+            width = torch.sqrt(torch.clamp(var, min=0.0))
+        else:
+            x = (fk - peak_f[None]) ** 2
+            wn = w / torch.clamp(height, min=1e-30)[None]
+            y = 1.0 / torch.clamp(wn, min=1e-30)
+            wt = torch.where(in_win, wn * wn, 0.0)
+            sw, sx, sy = wt.sum(dim=0), (wt * x).sum(dim=0), (wt * y).sum(dim=0)
+            sxx, sxy = (wt * x * x).sum(dim=0), (wt * x * y).sum(dim=0)
+            det = sw * sxx - sx * sx
+            slope = torch.where(det.abs() > 1e-30, (sw * sxy - sx * sy) / det, 0.0)
+            intercept = torch.where(sw > 1e-30, (sy - slope * sx) / sw, 0.0)
+            gamma_sq = torch.where(slope > 1e-30, torch.clamp(intercept, min=0.0) / slope,
+                                   torch.inf)
+            width = torch.minimum(2.0 * torch.sqrt(gamma_sq), span)
+        found = [peak_f, height, width]
+        if phase is not None:
+            found.append(phase.gather(0, idx[None])[0].float())
+        outs.append(found)
+        cur = torch.where(in_win, 0.0, cur)
+    return tuple(torch.stack(col) for col in zip(*outs))
 
 
 def displacement_data(positions: torch.Tensor, mp_hi: torch.Tensor,

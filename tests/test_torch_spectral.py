@@ -210,7 +210,8 @@ def test_build_module_imports_without_nvcc():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, psa_tpu_torch, psa_tpu_torch.core.convert, psa_tpu_torch.models; "
+    code = ("import sys, psa_tpu_torch, psa_tpu_torch.core.convert, psa_tpu_torch.models, "
+            "psa_tpu_torch.ops.dispersion, psa_tpu_torch.ops.transport; "
             "bad = [m for m in ('jax', 'psa_tpu', 'matplotlib', 'yaml') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True, timeout=120)
