@@ -6,10 +6,12 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 On chip_smoke.py's working-size data (10^5 atoms x 10^4 steps, seeded
 velocities on the card, 50x50 k-grid) it runs, for each of ``calculate``
-(k-chunks of 500), ``calculate_kgrid_peaks`` (3 peaks, k-chunks of 1,280)
-and ``calculate_kgrid_browse`` (k-chunks of 1,280, float32 and float16
-readback): one warm-up call, three timed calls, then one call under
-torch.profiler.  For each it prints one JSON line: the walls, the device
+(k-chunks of 500), ``calculate_kgrid_peaks`` (3 peaks, k-chunks of 1,280),
+``calculate_kgrid_browse`` (k-chunks of 1,280, float32 and float16
+readback), and ``calculate`` and ``calculate_kgrid_peaks`` on the same
+velocities copied to the host under the default device budget, so the group
+streams in atom blocks (``calculate_streamed``, ``kgrid_peaks_streamed``):
+one warm-up call, three timed calls, then one call under torch.profiler.  For each it prints one JSON line: the walls, the device
 time and event count by category (the projection kernel, cuFFT, other
 kernels, memsets, each copy direction), the device's busy time (the union
 of the intervals of its kernels, copies and memsets), the idle share of the
@@ -121,6 +123,20 @@ def main():
             k_vecs, k_chunk_size=cs.K_CHUNK_GRID, readback_dtype='float16'),
     }
     for name, run in paths.items():
+        print(json.dumps(profile_path(name, run, out_dir)), flush=True)
+    host = velocities.cpu().numpy()
+    calc.clear_device_cache()
+    del velocities
+    torch.cuda.empty_cache()
+    scalc, _, _ = cs.working_calculator(dev, host)
+    scalc.mean_positions64
+    streamed = {
+        'calculate_streamed': lambda: scalc.calculate(np.array([], np.float32), k_vecs,
+                                                      k_grid_shape=grid_shape),
+        'kgrid_peaks_streamed': lambda: scalc.calculate_kgrid_peaks(
+            k_vecs, n_peaks=cs.N_PEAKS, k_chunk_size=cs.K_CHUNK_GRID),
+    }
+    for name, run in streamed.items():
         print(json.dumps(profile_path(name, run, out_dir)), flush=True)
 
 

@@ -14,12 +14,18 @@ physics, runs ``SEDCalculator.calculate`` at the working size (10^5 atoms x
 ``calculate_kgrid_peaks`` (3 peaks, k-chunks of 1,280) and
 ``calculate_kgrid_browse`` (float32 and float16 readback) on the same data
 against the float64 oracle, the grid reductions' physics at small sizes
-(square-lattice peak surface, chiral peaks, L/T split, Welch), and the rest
-of the slice (incoherent groups, chiral phase, iSED).  Each phase prints one line;
+(square-lattice peak surface, chiral peaks, L/T split, Welch), then the
+out-of-core and on-disk path on the same working-size data: ``calculate``,
+``calculate_kgrid_peaks`` and ``calculate_dos`` with the velocities on the
+host and the default device budget, so the group streams in atom blocks
+(phase 7); kill-and-resume through ``cache_dir`` (phase 8); a LAMMPS dump
+of 10^4 atoms x 200 frames loaded with ``TrajectoryLoader`` and streamed
+with ``sed_from_dump_streaming`` (phase 9); and the rest of the slice
+(incoherent groups, chiral phase, iSED).  Each phase prints one line;
 any failure raises and the script exits non-zero.  The line before the last
 is a JSON record of each kernel (launches on the main path, error, times);
 the last line is ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero
-before printing any result.
+before printing any result.  About 90 s on an H100 machine.
 """
 import json
 import re
@@ -28,6 +34,7 @@ import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,6 +49,10 @@ DESIGN = "3xtf32-wgmma"   # how csrc/sed_projection.cu multiplies
 K_CHUNK_GRID, N_PEAKS = 1280, 3   # bench.py's calculate_kgrid_peaks headline
 NEAR_TIE = 1e-5     # oracle peak candidates this close (of the column max) may swap
 F16_REL_EPS, F16_REL_FLOOR = 2.0 ** -9, 4e-9   # float16 readback bounds, tests/test_readback.py
+TOL_DOS = 1e-6      # streamed vs resident DOS: the same atom chunks, the same FFTs
+RESUME_K = 1000     # phase 8: the first 1,000 k of the grid, two chunks of 500
+DUMP_ATOMS, DUMP_FRAMES, DUMP_CHUNK = 10_000, 200, 64   # phase 9's LAMMPS dump
+TF32_PEAK, HBM_RATE = 495e12, 3.35e12   # H100 SXM: dense TF32 FLOP/s, HBM bytes/s
 
 
 def log(phase, msg):
@@ -80,20 +91,22 @@ def si_sites(n_atoms):
     return sites, side, a0
 
 
-def working_calculator(dev):
-    """(calc, k_vecs, grid_shape) of the working size: the Si slab's sites
-    with host placeholders for the velocities, which live on the card (the
-    caller preloads them), and the 50x50 k-grid."""
+def working_calculator(dev, velocities=None, **kw):
+    """(calc, k_vecs, grid_shape) of the working size: the Si slab's sites,
+    the 50x50 k-grid, and host ``velocities``; without them, host
+    placeholders, the velocities living on the card (the caller preloads
+    them) under a 13e9-byte budget."""
     from psa_tpu_torch import SEDCalculator, Trajectory
     from psa_tpu_torch.core.trajectory import make_box_arrays
     sites, side, a0 = si_sites(N_ATOMS)
     box = np.diag([sites.max() + a0] * 3).astype(np.float32)
-    traj = Trajectory(np.broadcast_to(sites.astype(np.float32), (N_T, N_ATOMS, 3)),
-                      np.broadcast_to(np.zeros(3, np.float32), (N_T, N_ATOMS, 3)),
+    if velocities is None:
+        velocities = np.broadcast_to(np.zeros(3, np.float32), (N_T, N_ATOMS, 3))
+        kw.setdefault('max_device_bytes', int(13e9))
+    traj = Trajectory(np.broadcast_to(sites.astype(np.float32), (N_T, N_ATOMS, 3)), velocities,
                       np.ones(N_ATOMS, dtype=np.int32), np.arange(N_T, dtype=np.float32),
                       box, *make_box_arrays(box), dt_ps=0.01)
-    calc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=int(13e9),
-                         device=dev)
+    calc = SEDCalculator(traj, nx=side, ny=side, nz=side, device=dev, **kw)
     _, k_vecs, grid_shape = calc.get_k_grid('xy', (-5, 5), (-5, 5), GRID, GRID)
     return calc, k_vecs, grid_shape
 
@@ -194,7 +207,8 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
     calculate_kgrid_browse at the working size, held against the float64
     oracle's columns, after the kernel is held against its plain version on
     the (velocities, hi, lo) ``arrays`` at both paths' k-chunks.  Returns the
-    launches of each path and the chunk checks."""
+    launches of each path, the chunk checks, and the peak bins with the
+    oracle columns' near-tie mask."""
     from psa_tpu_torch.core.calculator import peaks_np
     n_t, n_k = oracle.shape[0], len(k_vecs)
     freqs = np.fft.fftfreq(n_t, dt_ps)
@@ -266,7 +280,7 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
                 f"oracle {browse_err:.3e} of max; float16 {out['float16'][0]:.3f} s wall, "
                 f"per-pixel rel err {f16_rel:.3e} (<= {F16_REL_EPS:.3e} above {F16_REL_FLOOR} "
                 f"of max); launches {out['float32'][2]} and {out['float16'][2]}")
-    return launches[-1], out['float32'][2], chunks
+    return launches[-1], out['float32'][2], chunks, (pf, tied)
 
 
 def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
@@ -331,6 +345,316 @@ def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
     log('grid', f"calculate_welch, 2 segments: chain peaks on nu = {nu_max}|sin(ka/2)| within "
                 f"{miss:.4f} THz <= segment resolution {df_seg:.4f} THz; launches {welch_launches}")
     return lt_launches, welch_launches, chunks
+
+
+def out_accumulate_checks(proj, gen, rng, dev32, velocities, hi_dev, lo_dev, k_dev):
+    """Phase 3, continued: ``out=`` on a row slice and ``accumulate=True``
+    against the plain version's same call, at (197, 5003, 201), and the
+    working chunk summed over two atom halves.  Returns the rel errors."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    n_t, n_a, n_k = 197, 5003, 201
+    hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
+    args = (torch.randn((n_t, n_a, 3), generator=gen, device=velocities.device), dev32(hi),
+            dev32(lo), dev32(rng.uniform(-3, 3, size=(n_k, 3))))
+    errs = {}
+    sig = [torch.full((n_t + 60, 3, n_k), 7.0, device=velocities.device) for _ in range(2)]
+    rows = [x[20:20 + n_t] for x in sig]
+    proj.sed_projection(*args, out=rows)
+    want = proj.sed_projection_plain(*args)
+    outside = all(bool((x[:20] == 7.0).all() and (x[20 + n_t:] == 7.0).all()) for x in sig)
+    e, scale = pair_err(rows, want)
+    errs['out_row_slice'] = e / scale
+    check(outside and e / scale <= TOL_KERNEL, f"out= row slice {e / scale:.3e}, outside kept {outside}")
+    base = proj.sed_projection_plain(args[0].flip(0).contiguous(), *args[1:])
+    got = proj.sed_projection(*args, out=[b.clone() for b in base], accumulate=True)
+    want = proj.sed_projection_plain(*args, out=[b.clone() for b in base], accumulate=True)
+    e, scale = pair_err(got, want)
+    errs['accumulate'] = e / scale
+    check(e / scale <= TOL_KERNEL, f"accumulate=True {e / scale:.3e}")
+    del sig, rows, base, got, want, args
+
+    half = velocities.shape[1] // 2
+    outs = {}
+    for fn in (proj.sed_projection, proj.sed_projection_plain):
+        out = None
+        for a0, a1 in ((0, half), (half, velocities.shape[1])):
+            part = velocities[:, a0:a1].contiguous()     # the kernel reads whole time steps
+            out = fn(part, hi_dev[a0:a1], lo_dev[a0:a1], k_dev, out=out, accumulate=out is not None)
+            del part
+        outs[fn.__name__] = out
+    torch.cuda.synchronize()
+    e, scale = pair_err(outs['sed_projection'], outs['sed_projection_plain'])
+    errs['working_chunk_two_halves'] = e / scale
+    check(e / scale <= TOL_KERNEL, f"working chunk over two atom halves {e / scale:.3e}")
+    return errs
+
+
+def streamed_chunk_errors(scalc, proj, k_vecs):
+    """Kernel vs plain through the streamed paths' own loop: every atom block
+    of the working group (the ragged last one too) accumulated, as the
+    paths do, into ``calculate``'s first k-chunk and into both k-chunks of
+    ``calculate_kgrid_peaks``; each accumulated output compared whole.
+    Returns the path_chunks_rel_err entries."""
+    k_dev = torch.from_numpy(np.ascontiguousarray(k_vecs, dtype=np.float32)).to(scalc.device)
+    runs = [('calculate_streamed', k_dev[:K_CHUNK])] + [
+        ('kgrid_peaks_streamed', k_dev[s:s + K_CHUNK_GRID])
+        for s in range(0, len(k_dev), K_CHUNK_GRID)]
+    outs = [[None, None] for _ in runs]
+    sizes = []
+    for i, (a0, a1, data, hi, lo) in enumerate(scalc._stream_group(np.arange(N_ATOMS))):
+        sizes.append(a1 - a0)
+        for (_, kv), pair in zip(runs, outs):
+            for j, fn in enumerate((proj.sed_projection, proj.sed_projection_plain)):
+                pair[j] = fn(data, hi, lo, kv, out=pair[j], accumulate=i > 0)
+    torch.cuda.synchronize()
+    found = []
+    for (path, kv), (kern, plain) in zip(runs, outs):
+        err_abs, scale = pair_err(kern, plain)
+        found.append({"path": path, "shapes": sorted({(N_T, n, len(kv)) for n in sizes}),
+                      "blocks": len(sizes), "rel_err": err_abs / scale})
+    worst = max(f["rel_err"] for f in found)
+    check(worst <= TOL_KERNEL, f"kernel vs plain through the streamed loop {found} > {TOL_KERNEL}")
+    return found
+
+
+def out_of_core(velocities, calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed,
+                resident_peaks):
+    """Phase 7: the working-size group on the host under the default device
+    budget, so ``calculate``, ``calculate_kgrid_peaks`` and ``calculate_dos``
+    stream it in atom blocks; held against the f64 oracle columns and the
+    resident results, then the kernel against its plain version through
+    the same atom-block loop.  Returns the launches of the two streamed
+    paths and the loop's checks."""
+    from psa_tpu_torch.core.calculator import _DEFAULT_MAX_DEVICE_BYTES
+    t0 = time.perf_counter()
+    host = velocities.cpu().numpy()
+    t_copy = time.perf_counter() - t0
+    scalc, _, _ = working_calculator(velocities.device, host)
+    check(scalc.max_device_bytes == _DEFAULT_MAX_DEVICE_BYTES < host.nbytes,
+          "the working group must exceed the default max_device_bytes")
+    scalc.mean_positions64                           # host mean, outside the timed call
+    n_k = len(k_vecs)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    proj.launches, moved0 = 0, scalc.streamed_bytes
+    t0 = time.perf_counter()
+    sed = scalc.calculate(np.array([], np.float32), k_vecs, k_grid_shape=grid_shape,
+                          k_chunk_size=K_CHUNK)
+    wall = time.perf_counter() - t0
+    calc_launches = proj.launches
+    moved = (scalc.streamed_bytes - moved0) / 1e9
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    accum = 24 * N_T * n_k / 1e9
+    block = scalc.stream_block_atoms(N_ATOMS)
+    check(sed.sed.shape == (N_T, n_k, 3) and bool(np.isfinite(sed.sed).all()), "streamed SED")
+    got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
+    err = rel(got.to(torch.complex128), oracle)
+    vs_resident = float(np.abs(sed.sed - resident_sed).max() / np.abs(resident_sed).max())
+    check(err <= TOL_KERNEL, f"streamed calculate vs f64 oracle {err:.3e}")
+    check(vs_resident <= TOL_KERNEL, f"streamed vs resident calculate {vs_resident:.3e}")
+    check(peak <= scalc.max_device_bytes / 1e9 + accum,
+          f"streamed peak device memory {peak:.2f} GB over the budget plus accumulators")
+    check(calc_launches == -(-N_ATOMS // block) * -(-n_k // K_CHUNK),
+          f"streamed calculate launched {calc_launches} kernels")
+    log('ooc', f"calculate, velocities on the host ({host.nbytes / 1e9:.1f} GB, copied off the card "
+               f"in {t_copy:.2f} s), max_device_bytes={scalc.max_device_bytes:.0e}: {wall:.3f} s "
+               f"wall, {n_k / wall:.1f} k-points/s; kernel launches {calc_launches} "
+               f"({-(-N_ATOMS // block)} atom blocks of {block} x {-(-n_k // K_CHUNK)} k-chunks); "
+               f"host->device {moved:.2f} GB ({moved / wall:.2f} GB/s over the wall); peak device "
+               f"memory above the call's start {peak:.2f} GB (budget {scalc.max_device_bytes / 1e9:.1f} "
+               f"+ accumulators {accum:.2f}); 4 k-columns vs f64 oracle {err:.3e}, vs the resident "
+               f"result {vs_resident:.3e} of max (tol {TOL_KERNEL})")
+    del sed, got
+
+    pf_res, tied = resident_peaks
+    proj.launches = 0
+    t0 = time.perf_counter()
+    pf, ph, pw = scalc.calculate_kgrid_peaks(k_vecs, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK_GRID)
+    peaks_wall = time.perf_counter() - t0
+    peaks_launches = proj.launches
+    checked = [int(c) for c, t in zip(cols, tied) if not t]
+    check(all(np.array_equal(pf[:, c], pf_res[:, c]) for c in checked),
+          "streamed peak bins differ from the resident ones")
+    check(np.isfinite(ph).all() and np.isfinite(pw).all() and peaks_launches > 0, "streamed peaks")
+    log('ooc', f"kgrid_peaks (streamed into the device peak reduction): {peaks_wall:.3f} s wall, "
+               f"{n_k / peaks_wall:.1f} k-points/s; launches {peaks_launches}; bins equal the "
+               f"resident peaks' on {len(checked)} of {len(cols)} oracle columns (the others near-tied)")
+
+    walls = {}
+    for name, c in (('resident', calc), ('streamed', scalc)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls[name] = (c.calculate_dos(), time.perf_counter() - t0)
+    (f_r, d_r), (f_s, d_s) = walls['resident'][0], walls['streamed'][0]
+    dos_err = float(np.abs(d_s - d_r).max() / np.abs(d_r).max())
+    check(np.array_equal(f_r, f_s) and dos_err <= TOL_DOS, f"streamed DOS vs resident {dos_err:.3e}")
+    log('ooc', f"calculate_dos: resident {walls['resident'][1]:.3f} s, streamed "
+               f"{walls['streamed'][1]:.3f} s; streamed vs resident {dos_err:.3e} of max "
+               f"(tol {TOL_DOS}), bitwise equal: {bool(np.array_equal(d_s, d_r))}")
+
+    t0 = time.perf_counter()
+    loop = streamed_chunk_errors(scalc, proj, k_vecs)
+    log('ooc', "kernel vs plain through the streamed atom-block loop, each accumulated output "
+               "whole: " + ", ".join(f"{f['path']} {f['blocks']} blocks {f['shapes']}: rel err "
+                                     f"{f['rel_err']:.3e}" for f in loop)
+               + f" (tol {TOL_KERNEL}); {time.perf_counter() - t0:.2f} s")
+    return calc_launches, peaks_launches, loop
+
+
+def resume(calc, proj, k_vecs):
+    """Phase 8: ``cache_dir`` on the resident working-size group over the
+    first RESUME_K k (two 500-k chunks): run, delete chunk 1, run again;
+    the rerun launches one chunk's kernels and is bitwise equal.  The same
+    for ``calculate_kgrid_peaks``.  Returns the launches of the reruns."""
+    kv = k_vecs[:RESUME_K]
+    reruns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, run in (
+                ('calculate', lambda d: calc.calculate(np.array([], np.float32), kv,
+                                                       k_chunk_size=K_CHUNK, cache_dir=d).sed),
+                ('kgrid_peaks', lambda d: np.stack(calc.calculate_kgrid_peaks(
+                    kv, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK, cache_dir=d)))):
+            d = Path(tmp) / name
+            walls, launches, outs = [], [], []
+            for step in range(3):
+                if step == 1:
+                    next(d.glob('*/chunk_00001.npy')).unlink()
+                torch.cuda.synchronize()
+                proj.launches = 0
+                t0 = time.perf_counter()
+                outs.append(run(d))
+                walls.append(time.perf_counter() - t0)
+                launches.append(proj.launches)
+            n_chunks = -(-RESUME_K // K_CHUNK)
+            check(launches == [n_chunks, 1, 0],
+                  f"{name} resume launches {launches}")
+            check(all(np.array_equal(o, outs[0]) for o in outs[1:]), f"{name} resume not bitwise")
+            mb = sum(p.stat().st_size for p in d.glob('*/chunk_*.npy')) / 1e6
+            log('resume', f"{name}(cache_dir=...), {RESUME_K} k in chunks of {K_CHUNK}: first "
+                          f"{walls[0]:.3f} s ({launches[0]} launches); chunk 1 deleted, rerun "
+                          f"{walls[1]:.3f} s ({launches[1]} launch); full replay {walls[2]:.3f} s "
+                          f"({launches[2]}); results bitwise equal; cache {mb:.1f} MB")
+            reruns[name] = launches[1]
+    return reruns['calculate']
+
+
+def fixed_columns(values, int_digits, decimals):
+    """(..., width) ASCII bytes of ``values`` as sign, ``int_digits`` digits,
+    '.', ``decimals`` digits: fixed-width text made without a Python loop."""
+    width = int_digits + decimals + 2
+    v = np.round(np.abs(values) * 10.0 ** decimals).astype(np.int64)
+    out = np.empty(values.shape + (width,), dtype=np.uint8)
+    out[..., 0] = np.where(values < 0, ord('-'), ord('+'))
+    out[..., int_digits + 1] = ord('.')
+    for p in range(int_digits + decimals):             # least significant digit first
+        out[..., width - 1 - p if p < decimals else width - 2 - p] = ord('0') + (v // 10 ** p) % 10
+    return out
+
+
+def write_dump(path, seed):
+    """A LAMMPS dump of DUMP_FRAMES frames of DUMP_ATOMS Si atoms with
+    velocities: sites plus seeded thermal noise, N(0, 1) velocities."""
+    rng = np.random.default_rng(seed)
+    sites, side, a0 = si_sites(DUMP_ATOMS)
+    pos = sites[None] + 0.05 * rng.standard_normal((DUMP_FRAMES, DUMP_ATOMS, 3))
+    vel = rng.standard_normal((DUMP_FRAMES, DUMP_ATOMS, 3))
+    ids = np.char.zfill(np.arange(1, DUMP_ATOMS + 1).astype(str), 6).astype('S6')
+    cols = [np.broadcast_to(np.frombuffer(ids.tobytes(), np.uint8).reshape(DUMP_ATOMS, 6),
+                            (DUMP_FRAMES, DUMP_ATOMS, 6)),
+            np.full((DUMP_FRAMES, DUMP_ATOMS, 1), ord('1'), np.uint8)]
+    cols += [fixed_columns(pos[..., d], 3, 6) for d in range(3)]
+    cols += [fixed_columns(vel[..., d], 2, 6) for d in range(3)]
+    space = np.full((DUMP_FRAMES, DUMP_ATOMS, 1), ord(' '), np.uint8)
+    parts = []
+    for c in cols:
+        parts += [c, space]
+    parts[-1] = np.full((DUMP_FRAMES, DUMP_ATOMS, 1), ord('\n'), np.uint8)
+    body = np.concatenate(parts, axis=2)
+    length = side * a0
+    with open(path, 'wb') as f:
+        for t in range(DUMP_FRAMES):
+            f.write((f"ITEM: TIMESTEP\n{t}\nITEM: NUMBER OF ATOMS\n{DUMP_ATOMS}\n"
+                     f"ITEM: BOX BOUNDS pp pp pp\n" + f"0.0 {length:.6f}\n" * 3
+                     + "ITEM: ATOMS id type x y z vx vy vz\n").encode())
+            f.write(body[t].tobytes())
+    return side
+
+
+def dump_chunk_errors(dev, proj, traj, mean64, kv):
+    """Kernel vs plain through ``sed_from_dump_streaming``'s frame-block
+    loop: blocks of DUMP_CHUNK frames (the last one ragged) of the loaded
+    dump written as ``out=`` row slices of one (n_t, 3, K) signal each; the
+    two signals compared whole.  Returns the path_chunks_rel_err entry."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    hi, lo = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in split_f64(mean64))
+    k_dev = torch.from_numpy(np.ascontiguousarray(kv, dtype=np.float32)).to(dev)
+    sigs = [[torch.empty((DUMP_FRAMES, 3, len(kv)), device=dev) for _ in range(2)]
+            for _ in range(2)]
+    shapes = set()
+    for i in range(0, DUMP_FRAMES, DUMP_CHUNK):
+        j = min(i + DUMP_CHUNK, DUMP_FRAMES)
+        block = torch.from_numpy(np.ascontiguousarray(traj.velocities[i:j], np.float32)).to(dev)
+        shapes.add((j - i, DUMP_ATOMS, len(kv)))
+        for fn, sig in zip((proj.sed_projection, proj.sed_projection_plain), sigs):
+            fn(block, hi, lo, k_dev, out=(sig[0][i:j], sig[1][i:j]))
+    torch.cuda.synchronize()
+    err_abs, scale = pair_err(*sigs)
+    check(err_abs / scale <= TOL_KERNEL,
+          f"kernel vs plain through the dump's frame blocks {err_abs / scale:.3e} > {TOL_KERNEL}")
+    return {"path": "from_dump", "shapes": sorted(shapes),
+            "blocks": -(-DUMP_FRAMES // DUMP_CHUNK), "rel_err": err_abs / scale}
+
+
+def from_disk(dev, proj, k_vecs):
+    """Phase 9: a LAMMPS dump written here, loaded with the native parser
+    and computed by ``calculate``, then streamed from the file by
+    ``sed_from_dump_streaming``; the two must agree to 1e-6 of max.  Then
+    the kernel is held against its plain version through the same frame
+    blocks.  Returns the launches of the streamed run and that check."""
+    from psa_tpu_torch import SEDCalculator, TrajectoryLoader, sed_from_dump_streaming
+    from psa_tpu_torch.io import native
+    kv = k_vecs[:K_CHUNK]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / 'si.dump'
+        t0 = time.perf_counter()
+        side = write_dump(path, SEED)
+        t_write = time.perf_counter() - t0
+        mb = path.stat().st_size / 1e6
+        native.build()                          # from the checkout's source, whatever _build/ holds
+        parsed = native.bulk_parses
+        t0 = time.perf_counter()
+        traj = TrajectoryLoader(str(path), dt=0.01, unwrap=False).load()
+        t_load = time.perf_counter() - t0
+        check(native.bulk_parses - parsed == DUMP_FRAMES,
+              f"the loader parsed {native.bulk_parses - parsed} frames natively, not {DUMP_FRAMES}")
+        check(traj.positions.shape == (DUMP_FRAMES, DUMP_ATOMS, 3), "loaded shape")
+        calc = SEDCalculator(traj, nx=side, ny=side, nz=side, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = calc.calculate(np.array([], np.float32), kv)
+        t_calc = time.perf_counter() - t0
+        proj.launches = 0
+        t0 = time.perf_counter()
+        streamed = sed_from_dump_streaming(path, 0.01, kv, frame_chunk=DUMP_CHUNK, device=dev)
+        t_stream = time.perf_counter() - t0
+        launches = proj.launches
+        loop = dump_chunk_errors(dev, proj, traj, calc.mean_positions64, kv)
+    err = float(np.abs(streamed.sed - whole.sed).max() / np.abs(whole.sed).max())
+    check(launches == -(-DUMP_FRAMES // DUMP_CHUNK), f"from_dump launches {launches}")
+    check(np.isfinite(streamed.sed).all() and err <= TOL_PARITY,
+          f"streamed from the dump vs calculate on the loaded file {err:.3e}")
+    log('disk', f"LAMMPS dump {DUMP_ATOMS} atoms x {DUMP_FRAMES} frames with velocities: "
+                f"{mb:.1f} MB written in {t_write:.2f} s; TrajectoryLoader (native parser, "
+                f"{DUMP_FRAMES} frames parsed in parallel) {t_load:.3f} s, {mb / t_load:.1f} MB/s "
+                f"(with the .npy sidecars); calculate {len(kv)} k {t_calc:.3f} s; "
+                f"sed_from_dump_streaming (two passes over the file, blocks of {DUMP_CHUNK} "
+                f"frames) {t_stream:.3f} s, launches {launches}; streamed vs loaded {err:.3e} of "
+                f"max (tol {TOL_PARITY}), bitwise equal: {bool(np.array_equal(streamed.sed, whole.sed))}")
+    log('disk', f"kernel vs plain through the dump's frame blocks {loop['shapes']}, the signal "
+                f"whole: rel err {loop['rel_err']:.3e} (tol {TOL_KERNEL})")
+    return launches, loop
 
 
 def main():
@@ -417,6 +741,10 @@ def main():
     log('kernel', f"working chunk, first 8 k-columns vs a float64 sum of the same float32 "
                   f"operands: kernel {kern_f64:.3e} (tol {TOL_SAME_OPERANDS}), plain {plain_f64:.3e}; "
                   f"two kernel runs bitwise identical")
+    out_errs = out_accumulate_checks(proj, gen, rng, dev32, *work)
+    log('kernel', "out= and accumulate= vs the plain version's same call: "
+                  + ", ".join(f"{k} rel err {v:.3e}" for k, v in out_errs.items())
+                  + f" (tol {TOL_KERNEL}; the halves at (n_t,A,K)=({N_T},{N_ATOMS // 2},{K_CHUNK}))")
     work_ms, work_plain_ms = time_kernel(proj, *work, reps=2)
     del work
     flop = 4.0 * N_T * 3 * N_ATOMS * K_CHUNK
@@ -475,15 +803,29 @@ def main():
                 f"shape {sed.sed.shape} finite; 4 k-columns vs f64 oracle rel err {main_err:.3e} "
                 f"(tol {TOL_KERNEL}); peak device memory in calculate "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    resident_sed = sed.sed
     del sed, got
 
     # -- 5b/5c. on-device grid reductions ----------------------------------
     t0 = time.perf_counter()
-    peaks_launches, browse_launches, big_chunks = grid_working_size(
+    peaks_launches, browse_launches, big_chunks, resident_peaks = grid_working_size(
         calc, proj, (velocities, hi_dev, lo_dev), k_vecs, oracle, cols, calc.dt_ps)
     lt_launches, welch_launches, small_chunks = grid_small_sizes(dev, proj, chain, ccalc,
                                                                  nu_max, a)
     log('grid', f"grid phases took {time.perf_counter() - t0:.2f} s")
+
+    # -- 7/8/9. out of core, resume, from disk ------------------------------
+    t0 = time.perf_counter()
+    streamed_launches, streamed_peaks_launches, streamed_loop = out_of_core(
+        velocities, calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed, resident_peaks)
+    del resident_sed
+    log('ooc', f"out-of-core phase took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rerun_launches = resume(calc, proj, k_vecs)
+    log('resume', f"resume phase took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dump_launches, dump_loop = from_disk(dev, proj, k_vecs)
+    log('disk', f"from-disk phase took {time.perf_counter() - t0:.2f} s")
     del oracle, s_re, s_im
     calc.clear_device_cache()
     del velocities
@@ -538,17 +880,32 @@ def main():
     check(n_frames == 10 and proj.launches > 0, f"iSED dump frames {n_frames}")
     log('slice', f"iSED dump: {n_frames} frames of {ichain.n_atoms} atoms; launches {proj.launches}")
 
+    # Least time for the working chunk: the function's products (2 (3 n_t)
+    # (2K) A flop) at the dense TF32 peak, the card's fastest float32-input
+    # rate, or its bytes (the data once, positions, k, both outputs) at the
+    # HBM rate.  The 3xTF32 design does three such products: design_bound_ms.
+    bytes_moved = 4.0 * (3 * N_T * N_ATOMS + 6 * N_ATOMS + 3 * K_CHUNK + 2 * 3 * N_T * K_CHUNK)
+    bound = {"operations": flop / TF32_PEAK * 1e3, "bytes": bytes_moved / HBM_RATE * 1e3}
+    bound_by = max(bound, key=bound.get)
     print(json.dumps({"kernels": [{
         "name": "sed_projection", "route": "cuda", "design": DESIGN,
         "source": "psa_tpu_torch/csrc/sed_projection.cu",
         "replaces": "psa_tpu/ops/pallas_sed.py:116",
         "launches": main_launches, "max_abs_err": work_abs,
-        "ms": work_ms, "plain_ms": work_plain_ms, "ptxas": ptxas_info,
+        "ms": work_ms, "plain_ms": work_plain_ms,
+        "bound_ms": bound[bound_by], "bound_by": bound_by, "library_ms": None,
+        "design_bound_ms": 3 * flop / TF32_PEAK * 1e3,
+        "ptxas": ptxas_info, "out_accumulate_rel_err": out_errs,
         "launches_per_path": {"calculate": main_launches, "kgrid_peaks": peaks_launches,
                               "kgrid_browse": browse_launches, "lt": lt_launches,
-                              "welch": welch_launches},
-        "path_chunks_rel_err": [{"shape": list(shape), "rel_err": err}
-                                for shape, err in big_chunks + small_chunks]}]}), flush=True)
+                              "welch": welch_launches, "calculate_streamed": streamed_launches,
+                              "kgrid_peaks_streamed": streamed_peaks_launches,
+                              "resume_rerun": rerun_launches, "from_dump": dump_launches},
+        "path_chunks_rel_err": [
+            {"path": path, "shapes": [shape], "rel_err": err}
+            for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
+                                 ("square_lattice", small_chunks))
+            for shape, err in chunks] + streamed_loop + [dump_loop]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

@@ -5,7 +5,12 @@ The PyTorch port of :mod:`psa_tpu`'s SED main path: ``Trajectory`` →
 k-chunks → chiral phase and iSED; and of the direct engine's on-device grid
 reductions: ``calculate_kgrid_browse``, ``calculate_kgrid_peaks``,
 ``calculate_lt``, ``calculate_welch``, with group velocities and the
-kinetic thermal conductivity on top of the peaks.  The projection runs in
+kinetic thermal conductivity on top of the peaks; the vibrational DOS;
+and the out-of-core and on-disk path: groups larger than the device budget
+stream from the host, sweeps checkpoint per k-chunk and resume, trajectory
+files load through ``TrajectoryLoader`` (LAMMPS dump with a C parser,
+extxyz, OUTCAR, H5MD), and ``sed_from_dump_streaming`` projects a dump
+without holding it.  The projection runs in
 a hand-written CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc``
 at first use) on a GPU, and in its plain PyTorch version on CPU tensors;
 the reductions are torch ops on the same device.  This package imports
@@ -17,8 +22,10 @@ __version__ = "0.1.0"
 from .core.trajectory import Trajectory
 from .core.sed import SED
 from .core.calculator import SEDCalculator
-from .io.writer import out_to_qdump
+from .core.streaming import sed_from_dump_streaming
+from .io.loader import TrajectoryLoader
+from .io.writer import TrajectoryWriter, out_to_qdump
 from .utils.helpers import parse_direction
 
-__all__ = ["Trajectory", "SED", "SEDCalculator", "out_to_qdump", "parse_direction",
-           "__version__"]
+__all__ = ["Trajectory", "SED", "SEDCalculator", "TrajectoryLoader", "TrajectoryWriter",
+           "out_to_qdump", "parse_direction", "sed_from_dump_streaming", "__version__"]

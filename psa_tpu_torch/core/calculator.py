@@ -3,24 +3,31 @@
 Same public API and numbers as the JAX class for what is ported: lattice
 setup, ``get_k_path``, ``get_k_grid``, ``calculate`` (coherent and
 incoherent, velocities or displacements, optional mass weighting),
-``calculate_chiral_phase``, fixed-cell ``ised``, and the direct engine's
+``calculate_chiral_phase``, fixed-cell ``ised``, the direct engine's
 on-device grid reductions: ``calculate_welch``, ``calculate_kgrid_browse``,
 ``calculate_lt``, ``calculate_kgrid_peaks``, and on top of the peaks
 ``calculate_group_velocity_path``/``_surface`` and
-``calculate_thermal_conductivity``.  Group bookkeeping and k generation run
-on the host in NumPy; per (group, k-chunk) spectra and their reductions run
-on ``device`` through :mod:`psa_tpu_torch.ops.spectral`.  ``calculate`` and
-the browse-type methods copy each chunk's result back; the peaks path keeps
-its planes on the device and reads the peak triplets back once.
+``calculate_thermal_conductivity``; and ``calculate_dos``.  Group
+bookkeeping and k generation run on the host in NumPy; per (group, k-chunk)
+projections and their reductions run on ``device`` through
+:mod:`psa_tpu_torch.ops.spectral`.
+
+Out of core: a group larger than ``max_device_bytes`` streams from the host
+in atom blocks through pinned staging buffers (the next block's copy
+overlaps this block's kernel), accumulating into the projection on the
+device.  Per-chunk results cross back through a one-deep pinned readback:
+the host assembles chunk i while the device computes chunk i+1.
+``cache_dir`` checkpoints each k-chunk (``io/shard_cache.py``, keys shared
+with the JAX package), so a killed sweep resumes.
 
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-shard cache (``cache_dir``), groups larger than ``max_device_bytes`` (the
-atom-streamed path), the gridded NUFFT engine (``engine='gridded'``),
-device meshes (``mesh=``), NPT iSED and iSED plotting.  The JAX class's
-other public methods are absent.
+precision tiers 'balanced' and 'fast', the gridded NUFFT engine
+(``engine='gridded'``), device meshes (``mesh=``), NPT iSED and iSED
+plotting.  The JAX class's other public methods are absent.
 """
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 from pathlib import Path
@@ -30,13 +37,21 @@ import numpy as np
 import torch
 
 from ..ops import spectral
+from ..ops.sed_projection import sed_projection
 from ..utils.helpers import DirectionSpec, parse_direction
+from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows
 from .sed import SED
 from .trajectory import Trajectory
 
 logger = logging.getLogger(__name__)
 
 _DEFAULT_MAX_DEVICE_BYTES = int(8e9)
+#: Largest atom block, in bytes, of a group streamed from the host (two are staged).
+STREAM_BLOCK_BYTES = 1 << 28
+# The JAX package's defaults, written into shard-cache keys so that a cache
+# written by either package resumes in the other.
+_JAX_PHASE_MODE = 'auto'
+_JAX_PHASE_ANCHOR = 'cartesian'
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -46,6 +61,52 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 
 def _not_ported(what: str, row: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported (ROADMAP {row})")
+
+
+class _Projections:
+    """(re, im) projections of a sweep's spectrum groups on its k-chunks.
+
+    A group within ``max_device_bytes`` is projected per chunk from its
+    resident device arrays.  A larger group streams from the host: once for
+    each pass of consecutive chunks still to compute whose (n_t, 3, K)
+    accumulator pairs fit half the budget (split between the oversize
+    groups), every atom block feeding every accumulator of the pass.  At
+    the working size (10⁴ steps, 2,500 k) one pass takes the whole grid:
+    0.6 GB of accumulators.  Each chunk's pair is handed out once.
+    """
+
+    def __init__(self, calc: 'SEDCalculator', groups: List[np.ndarray], k_dev: torch.Tensor,
+                 bounds: List[Tuple[int, int]], todo: List[int]):
+        self.calc, self.groups, self.k_dev, self.bounds = calc, groups, k_dev, bounds
+        self.todo = list(todo)
+        n_oversize = sum(calc._oversize(g) for g in groups)
+        self.pass_bytes = calc.max_device_bytes // 2 // max(1, n_oversize)
+        self._ready: Dict[Tuple[int, int], tuple] = {}
+
+    def get(self, gi: int, ci: int):
+        group = self.groups[gi]
+        s, e = self.bounds[ci]
+        if not self.calc._oversize(group):
+            data, hi, lo = self.calc._group_device_arrays(group)
+            return sed_projection(data, hi, lo, self.k_dev[s:e])
+        if (gi, ci) not in self._ready:
+            chunks = self._pass(ci)
+            outs = self.calc._streamed_projections(
+                group, [self.k_dev[self.bounds[c][0]:self.bounds[c][1]] for c in chunks])
+            self._ready.update({(gi, c): out for c, out in zip(chunks, outs)})
+        return self._ready.pop((gi, ci))
+
+    def _pass(self, ci: int) -> List[int]:
+        """Chunks from ``ci`` on, in sweep order, whose accumulators fit."""
+        per_k = 24 * self.calc.traj.n_frames
+        chunks, total = [], 0
+        for c in self.todo[self.todo.index(ci):]:
+            need = per_k * (self.bounds[c][1] - self.bounds[c][0])
+            if chunks and total + need > self.pass_bytes:
+                break
+            chunks.append(c)
+            total += need
+        return chunks
 
 
 def peaks_np(intensity: np.ndarray, freqs_kept: np.ndarray, n_peaks: int = 1,
@@ -120,7 +181,8 @@ class SEDCalculator:
             reference, kept for compatibility).
         precision: 'parity' (IEEE float32 contraction; holds 1e-6 against the
             float64 oracle).  'balanced' and 'fast' are not ported yet.
-        max_device_bytes: largest group (n_t·n_atoms·3·4 bytes) held on the device.
+        max_device_bytes: largest group (n_t·n_atoms·3·4 bytes) held on the
+            device; a larger group streams from the host in atom blocks.
         mass_weighted: weight each atom's data by √m_a (requires ``traj.masses``).
         device: 'cuda' (default; raises when CUDA is absent) or 'cpu'.
     """
@@ -188,6 +250,8 @@ class SEDCalculator:
         self._device_cache: Dict[bytes, tuple] = {}
         self._device_cache_order: List[bytes] = []
         self._cache_lock = threading.Lock()
+        #: Bytes of groups over max_device_bytes streamed to the device so far.
+        self.streamed_bytes = 0
 
     # ------------------------------------------------------------------
     # k-space generators (host side)
@@ -468,37 +532,77 @@ class SEDCalculator:
     def _group_bytes(self, group_idx: np.ndarray) -> int:
         return 4 * self.traj.n_frames * int(group_idx.size) * 3
 
-    def _resident_group_arrays(self, group_idx: np.ndarray):
-        """:meth:`_group_device_arrays` for a group within ``max_device_bytes``;
-        a larger group raises (the atom-streamed path is not ported)."""
-        if self._group_bytes(group_idx) > self.max_device_bytes:
-            raise NotImplementedError(
-                f"group of {self._group_bytes(group_idx)} bytes exceeds max_device_bytes="
-                f"{self.max_device_bytes}; the atom-streamed path is not ported "
-                "(ROADMAP A3, 'atom-streamed path'). Raise max_device_bytes if the group fits the device.")
-        return self._group_device_arrays(group_idx)
+    def _oversize(self, group_idx: np.ndarray) -> bool:
+        """True for a group larger than ``max_device_bytes``: it streams."""
+        return self._group_bytes(group_idx) > self.max_device_bytes
 
     # ------------------------------------------------------------------
-    # Core spectrum computation for one group / one k-chunk
+    # Groups over max_device_bytes: atom blocks streamed from the host
     # ------------------------------------------------------------------
 
-    def _group_spectrum_np(self, group_idx: np.ndarray, k_chunk: np.ndarray,
-                           want_intensity: bool) -> np.ndarray:
-        """Spectrum (or intensity) of one atom group on one k-chunk, as NumPy."""
+    def stream_block_atoms(self, n_atoms: int) -> int:
+        """Atoms per streamed block: a quarter of ``max_device_bytes``, at
+        most :data:`STREAM_BLOCK_BYTES` (two such blocks are staged)."""
+        budget = min(self.max_device_bytes // 4, STREAM_BLOCK_BYTES)
+        return max(1, min(n_atoms, budget // (12 * max(1, self.traj.n_frames))))
+
+    def _stream_group(self, group_idx: np.ndarray, block_atoms: Optional[int] = None):
+        """Yield (a0, a1, data, mp_hi, mp_lo) device tensors for consecutive
+        atom blocks [a0, a1) of a group, read from the host trajectory.
+
+        Each block crosses through pinned staging on a side stream
+        (:class:`psa_tpu_torch.utils.transfer.HostToDevice`), so the host
+        gathers and copies block b+1 while the kernels of block b run; the
+        displacement and mass transforms then run on the device exactly as
+        :meth:`_group_device_arrays` runs them on a resident group.  A
+        block's tensors are valid until the next block but one.
+        """
+        n_t, n = self.traj.n_frames, int(group_idx.size)
+        block = block_atoms or self.stream_block_atoms(n)
+        hi_host, lo_host = spectral.split_f64(self.mean_positions64[group_idx])
+        hi_dev, lo_dev = self._to_device(hi_host), self._to_device(lo_host)
+        weights = (torch.sqrt(self._to_device(self.traj.masses[group_idx]))
+                   if self.mass_weighted else None)
+        src = self.traj.positions if self.use_displacements else self.traj.velocities
+        # a run of consecutive atoms is a slice of the host array, not a gather
+        run = bool(n) and int(group_idx[-1]) - int(group_idx[0]) == n - 1 and bool(
+            np.all(np.diff(group_idx) == 1))
+        stager = HostToDevice(self.device, n_t * block * 3)
+        logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
+        for a0 in range(0, n, block):
+            a1 = min(a0 + block, n)
+            if run:
+                part = src[:, int(group_idx[a0]):int(group_idx[a0]) + a1 - a0]
+            else:
+                part = None
+
+            def fill(dst, a0=a0, a1=a1, part=part):
+                copy_rows(dst, part if part is not None else src[:, group_idx[a0:a1]])
+
+            data = stager.put(fill, (n_t, a1 - a0, 3))
+            hi, lo = hi_dev[a0:a1], lo_dev[a0:a1]
+            if self.use_displacements:
+                data = spectral.displacement_data(data, hi, lo)
+            if weights is not None:
+                data = data * weights[a0:a1][None, :, None]
+            yield a0, a1, data, hi, lo
+        self.streamed_bytes += stager.bytes_moved
+
+    def _streamed_projections(self, group_idx: np.ndarray, k_chunks: List[torch.Tensor]):
+        """(re, im) projections of an oversize group on each device k-chunk.
+
+        The group streams once: every atom block feeds every chunk's
+        (n_t, 3, K) accumulator (the kernel's ``accumulate=True``), so each
+        k-point's sum runs over the blocks in atom order, as when the group
+        is streamed once per chunk.
+        """
         n_t = self.traj.n_frames
-        if group_idx.size == 0:
-            if want_intensity:
-                return np.zeros((n_t, len(k_chunk)), dtype=np.float32)
-            return np.zeros((n_t, len(k_chunk), 3), dtype=np.complex64)
-        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
-        k_dev = self._to_device(k_chunk)
-        if want_intensity:
-            out = spectral.sed_intensity(data_dev, hi_dev, lo_dev, k_dev,
-                                         precision=self.precision)
-        else:
-            out = spectral.sed_spectrum(data_dev, hi_dev, lo_dev, k_dev,
-                                        precision=self.precision)
-        return _to_host(out)
+        outs = [tuple(torch.empty((n_t, 3, len(kv)), dtype=torch.float32, device=self.device)
+                      for _ in range(2)) for kv in k_chunks]
+        for i, (_, _, data, hi, lo) in enumerate(self._stream_group(group_idx)):
+            for out, kv in zip(outs, k_chunks):
+                sed_projection(data, hi, lo, kv, out=out, accumulate=i > 0)
+        return outs
 
     # ------------------------------------------------------------------
     # Public: calculate
@@ -517,12 +621,18 @@ class SEDCalculator:
         mode (or a single group) returns complex Φ (n_freq, n_k, 3); incoherent
         mode returns Σ_groups Σ_α |Φ|² (n_freq, n_k) float32.  ``k_chunk_size``
         bounds device memory; the last chunk is ragged (the kernel masks it).
-        ``cache_dir`` (the shard cache) is not ported.
+        Chunk i+1's kernel is enqueued before chunk i is read back (into
+        pinned memory, on a side stream), so the host assembles chunk i while
+        the device computes chunk i+1.  A group over ``max_device_bytes``
+        streams from the host in atom blocks (:meth:`_stream_group`).
+
+        ``cache_dir`` checkpoints each finished chunk under a content-derived
+        key (:class:`psa_tpu_torch.io.shard_cache.ShardedSEDCache`, the JAX
+        package's key and layout): an interrupted sweep resumes by computing
+        only the missing chunks.
         """
         if summation_mode not in ('coherent', 'incoherent'):
             raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
-        if cache_dir is not None:
-            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
 
         n_t, n_atoms_tot = self.traj.n_frames, self.traj.n_atoms
         if n_t == 0 or n_atoms_tot == 0:
@@ -532,39 +642,67 @@ class SEDCalculator:
                        k_grid_shape=k_grid_shape, is_complex=True, phase=None)
 
         freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
-        groups, is_complex_output = self._spectrum_groups(
-            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
-            summation_mode)
+        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                summation_mode)
+        groups, is_complex_output = self._spectrum_groups(atom_groups, summation_mode)
 
         num_k = len(k_vectors_3d)
         if is_complex_output:
             full_sed = np.zeros((len(freqs), num_k, 3), dtype=np.complex64)
         else:
             full_sed = np.zeros((len(freqs), num_k), dtype=np.float32)
-
         if num_k == 0:
             logger.warning("k_vectors_3d is empty. Returning SED object with empty SED data.")
 
-        chunks = self._chunk_bounds(num_k, k_chunk_size)
-        for i_chunk, (start, end) in enumerate(chunks):
-            k_chunk = np.asarray(k_vectors_3d[start:end], dtype=np.float32)
-            logger.debug("Processing k-chunk %d/%d (indices %d-%d)", i_chunk + 1, len(chunks),
-                         start, end - 1)
+        bounds = self._chunk_bounds(num_k, k_chunk_size)
+        cache = None
+        if cache_dir is not None and num_k > 0:
+            from ..io.shard_cache import ShardedSEDCache, trajectory_fingerprint
+            cache = ShardedSEDCache(Path(cache_dir), workload={
+                'traj': trajectory_fingerprint(self.traj),
+                'k_vectors': np.asarray(k_vectors_3d, dtype=np.float32),
+                'groups': [g.tolist() for g in atom_groups],
+                'mode': summation_mode,
+                'use_displacements': self.use_displacements,
+                'mass_weighted': self.mass_weighted,
+                'precision': self.precision,
+                'dt_ps': float(self.dt_ps),
+                'k_chunk_size': int(bounds[0][1] - bounds[0][0]),
+                'anchor': _JAX_PHASE_ANCHOR,
+            })
+        todo = self._resume(cache, bounds, lambda c, s, e: c.shape[1] == e - s,
+                            lambda c, s, e: full_sed.__setitem__(np.s_[:, s:e], c))
+        if not todo or not groups:
+            return SED(full_sed, freqs, k_points_mags, k_vectors_3d,
+                       k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
+                       dt_ps=self.dt_ps)
+
+        def sink(arrays, ci, s, e):
+            full_sed[:, s:e] = arrays[0]
+            if cache is not None:
+                cache.store(ci, full_sed[:, s:e])
+
+        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+        readback = DeviceToHost(self.device)
+        for ci in todo:
+            s, e = bounds[ci]
+            logger.debug("Processing k-chunk %d/%d (indices %d-%d)", ci + 1, len(bounds), s, e - 1)
             if is_complex_output:
-                full_sed[:, start:end, :] = self._group_spectrum_np(
-                    groups[0], k_chunk, want_intensity=False)
+                out = spectral.finalize_spectrum(*proj.get(0, ci)).contiguous()
             else:
-                acc = np.zeros((len(freqs), end - start), dtype=np.float32)
-                for grp_idx in groups:
-                    acc +=self._group_spectrum_np(grp_idx, k_chunk, want_intensity=True)
-                full_sed[:, start:end] = acc
+                out = None
+                for gi in range(len(groups)):
+                    inten = spectral._power(spectral.finalize_spectrum(*proj.get(gi, ci)))
+                    out = inten if out is None else out + inten
+            readback.push([out], functools.partial(sink, ci=ci, s=s, e=e))
+        readback.finish()
 
         return SED(full_sed, freqs, k_points_mags, k_vectors_3d,
                    k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
                    dt_ps=self.dt_ps)
 
     # ------------------------------------------------------------------
-    # Shared set-up: spectrum groups, k-chunks, kept frequency rows
+    # Shared set-up: spectrum groups, k-chunks, kept frequency rows, resume
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -597,6 +735,49 @@ class SEDCalculator:
         block = min(max(1, k_chunk_size), num_k) if num_k > 0 else 1
         return [(s, min(s + block, num_k)) for s in range(0, num_k, block)]
 
+    @staticmethod
+    def _resume(cache, bounds, fits, fill) -> List[int]:
+        """Indices of the chunks still to compute: with a shard cache, each
+        stored chunk that ``fits(chunk, s, e)`` is handed to
+        ``fill(chunk, s, e)`` and skipped."""
+        todo = []
+        for ci, (s, e) in enumerate(bounds):
+            cached = cache.load(ci) if cache is not None else None
+            if cached is not None and fits(cached, s, e):
+                fill(cached, s, e)
+            else:
+                todo.append(ci)
+        if cache is not None and len(todo) < len(bounds):
+            logger.info("shard cache %s: %d/%d chunks resumed.", cache.key,
+                        len(bounds) - len(todo), len(bounds))
+        return todo
+
+    def _chunk_cache(self, cache_dir, observable: str, k_vectors_3d, block: int,
+                     extra: Optional[Dict] = None):
+        """Per-k-chunk resumable-sweep cache, or None: the JAX package's
+        content key (trajectory fingerprint, k set, observable, calculator
+        transforms, chunk size, observable parameters), with its default
+        ``phase_mode`` and Cartesian phase anchor, so a cache written by
+        either package resumes in the other."""
+        if cache_dir is None:
+            return None
+        from ..io.shard_cache import ShardedSEDCache, trajectory_fingerprint
+        workload = {
+            'traj': trajectory_fingerprint(self.traj),
+            'observable': observable,
+            'k_vectors': np.asarray(k_vectors_3d, dtype=np.float32),
+            'use_displacements': self.use_displacements,
+            'mass_weighted': self.mass_weighted,
+            'precision': self.precision,
+            'phase_mode': _JAX_PHASE_MODE,
+            'anchor': _JAX_PHASE_ANCHOR,
+            'dt_ps': float(self.dt_ps),
+            'k_chunk_size': int(block),
+        }
+        if extra:
+            workload.update(extra)
+        return ShardedSEDCache(Path(cache_dir), workload=workload)
+
     def _welch_segments(self, welch_segments, welch_window: str) -> int:
         """Validate (welch_segments, welch_window); returns segments (1 =
         single-window estimator)."""
@@ -618,14 +799,6 @@ class SEDCalculator:
     # Welch/Bartlett segment-averaged spectra
     # ------------------------------------------------------------------
 
-    def _group_welch_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
-                        segments: int, window: str) -> np.ndarray:
-        """Segment-averaged intensity of one non-empty group on one device k-chunk."""
-        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
-        return _to_host(spectral.sed_welch_intensity(
-            data_dev, hi_dev, lo_dev, k_chunk, segments=segments, window=window,
-            precision=self.precision))
-
     def calculate_welch(self, k_points_mags: np.ndarray,
                         k_vectors_3d: np.ndarray, segments: int,
                         window: str = 'hann',
@@ -640,8 +813,9 @@ class SEDCalculator:
         n_t // S frequency bins.  ``window='hann'`` tapers each segment (unit
         coherent gain); ``'rect'`` is the plain Bartlett split.  Group
         semantics follow :meth:`calculate`.  Returns an intensity SED
-        (``is_complex=False``) with n_t // segments frequency rows.
-        Resident groups only.
+        (``is_complex=False``) with n_t // segments frequency rows.  A group
+        over ``max_device_bytes`` streams: the taper multiplies the projected
+        signal, so the atom blocks stream once for all segments.
         """
         if summation_mode not in ('coherent', 'incoherent'):
             raise ValueError("summation_mode must be 'coherent' or "
@@ -660,11 +834,18 @@ class SEDCalculator:
             self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
             summation_mode)
         full = np.zeros((seg, len(k_vectors_3d)), dtype=np.float32)
-        k_dev = self._to_device(k_vectors_3d)
-        for start, end in self._chunk_bounds(len(k_vectors_3d), k_chunk_size):
-            for grp in groups:
-                full[:, start:end] += self._group_welch_np(grp, k_dev[start:end], segments,
-                                                           window)
+        bounds = self._chunk_bounds(len(k_vectors_3d), k_chunk_size)
+        todo = list(range(len(bounds))) if groups else []
+        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+        readback = DeviceToHost(self.device)
+        for ci in todo:
+            s, e = bounds[ci]
+            inten = None
+            for gi in range(len(groups)):
+                iv = spectral.welch_intensity_reduce(*proj.get(gi, ci), segments, window)
+                inten = iv if inten is None else inten + iv
+            readback.push([inten], lambda a, s=s, e=e: full.__setitem__(np.s_[:, s:e], a[0]))
+        readback.finish()
         return SED(full, freqs, k_points_mags, k_vectors_3d,
                    k_grid_shape=k_grid_shape, is_complex=False, dt_ps=self.dt_ps,
                    trajectory_metadata={'welch_segments': int(segments), 'window': window})
@@ -673,34 +854,19 @@ class SEDCalculator:
     # Device-reduced k-grid browsing
     # ------------------------------------------------------------------
 
-    def _group_browse_dev(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
-                          freq_idx_dev: torch.Tensor, comp_pair, angle_range_opt: str,
-                          segments: int = 1, window: str = 'hann'):
-        """Device (intensity, phase or None) planes of one non-empty group on
-        one device k-chunk; ``segments`` > 1 runs the Welch estimator
+    @staticmethod
+    def _browse_planes(re: torch.Tensor, im: torch.Tensor, freq_idx_dev: torch.Tensor,
+                       comp_pair, angle_range_opt: str, segments: int = 1,
+                       window: str = 'hann'):
+        """Device (intensity, phase or None) planes of one group's (n_t, 3, K)
+        projection pair; ``segments`` > 1 runs the Welch estimator
         (``freq_idx_dev`` then indexes the segment spectrum)."""
-        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
         if segments > 1:
-            return spectral.sed_grid_browse_welch(
-                data_dev, hi_dev, lo_dev, k_chunk, freq_idx_dev, segments, window=window,
-                precision=self.precision, comp_pair=comp_pair, angle_range_opt=angle_range_opt)
-        return spectral.sed_grid_browse(
-            data_dev, hi_dev, lo_dev, k_chunk, freq_idx_dev, precision=self.precision,
-            comp_pair=comp_pair, angle_range_opt=angle_range_opt)
-
-    def _group_browse_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
-                         freq_idx_dev: torch.Tensor, comp_pair, angle_range_opt: str,
-                         segments: int = 1, window: str = 'hann', f16: bool = False):
-        """:meth:`_group_browse_dev` copied to the host.  ``f16`` ships the
-        planes in the compressed display form (one scale per chunk and group,
-        :func:`psa_tpu_torch.ops.spectral.compress_browse`) and rescales here."""
-        inten, ph = self._group_browse_dev(group_idx, k_chunk, freq_idx_dev, comp_pair,
-                                           angle_range_opt, segments, window)
-        if f16:
-            packed = [_to_host(t) for t in spectral.compress_browse(inten, ph)]
-            return (spectral.decompress_plane(packed[0], packed[1]),
-                    packed[2].astype(np.float32) if ph is not None else None)
-        return _to_host(inten), (_to_host(ph) if ph is not None else None)
+            return spectral.welch_browse_reduce(re, im, freq_idx_dev, segments, window,
+                                                comp_pair=comp_pair,
+                                                angle_range_opt=angle_range_opt)
+        return spectral.browse_reduce(spectral.finalize_spectrum(re, im), freq_idx_dev,
+                                      comp_pair=comp_pair, angle_range_opt=angle_range_opt)
 
     def calculate_kgrid_browse(self, k_vectors_3d: np.ndarray,
                                basis_atom_indices=None, basis_atom_types=None,
@@ -719,19 +885,22 @@ class SEDCalculator:
 
         Only the ω ≥ 0 (and ≤ ``max_freq``) intensity planes, plus the chiral
         phase when ``chiral`` is set, leave the device, one k-chunk at a
-        time.  Group semantics follow :meth:`calculate`: coherent (or
-        single-group) reduces the union group's spectrum; incoherent sums
-        per-group intensities (chiral then raises).
+        time, through the same one-deep pinned readback as :meth:`calculate`.
+        Group semantics follow :meth:`calculate`: coherent (or single-group)
+        reduces the union group's spectrum; incoherent sums per-group
+        intensities (chiral then raises).  A group over ``max_device_bytes``
+        streams from the host.
 
         ``welch_segments`` switches to the segment-averaged estimator (the
         chiral phase becomes the segment-averaged cross-spectral phase).
         ``readback_dtype='float16'`` ships each chunk's intensity as
-        sqrt-domain float16 with one float32 scale and the phase as float16;
-        the returned arrays are float32 either way.
+        sqrt-domain float16 with one float32 scale per group and the phase as
+        float16; the returned arrays are float32 either way.  ``cache_dir``
+        checkpoints each chunk's planes (see :meth:`calculate`).
 
         ``engine`` is 'direct' ('auto' resolves to it); ``engine='gridded'``
-        and ``cache_dir`` are not ported and raise.  ``k_grid_shape`` is
-        read only by the gridded engine.
+        is not ported and raises.  ``k_grid_shape`` is read only by the
+        gridded engine.
 
         Returns:
             (freqs_kept (n_keep,), intensity (n_keep, n_k) float32,
@@ -746,8 +915,6 @@ class SEDCalculator:
             raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
         if engine not in ('direct', 'auto'):
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-        if cache_dir is not None:
-            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
         segments = self._welch_segments(welch_segments, welch_window)
         freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
         groups, single_spectrum = self._spectrum_groups(
@@ -761,29 +928,63 @@ class SEDCalculator:
         num_k = len(k_vectors_3d)
         intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
         phase = np.zeros_like(intensity) if comp_pair is not None else None
+        bounds = self._chunk_bounds(num_k, k_chunk_size)
+        cache = self._chunk_cache(
+            cache_dir, 'browse', k_vectors_3d, bounds[0][1] - bounds[0][0] if bounds else 1,
+            {'groups': [g.tolist() for g in groups], 'mode': summation_mode,
+             'max_freq': max_freq, 'chiral': list(comp_pair) if comp_pair else None,
+             'angle': angle_range_opt, 'welch': [segments, welch_window],
+             'readback': readback_dtype})
+
+        def store(planes, ci, s, e):
+            if phase is None:
+                intensity[:, s:e] = planes
+            else:
+                intensity[:, s:e], phase[:, s:e] = planes[0], planes[1]
+            if ci is not None and cache is not None:
+                cache.store(ci, np.stack([intensity[:, s:e], phase[:, s:e]])
+                            if phase is not None else intensity[:, s:e])
+
+        want_ndim = 3 if comp_pair is not None else 2
+        todo = self._resume(cache, bounds,
+                            lambda c, s, e: c.ndim == want_ndim and c.shape[-1] == e - s,
+                            lambda c, s, e: store(c, None, s, e))
+        if not groups:
+            todo = []
+        f16 = readback_dtype == 'float16'
+
+        def sink(arrays, ci, s, e):
+            if f16:
+                inten = np.zeros((len(freq_idx), e - s), dtype=np.float32)
+                per = 3 if comp_pair is not None else 2
+                for g0 in range(0, len(arrays), per):
+                    inten += spectral.decompress_plane(arrays[g0], arrays[g0 + 1])
+                planes = [inten] + ([arrays[2].astype(np.float32)] if per == 3 else [])
+            else:
+                planes = arrays
+            store(planes[0] if phase is None else planes, ci, s, e)
+
         freq_idx_dev = self._to_device(freq_idx, np.int64)
-        k_dev = self._to_device(k_vectors_3d)
-        for start, end in self._chunk_bounds(num_k, k_chunk_size):
-            for grp in groups:
-                inten, ph = self._group_browse_np(grp, k_dev[start:end], freq_idx_dev,
-                                                  comp_pair, angle_range_opt, segments,
-                                                  welch_window, readback_dtype == 'float16')
-                intensity[:, start:end] += inten
-                if ph is not None:
-                    phase[:, start:end] = ph
+        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+        readback = DeviceToHost(self.device)
+        for ci in todo:
+            s, e = bounds[ci]
+            out, inten = [], None
+            for gi in range(len(groups)):
+                iv, ph = self._browse_planes(*proj.get(gi, ci), freq_idx_dev, comp_pair,
+                                             angle_range_opt, segments, welch_window)
+                if f16:
+                    out.extend(spectral.compress_browse(iv, ph))
+                else:
+                    inten = iv if inten is None else inten + iv
+                    out = [inten] + ([ph] if ph is not None else [])
+            readback.push(out, functools.partial(sink, ci=ci, s=s, e=e))
+        readback.finish()
         return freqs_kept, intensity, phase
 
     # ------------------------------------------------------------------
     # Longitudinal / transverse polarization decomposition
     # ------------------------------------------------------------------
-
-    def _group_lt_np(self, group_idx: np.ndarray, k_chunk: torch.Tensor,
-                     ku_chunk: torch.Tensor, freq_idx_dev: torch.Tensor):
-        """Host (I_L, I_T) planes of one non-empty group on one device k-chunk."""
-        data_dev, hi_dev, lo_dev = self._resident_group_arrays(group_idx)
-        i_l, i_t = spectral.sed_lt(data_dev, hi_dev, lo_dev, k_chunk, ku_chunk, freq_idx_dev,
-                                   precision=self.precision)
-        return _to_host(i_l), _to_host(i_t)
 
     def calculate_lt(self, k_vectors_3d: np.ndarray,
                      basis_atom_indices=None, basis_atom_types=None,
@@ -797,7 +998,8 @@ class SEDCalculator:
         I_L carries the longitudinal branches, I_T the two transverse ones;
         I_L + I_T is :meth:`calculate_kgrid_browse`'s intensity.  At Γ
         (|k| = 0) the convention is I_L = 0, I_T = total.  Group semantics
-        follow :meth:`calculate`; incoherent mode sums per-group planes.
+        follow :meth:`calculate`; incoherent mode sums per-group planes; a
+        group over ``max_device_bytes`` streams from the host.
 
         Returns:
             (freqs_kept (n_keep,), I_L (n_keep, n_k) float32,
@@ -813,15 +1015,25 @@ class SEDCalculator:
         num_k = len(k_vectors_3d)
         i_long = np.zeros((len(freq_idx), num_k), dtype=np.float32)
         i_trans = np.zeros_like(i_long)
+        bounds = self._chunk_bounds(num_k, k_chunk_size)
+        todo = list(range(len(bounds))) if groups else []
         freq_idx_dev = self._to_device(freq_idx, np.int64)
-        k_dev = self._to_device(k_vectors_3d)
         ku_dev = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
-        for start, end in self._chunk_bounds(num_k, k_chunk_size):
-            for grp in groups:
-                i_l, i_t = self._group_lt_np(grp, k_dev[start:end], ku_dev[start:end],
-                                             freq_idx_dev)
-                i_long[:, start:end] += i_l
-                i_trans[:, start:end] += i_t
+
+        def sink(arrays, s, e):
+            i_long[:, s:e], i_trans[:, s:e] = arrays
+
+        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+        readback = DeviceToHost(self.device)
+        for ci in todo:
+            s, e = bounds[ci]
+            i_l = i_t = None
+            for gi in range(len(groups)):
+                spec = spectral.finalize_spectrum(*proj.get(gi, ci))
+                l_g, t_g = spectral.lt_reduce(spec, ku_dev[s:e], freq_idx_dev)
+                i_l, i_t = (l_g, t_g) if i_l is None else (i_l + l_g, i_t + t_g)
+            readback.push([i_l, i_t], functools.partial(sink, s=s, e=e))
+        readback.finish()
         return freqs_kept, i_long, i_trans
 
     # ------------------------------------------------------------------
@@ -855,11 +1067,17 @@ class SEDCalculator:
         'lorentzian' (calibrated FWHM); ``welch_segments`` takes the peaks of
         the segment-averaged planes.
 
+        ``cache_dir`` checkpoints each chunk's peaks (one readback per chunk,
+        through the pinned readback pipeline).  A group over
+        ``max_device_bytes`` streams from the host into the same on-device
+        reduction.  (The JAX package takes such a group's peaks from host
+        browse planes instead, and caches those planes, so its cache of an
+        oversize peaks sweep does not resume here.)
+
         ``engine='auto'`` runs the direct engine.  (The JAX package routes
         big uniform grids to its NUFFT engine on TPU measurements; the port
         keeps that rule out until that engine is ported and measured on the
-        GPU, ROADMAP A12.)  ``engine='gridded'``, ``cache_dir`` and groups
-        over ``max_device_bytes`` are not ported and raise.
+        GPU, ROADMAP A12.)  ``engine='gridded'`` is not ported and raises.
 
         Returns:
             (peak_freqs, peak_heights, peak_widths[, peak_phase]): each
@@ -873,8 +1091,6 @@ class SEDCalculator:
             raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
         if engine not in ('direct', 'auto'):
             raise ValueError(f"engine must be 'auto', 'direct' or 'gridded', got {engine!r}")
-        if cache_dir is not None:
-            raise _not_ported("cache_dir (the per-chunk shard cache)", "A3, 'shard cache'")
         if width_method not in ('rms', 'lorentzian'):
             raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
                              f"got {width_method!r}")
@@ -895,21 +1111,103 @@ class SEDCalculator:
         if num_k == 0 or not groups:
             return tuple(np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out))
 
+        bounds = self._chunk_bounds(num_k, k_chunk_size)
+        out = [np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out)]
+        cache = self._chunk_cache(
+            cache_dir, 'peaks', k_vectors_3d, bounds[0][1] - bounds[0][0],
+            {'groups': [g.tolist() for g in groups], 'mode': summation_mode,
+             'max_freq': max_freq, 'n_peaks': int(n_peaks),
+             'exclusion_bins': int(exclusion_bins), 'width_method': width_method,
+             'chiral': list(comp_pair) if comp_pair else None,
+             'angle': angle_range_opt, 'welch': [segments, welch_window]})
+
+        def store(found, ci, s, e):
+            for o, r in zip(out, found):
+                o[:, s:e] = r
+            if ci is not None and cache is not None:
+                cache.store(ci, np.stack([o[:, s:e] for o in out]))
+
+        todo = self._resume(cache, bounds, lambda c, s, e: c.shape == (n_out, n_peaks, e - s),
+                            lambda c, s, e: store(c, None, s, e))
         freq_idx_dev = self._to_device(freq_idx, np.int64)
         freqs_dev = self._to_device(freqs_kept)
-        k_dev = self._to_device(k_vectors_3d)
+        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+        readback = DeviceToHost(self.device) if cache is not None else None
         found = []
-        for start, end in self._chunk_bounds(num_k, k_chunk_size):
+        for ci in todo:
+            s, e = bounds[ci]
             inten = phase = None
-            for grp in groups:
-                iv, phase = self._group_browse_dev(grp, k_dev[start:end], freq_idx_dev,
-                                                   comp_pair, angle_range_opt, segments,
-                                                   welch_window)
+            for gi in range(len(groups)):
+                iv, phase = self._browse_planes(*proj.get(gi, ci), freq_idx_dev, comp_pair,
+                                                angle_range_opt, segments, welch_window)
                 inten = iv if inten is None else inten + iv
-            found.append(torch.stack(spectral.peak_reduce(
+            res = torch.stack(spectral.peak_reduce(
                 inten, freqs_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
-                phase=phase, width_method=width_method)))
+                phase=phase, width_method=width_method))
+            if readback is not None:
+                readback.push([res], lambda a, ci=ci, s=s, e=e: store(a[0], ci, s, e))
+            else:
+                found.append(res)
+        if readback is not None:
+            readback.finish()
+            return tuple(out)
         return tuple(_to_host(torch.cat(found, dim=-1)))
+
+    # ------------------------------------------------------------------
+    # Vibrational density of states
+    # ------------------------------------------------------------------
+
+    def calculate_dos(self, basis_atom_indices=None, basis_atom_types=None,
+                      max_freq: Optional[float] = None,
+                      atom_chunk_size: Optional[int] = None):
+        """Vibrational density of states, computed on the device.
+
+        DOS(ν) = Σ_{a,α} |FFT_t v_aα(ν)|² / n_t², the Fourier transform of
+        the velocity autocorrelation (:func:`spectral.dos_accumulate`).
+        Group semantics follow the incoherent mode of :meth:`calculate`: a
+        flat ``basis_atom_types`` list yields one DOS per type; displacement
+        mode and mass weighting apply as configured.  A group over
+        ``max_device_bytes`` streams from the host in blocks of
+        ``atom_chunk_size`` atoms, the same chunks a resident group is
+        summed in, so the two give the same numbers.
+
+        Args:
+            max_freq: cap on retained frequencies (THz); ω ≥ 0 always.
+            atom_chunk_size: atoms per FFT batch (None = sized so the
+                complex transient stays under ~1 GB).
+
+        Returns:
+            (freqs (n_keep,) THz, dos (n_groups, n_keep) float32): one row
+            per resolved atom group, in group order.
+        """
+        n_t = self.traj.n_frames
+        freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
+        mask = freqs >= 0
+        if max_freq is not None:
+            mask &= freqs <= max_freq
+        freq_idx = np.flatnonzero(mask)
+        if freq_idx.size == 0:
+            raise ValueError("No frequencies retained; check max_freq.")
+        if atom_chunk_size is None:
+            atom_chunk_size = max(1, (1 << 30) // (24 * n_t))
+        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'incoherent')
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        out = np.zeros((len(groups), freq_idx.size), dtype=np.float32)
+        for gi, group in enumerate(groups):
+            group = np.asarray(group, dtype=int)
+            if group.size == 0:
+                continue
+            dos = torch.zeros(freq_idx.size, dtype=torch.float32, device=self.device)
+            if self._oversize(group):
+                for _, _, data, _, _ in self._stream_group(group, block_atoms=atom_chunk_size):
+                    dos = spectral.dos_accumulate(dos, data, freq_idx_dev)
+            else:
+                data_dev, _, _ = self._group_device_arrays(group)
+                for a0 in range(0, group.size, atom_chunk_size):
+                    dos = spectral.dos_accumulate(dos, data_dev[:, a0:a0 + atom_chunk_size],
+                                                  freq_idx_dev)
+            out[gi] = _to_host(dos)
+        return freqs[mask], out
 
     def calculate_group_velocity_path(self, k_points_mags: np.ndarray,
                                       k_vectors_3d: np.ndarray,

@@ -64,6 +64,12 @@
 // (plain cuBLAS float32: 4.2e-6).  With mma.sync in place of wgmma the same
 // design took 134 ms.
 //
+// Output: the kernel writes out_re/out_im, or with accumulate != 0 adds its
+// sums to them (out += tile, one extra read of the output tile after the
+// two-level sum).  An atom axis streamed in blocks accumulates into one
+// output this way, and a time axis streamed in blocks writes row slices of
+// one output (each is a contiguous (rows, 3, n_k) array).
+//
 // Entry point psa_sed_projection launches on the given stream, does not
 // synchronise, allocates nothing, and returns the first CUDA error (0 if
 // none).
@@ -224,7 +230,7 @@ sed_projection_kernel(const float* __restrict__ data,
                       float* __restrict__ out_re,
                       float* __restrict__ out_im,
                       long long n_t, long long n_atoms, long long n_k,
-                      int grid_k)
+                      int grid_k, int accumulate)
 {
     extern __shared__ __align__(16) unsigned char smem[];
     double* s_k = reinterpret_cast<double*>(smem);
@@ -456,8 +462,9 @@ sed_projection_kernel(const float* __restrict__ data,
             const int n = 8 * j + 2 * tq + r % 2;
             const long long k = k0 + n % BK;
             if (m < n_rows && k < n_k) {
-                float* out = n < BK ? out_re : out_im;
-                out[m * n_k + k] = s_tot[(4 * j + r) * MMA_THREADS + tid];
+                float* out = (n < BK ? out_re : out_im) + m * n_k + k;
+                const float tile = s_tot[(4 * j + r) * MMA_THREADS + tid];
+                *out = accumulate ? *out + tile : tile;
             }
         }
 }
@@ -468,7 +475,7 @@ extern "C" int psa_sed_projection(const void* data, const void* mp_hi,
                                   const void* mp_lo, const void* kv,
                                   void* out_re, void* out_im,
                                   long long n_t, long long n_atoms,
-                                  long long n_k, void* stream)
+                                  long long n_k, int accumulate, void* stream)
 {
     if (n_t < 1 || n_atoms < 1 || n_k < 1)
         return (int)cudaErrorInvalidValue;
@@ -486,7 +493,7 @@ extern "C" int psa_sed_projection(const void* data, const void* mp_hi,
                             (cudaStream_t)stream>>>(
         (const float*)data, (const float*)mp_hi, (const float*)mp_lo,
         (const float*)kv, (float*)out_re, (float*)out_im, n_t, n_atoms, n_k,
-        (int)grid_k);
+        (int)grid_k, accumulate);
     return (int)cudaGetLastError();
 }
 

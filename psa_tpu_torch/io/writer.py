@@ -1,17 +1,73 @@
-"""The LAMMPS dump ("qdump") exporter that iSED writes its animation with.
+"""Result/trajectory writers and the LAMMPS dump ("qdump") exporter that
+iSED writes its animation with.
 
-Output matches the reference writer byte-for-byte (reference:
-src/psa/io/writer.py:139-228) so downstream tools (OVITO, the GUI's dump
-re-parser) keep working.
+Carried over from :mod:`psa_tpu.io.writer`.  Output matches the reference
+writer byte-for-byte (reference: src/psa/io/writer.py:19-228) so downstream
+tools (OVITO, the GUI's dump re-parser) keep working.  ``yaml`` is imported
+only by :meth:`TrajectoryWriter.save_config`.
 """
 from __future__ import annotations
 
+import json
 import logging
 from pathlib import Path
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
+from ..core.sed import SED
+from ..core.trajectory import Trajectory
+
 logger = logging.getLogger(__name__)
+
+
+class TrajectoryWriter:
+    """Directory-scoped saver for SED/trajectory/config/results/plots/logs."""
+
+    def __init__(self, output_dir: Union[str, Path]):
+        self.output_dir = Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+
+    def save_sed_data(self, sed: SED, filename: Optional[str] = None) -> None:
+        """SED -> .npz (+ compressed .phase.npz when phase data exists)."""
+        filepath = self.output_dir / (filename or 'sed_data.npz')
+        logger.info("Saving SED data to %s", filepath)
+        np.savez(filepath, k_points=sed.k_points, freqs=sed.freqs, sed=sed.sed,
+                 k_vectors=sed.k_vectors)
+        if sed.phase is not None:
+            np.savez_compressed(filepath.with_suffix('.phase.npz'), phase=sed.phase)
+
+    def save_trajectory_data(self, traj: Trajectory, filename: Optional[str] = None) -> None:
+        filepath = self.output_dir / (filename or 'trajectory_data.npz')
+        logger.info("Saving trajectory data to %s", filepath)
+        np.savez(filepath, positions=traj.positions, velocities=traj.velocities,
+                 types=traj.types, timesteps=traj.timesteps, box_matrix=traj.box_matrix,
+                 box_lengths=traj.box_lengths, box_tilts=traj.box_tilts)
+
+    def save_config(self, config: Dict[str, Any], filename: Optional[str] = None) -> None:
+        import yaml
+        filepath = self.output_dir / (filename or 'config.yaml')
+        logger.info("Saving configuration to %s", filepath)
+        with open(filepath, 'w') as f:
+            yaml.dump(config, f, default_flow_style=False)
+
+    def save_analysis_results(self, results: Dict[str, Any],
+                              filename: Optional[str] = None) -> None:
+        filepath = self.output_dir / (filename or 'analysis_results.json')
+        logger.info("Saving analysis results to %s", filepath)
+        with open(filepath, 'w') as f:
+            json.dump(results, f, indent=4)
+
+    def save_plot(self, fig, filename: str) -> None:
+        filepath = self.output_dir / filename
+        logger.info("Saving plot to %s", filepath)
+        fig.savefig(filepath, dpi=300, bbox_inches='tight')
+
+    def save_log(self, log_data: str, filename: Optional[str] = None) -> None:
+        filepath = self.output_dir / (filename or 'analysis.log')
+        logger.info("Saving log data to %s", filepath)
+        with open(filepath, 'w') as f:
+            f.write(log_data)
 
 
 def out_to_qdump(filename: str, positions_tf: np.ndarray, types_tf: np.ndarray,

@@ -9,7 +9,8 @@ The math (reference formula, src/psa/core/sed_calculator.py:58-84):
 
 Steps 1-3 (angles, cos/sin, the atom contraction) run in
 :func:`psa_tpu_torch.ops.sed_projection.sed_projection`; step 4 is
-``torch.fft.fft`` over time.  Complex results are complex64 tensors.
+``torch.fft.fft`` over time (:func:`finalize_spectrum`).  Complex results
+are complex64 tensors.
 
 The grid reductions (browse planes, Welch segments, the L/T split, peak
 extraction) are plain torch ops on the device: the complex spectrum of a
@@ -67,16 +68,29 @@ def sed_spectrum(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         (n_t, n_k, 3) complex64.
     """
     check_precision(precision)
-    n_t = data.shape[0]
-    re, im = sed_projection(data, mp_hi, mp_lo, k_vectors)      # (n_t, 3, K)
-    spec = torch.fft.fft(torch.complex(re, im), dim=0) / n_t
+    return finalize_spectrum(*sed_projection(data, mp_hi, mp_lo, k_vectors))
+
+
+def finalize_spectrum(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Φ (n_t, K, 3) complex64 of a (n_t, 3, K) projection pair: the FFT
+    over time divided by n_t (a view; the polarization axis is last)."""
+    spec = torch.fft.fft(torch.complex(re, im), dim=0) / re.shape[0]
     return spec.transpose(1, 2)
 
 
-def sed_intensity(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
-                  k_vectors: torch.Tensor, precision: str = 'parity') -> torch.Tensor:
-    """Σ_α |Φ_α(ω,k)|² of one atom group, (n_t, n_k) float32."""
-    return _power(sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision))
+def dos_accumulate(dos: torch.Tensor, data_chunk: torch.Tensor,
+                   freq_idx: torch.Tensor) -> torch.Tensor:
+    """dos + Σ_{a∈chunk, α} |FFT_t data|²/n_t² at the kept frequency rows.
+
+    The vibrational density of states DOS(ν) = Σ_a,α |v̂_aα(ν)|², the
+    Fourier transform of the velocity autocorrelation; normalized like the
+    SED (FFT/n_t), so a one-atom DOS equals that atom's k=0 incoherent SED.
+    (n_keep,) float32 accumulator; atoms come in chunks.
+    """
+    n_t = data_chunk.shape[0]
+    spec = torch.fft.fft(data_chunk.to(torch.complex64), dim=0) / n_t
+    inten = (spec.real * spec.real + spec.imag * spec.imag).sum(dim=(1, 2))
+    return dos + inten.index_select(0, freq_idx).float()
 
 
 def _power(spec: torch.Tensor) -> torch.Tensor:
@@ -142,26 +156,10 @@ def welch_browse_reduce(re: torch.Tensor, im: torch.Tensor, freq_idx: torch.Tens
     return inten, chiral_phase(cross, torch.ones_like(cross), angle_range_opt=angle_range_opt)
 
 
-def sed_grid_browse_welch(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
-                          k_vectors: torch.Tensor, freq_idx: torch.Tensor, segments: int,
-                          window: str = 'hann', precision: str = 'parity',
-                          comp_pair: Optional[Tuple[int, int]] = None,
-                          angle_range_opt: str = 'C'):
-    """Projection + Welch browse reduction of one atom group on one k-chunk
-    (the segment-averaged form of :func:`sed_grid_browse`)."""
-    check_precision(precision)
-    re, im = sed_projection(data, mp_hi, mp_lo, k_vectors)
-    return welch_browse_reduce(re, im, freq_idx, segments, window, comp_pair=comp_pair,
-                               angle_range_opt=angle_range_opt)
-
-
-def sed_welch_intensity(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
-                        k_vectors: torch.Tensor, segments: int, window: str = 'hann',
-                        precision: str = 'parity') -> torch.Tensor:
-    """Segment-averaged (Welch/Bartlett) intensity of one atom group,
-    (n_t // segments, n_k) float32 over every row of the segment spectrum."""
-    check_precision(precision)
-    re, im = sed_projection(data, mp_hi, mp_lo, k_vectors)
+def welch_intensity_reduce(re: torch.Tensor, im: torch.Tensor, segments: int,
+                           window: str) -> torch.Tensor:
+    """Segment-averaged intensity (n_t // segments, K) float32 of a
+    (n_t, 3, K) projection pair."""
     return _power(_segment_spectra(re, im, segments, window)).mean(dim=0)
 
 
@@ -192,17 +190,6 @@ def browse_reduce(spec: torch.Tensor, freq_idx: torch.Tensor,
         return inten, None
     c1, c2 = comp_pair
     return inten, chiral_phase(kept[..., c1], kept[..., c2], angle_range_opt=angle_range_opt)
-
-
-def sed_grid_browse(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
-                    k_vectors: torch.Tensor, freq_idx: torch.Tensor,
-                    precision: str = 'parity',
-                    comp_pair: Optional[Tuple[int, int]] = None,
-                    angle_range_opt: str = 'C'):
-    """:func:`sed_spectrum` + :func:`browse_reduce` of one atom group on one
-    k-chunk; the complex spectrum stays on the device."""
-    spec = sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision)
-    return browse_reduce(spec, freq_idx, comp_pair=comp_pair, angle_range_opt=angle_range_opt)
 
 
 def compress_plane(plane: torch.Tensor):
@@ -258,14 +245,6 @@ def lt_reduce(spec: torch.Tensor, k_unit: torch.Tensor, freq_idx: torch.Tensor):
     i_l = re_l * re_l + im_l * im_l
     # total − I_L ≥ 0 by Cauchy-Schwarz; clamp the float32 rounding
     return i_l, torch.clamp(_power(kept) - i_l, min=0.0)
-
-
-def sed_lt(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
-           k_vectors: torch.Tensor, k_unit: torch.Tensor, freq_idx: torch.Tensor,
-           precision: str = 'parity'):
-    """:func:`sed_spectrum` + :func:`lt_reduce` of one atom group on one k-chunk."""
-    spec = sed_spectrum(data, mp_hi, mp_lo, k_vectors, precision=precision)
-    return lt_reduce(spec, k_unit, freq_idx)
 
 
 def unit_k_vectors(k_vectors: np.ndarray) -> np.ndarray:

@@ -215,18 +215,24 @@ def test_ised_dump_matches_jax(tmp_path, kw):
 
 @pytest.mark.parametrize('call', ['cache_dir', 'streamed', 'npt', 'plot'])
 def test_unported_paths_raise(tmp_path, small_trajectory, call):
-    _, port = pair(small_trajectory)
+    """NPT and plotting iSED still raise.  The shard cache and groups over
+    max_device_bytes are ported: those cases hold the port to the JAX
+    package on the same call instead."""
+    ref, port = pair(small_trajectory)
     k_mags, k_vecs = port.get_k_path('x', 1.0, 3)
+    if call in ('cache_dir', 'streamed'):
+        kw = dict(cache_dir=tmp_path) if call == 'cache_dir' else {}
+        if call == 'streamed':
+            ref.max_device_bytes = port.max_device_bytes = 1000
+        got, want = port.calculate(k_mags, k_vecs, **kw), ref.calculate(k_mags, k_vecs, **kw)
+        assert rel_err(got.sed, want.sed) < RTOL
+        assert rel_err(got.sed, reference_sed_oracle(small_trajectory, k_vecs)) < RTOL
+        assert (call == 'streamed') == (port.streamed_bytes > 0)
+        return
     with pytest.raises(NotImplementedError):
-        if call == 'cache_dir':
-            port.calculate(k_mags, k_vecs, cache_dir=tmp_path)
-        elif call == 'streamed':
-            port.max_device_bytes = 1000
-            port.calculate(k_mags, k_vecs)
-        else:
-            port.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
-                      dump_filepath=str(tmp_path / 'x.dump'), npt=call == 'npt',
-                      plot_dir_ised=tmp_path if call == 'plot' else None)
+        port.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
+                  dump_filepath=str(tmp_path / 'x.dump'), npt=call == 'npt',
+                  plot_dir_ised=tmp_path if call == 'plot' else None)
 
 
 @pytest.mark.parametrize('precision,exc', [('fast', NotImplementedError),

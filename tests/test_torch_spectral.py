@@ -99,7 +99,7 @@ def test_sed_spectrum_matches_jax_and_oracle(shape):
 
 def test_sed_intensity_matches_jax():
     data, hi, lo, kv, mean64 = make_problem(12, 200, 40, seed=2)
-    got = tspec.sed_intensity(t(data), t(hi), t(lo), t(kv)).numpy()
+    got = tspec._power(tspec.sed_spectrum(t(data), t(hi), t(lo), t(kv))).numpy()
     want = np.asarray(jspec.sed_intensity(jnp.asarray(data), jnp.asarray(hi),
                                           jnp.asarray(lo), jnp.asarray(kv)))
     want64 = np.sum(np.abs(oracle(data, mean64, kv)) ** 2, axis=-1)
@@ -211,7 +211,10 @@ def test_build_module_imports_without_nvcc():
 
 def test_import_leaves_jax_out():
     code = ("import sys, psa_tpu_torch, psa_tpu_torch.core.convert, psa_tpu_torch.models, "
-            "psa_tpu_torch.ops.dispersion, psa_tpu_torch.ops.transport; "
-            "bad = [m for m in ('jax', 'psa_tpu', 'matplotlib', 'yaml') if m in sys.modules]; "
+            "psa_tpu_torch.ops.dispersion, psa_tpu_torch.ops.transport, "
+            "psa_tpu_torch.io.loader, psa_tpu_torch.io.lammps, psa_tpu_torch.io.h5md, "
+            "psa_tpu_torch.io.shard_cache, psa_tpu_torch.io.native, psa_tpu_torch.io.writer, "
+            "psa_tpu_torch.core.streaming, psa_tpu_torch.utils.transfer; "
+            "bad = [m for m in ('jax', 'psa_tpu', 'matplotlib', 'yaml', 'h5py') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, '-c', code], cwd=REPO, check=True, timeout=120)
