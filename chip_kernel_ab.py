@@ -14,8 +14,9 @@ it (``accumulate``), and the same three again in reverse order.  Each
 version's output must equal this one's bit for bit (the MMA pipeline is
 shared; an add to zeros is exact).  Prints the card's name and power limit,
 one line per variant with the median and quartiles in ms, and a JSON line.
-An entry point without the ``accumulate`` argument (before it existed) is
-called without it.
+An entry point without the ``accumulate`` or ``tier`` argument (before it
+existed) is called without it; this checkout's kernel runs its 'parity'
+tier.
 """
 import argparse
 import ctypes
@@ -31,12 +32,12 @@ import torch
 import chip_smoke as cs
 
 
-def takes_accumulate(source: Path) -> bool:
-    """Whether the source's ``psa_sed_projection`` entry point has an ``accumulate`` argument."""
+def entry_arguments(source: Path) -> str:
+    """The argument list of the source's ``psa_sed_projection`` entry point."""
     sig = re.search(r'extern "C" int psa_sed_projection\((.*?)\)', source.read_text(), re.S)
     if sig is None:
         raise SystemExit(f"{source}: no psa_sed_projection entry point")
-    return 'accumulate' in sig.group(1)
+    return sig.group(1)
 
 
 def build_all(sources, out_dir):
@@ -53,15 +54,17 @@ def build_all(sources, out_dir):
     return libs
 
 
-def launcher(lib_path, with_accumulate):
-    """f(data, hi, lo, kv, out, accumulate) launching the library's kernel on the current stream."""
+def launcher(lib_path, arguments):
+    """f(data, hi, lo, kv, out, accumulate) launching the library's kernel
+    (its 'parity' tier, where it has tiers) on the current stream."""
+    with_accumulate, with_tier = 'accumulate' in arguments, 'tier' in arguments
     fn = ctypes.CDLL(str(lib_path)).psa_sed_projection
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
-        + ([ctypes.c_int] if with_accumulate else []) + [ctypes.c_void_p]
+        + [ctypes.c_int] * (with_accumulate + with_tier) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def run(data, hi, lo, kv, out, accumulate=False):
-        extra = [int(accumulate)] if with_accumulate else []
+        extra = ([int(accumulate)] if with_accumulate else []) + ([0] if with_tier else [])
         err = fn(data.data_ptr(), hi.data_ptr(), lo.data_ptr(), kv.data_ptr(), out[0].data_ptr(),
                  out[1].data_ptr(), data.shape[0], data.shape[1], kv.shape[0], *extra,
                  torch.cuda.current_stream().cuda_stream)
@@ -85,8 +88,8 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         other_lib, this_lib = build_all([args.other, this], Path(tmp))
-        other = launcher(other_lib, takes_accumulate(args.other))
-        mine = launcher(this_lib, True)
+        other = launcher(other_lib, entry_arguments(args.other))
+        mine = launcher(this_lib, entry_arguments(this))
 
         dev = torch.device('cuda')
         gen = torch.Generator(device=dev).manual_seed(cs.SEED)

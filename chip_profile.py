@@ -10,8 +10,11 @@ velocities on the card, 50x50 k-grid) it runs, for each of ``calculate``
 ``calculate_kgrid_browse`` (k-chunks of 1,280, float32 and float16
 readback), and ``calculate`` and ``calculate_kgrid_peaks`` on the same
 velocities copied to the host under the default device budget, so the group
-streams in atom blocks (``calculate_streamed``, ``kgrid_peaks_streamed``):
-one warm-up call, three timed calls, then one call under torch.profiler.  For each it prints one JSON line: the walls, the device
+streams in atom blocks (``calculate_streamed``, ``kgrid_peaks_streamed``),
+``calculate_npt_peaks`` on chip_smoke.py's breathing cell (``npt_peaks``) and
+``calculate_dsf`` on its thermal fixed cell (``dsf``, positions and velocities
+resident): one warm-up call, three timed calls, then one call under
+torch.profiler.  For each it prints one JSON line: the walls, the device
 time and event count by category (the projection kernel, cuFFT, other
 kernels, memsets, each copy direction), the device's busy time (the union
 of the intervals of its kernels, copies and memsets), the idle share of the
@@ -47,7 +50,10 @@ def category(event):
         return 'memset'
     if 'sed_projection_kernel' in name:
         return 'sed_projection_kernel'
-    return 'cuFFT' if 'fft' in name.lower() else 'other kernels'
+    low = name.lower()
+    if 'fft' in low:
+        return 'cuFFT'
+    return 'gemm (cuBLAS)' if 'gemm' in low or 'gemv' in low else 'other kernels'
 
 
 def busy_us(intervals):
@@ -102,6 +108,7 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: torch.cuda.is_available() is false; needs a CUDA GPU")
+    from psa_tpu_torch import SEDCalculator
     from psa_tpu_torch.ops.spectral import split_f64
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -138,6 +145,17 @@ def main():
     }
     for name, run in streamed.items():
         print(json.dumps(profile_path(name, run, out_dir)), flush=True)
+    del scalc
+    host_pos = np.empty_like(host)
+    ncalc, miller, _, _ = cs.npt_working_data(dev, host, host_pos)
+    print(json.dumps(profile_path('npt_peaks', lambda: ncalc.calculate_npt_peaks(
+        miller, n_peaks=cs.N_PEAKS, k_chunk_size=cs.K_CHUNK_GRID), out_dir)), flush=True)
+    del ncalc
+    torch.cuda.empty_cache()
+    traj, kv, side, _, _ = cs.dsf_working_data(dev, host, host_pos)
+    dcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=cs.DSF_BUDGET,
+                          device=dev)
+    print(json.dumps(profile_path('dsf', lambda: dcalc.calculate_dsf(kv), out_dir)), flush=True)
 
 
 if __name__ == '__main__':

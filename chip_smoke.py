@@ -1,4 +1,4 @@
-"""Drive psa_tpu_torch's SED main path once on one CUDA GPU, and check it.
+"""Drive psa_tpu_torch's paths once on one CUDA GPU, and check them.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -14,18 +14,26 @@ physics, runs ``SEDCalculator.calculate`` at the working size (10^5 atoms x
 ``calculate_kgrid_peaks`` (3 peaks, k-chunks of 1,280) and
 ``calculate_kgrid_browse`` (float32 and float16 readback) on the same data
 against the float64 oracle, the grid reductions' physics at small sizes
-(square-lattice peak surface, chiral peaks, L/T split, Welch), then the
-out-of-core and on-disk path on the same working-size data: ``calculate``,
-``calculate_kgrid_peaks`` and ``calculate_dos`` with the velocities on the
-host and the default device budget, so the group streams in atom blocks
-(phase 7); kill-and-resume through ``cache_dir`` (phase 8); a LAMMPS dump
-of 10^4 atoms x 200 frames loaded with ``TrajectoryLoader`` and streamed
-with ``sed_from_dump_streaming`` (phase 9); and the rest of the slice
-(incoherent groups, chiral phase, iSED).  Each phase prints one line;
-any failure raises and the script exits non-zero.  The line before the last
-is a JSON record of each kernel (launches on the main path, error, times);
-the last line is ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero
-before printing any result.  About 90 s on an H100 machine.
+(square-lattice peak surface, chiral peaks, L/T split, Welch), each
+precision tier of the kernel ('parity', 'balanced', 'fast') against its
+plain version at the working chunk and through ``calculate`` at the working
+size (phase 5d), then the out-of-core and on-disk path on the same
+working-size data: ``calculate``, ``calculate_kgrid_peaks`` and
+``calculate_dos`` with the velocities on the host and the default device
+budget, so the group streams in atom blocks (phase 7); kill-and-resume
+through ``cache_dir`` (phase 8); a LAMMPS dump of 10^4 atoms x 200 frames
+loaded with ``TrajectoryLoader`` and streamed with
+``sed_from_dump_streaming`` (phase 9); the NPT family at the working size
+in a breathing cell against a float64 NPT oracle, a drifting-cell chain and
+``ised(npt=True)`` (phase 10); the instantaneous-phase family (DSF, S(k),
+ISF and their self parts) at the working size against float64 oracles,
+streamed under the default budget, and its physics at small sizes (phase
+11); and the rest of the slice (incoherent groups, chiral phase, iSED).
+Each phase prints one line; any failure raises and the script exits
+non-zero.  The line before the last is a JSON record of each kernel
+(launches on the main paths, error, times per tier); the last line is
+``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
+any result.  About 3 minutes on an H100 machine.
 """
 import json
 import re
@@ -52,7 +60,16 @@ F16_REL_EPS, F16_REL_FLOOR = 2.0 ** -9, 4e-9   # float16 readback bounds, tests/
 TOL_DOS = 1e-6      # streamed vs resident DOS: the same atom chunks, the same FFTs
 RESUME_K = 1000     # phase 8: the first 1,000 k of the grid, two chunks of 500
 DUMP_ATOMS, DUMP_FRAMES, DUMP_CHUNK = 10_000, 200, 64   # phase 9's LAMMPS dump
-TF32_PEAK, HBM_RATE = 495e12, 3.35e12   # H100 SXM: dense TF32 FLOP/s, HBM bytes/s
+TF32_PEAK, BF16_PEAK, HBM_RATE = 495e12, 989e12, 3.35e12   # H100 SXM: dense FLOP/s, HBM bytes/s
+#: calculate at the working size vs the float64 oracle columns, per precision tier
+TOL_TIERS = {'parity': TOL_KERNEL, 'balanced': 5e-5, 'fast': 5e-3}
+TIER_PEAK = {'parity': TF32_PEAK, 'balanced': BF16_PEAK, 'fast': TF32_PEAK}
+THERMAL_U = 0.05                      # Å, seeded site displacements of the NPT and DSF phases
+NPT_AMP, NPT_PERIOD = 0.01, 2_500     # h(t) = h̄ (1 + NPT_AMP sin(2π t / NPT_PERIOD))
+DSF_K, SELF_K = 128, 16               # k of the [100] path; of them, those of the self parts
+DSF_BUDGET = int(30e9)                # max_device_bytes holding 24 GB of positions + velocities
+GEN_FRAMES = 500                      # frames per block of positions made on the card
+SI_A0 = 5.43                          # Å, the Si cubic cell
 
 
 def log(phase, msg):
@@ -82,7 +99,7 @@ def cuda_ms(fn, reps):
 
 def si_sites(n_atoms):
     """Diamond-cubic Si slab sites, float64 (the repo's bench geometry)."""
-    a0 = 5.43
+    a0 = SI_A0
     side = int(np.ceil((n_atoms / 8) ** (1 / 3)))
     cells = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing='ij'), axis=-1).reshape(-1, 3)
     basis = np.array([[0, 0, 0], [.25, .25, .25], [.5, .5, 0], [.75, .75, .25],
@@ -500,7 +517,7 @@ def out_of_core(velocities, calc, proj, k_vecs, grid_shape, oracle, cols, reside
                "whole: " + ", ".join(f"{f['path']} {f['blocks']} blocks {f['shapes']}: rel err "
                                      f"{f['rel_err']:.3e}" for f in loop)
                + f" (tol {TOL_KERNEL}); {time.perf_counter() - t0:.2f} s")
-    return calc_launches, peaks_launches, loop
+    return calc_launches, peaks_launches, loop, host
 
 
 def resume(calc, proj, k_vecs):
@@ -657,6 +674,469 @@ def from_disk(dev, proj, k_vecs):
     return launches, loop
 
 
+def f64_oracle(velocities, mean64, k64, atoms=5000):
+    """Φ (n_t, K, 3) complex128 of the SED formula, float64 on the card:
+    FFT_t[Σ_a v_a exp(i k·mean_a)] / n_t, over atom blocks of ``atoms``."""
+    s_re = torch.zeros((velocities.shape[0], k64.shape[0], 3), dtype=torch.float64,
+                       device=velocities.device)
+    s_im = torch.zeros_like(s_re)
+    for a0 in range(0, velocities.shape[1], atoms):
+        ph = mean64[a0:a0 + atoms] @ k64.T
+        d = velocities[:, a0:a0 + atoms].double()
+        s_re += torch.einsum('tac,ak->tkc', d, torch.cos(ph))
+        s_im += torch.einsum('tac,ak->tkc', d, torch.sin(ph))
+        del d
+    return torch.fft.fft(torch.complex(s_re, s_im), dim=0) / velocities.shape[0]
+
+
+def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols):
+    """Phase 5d: each precision tier of the kernel against its plain
+    version over the whole working-chunk output, both timed, then
+    ``calculate`` at the working size at that tier against the float64
+    oracle columns.  Returns {tier: record}."""
+    k_dev = torch.from_numpy(np.ascontiguousarray(k_vecs[:K_CHUNK], dtype=np.float32)).to(
+        velocities.device)
+    work = (velocities, hi_dev, lo_dev, k_dev)
+    flop = 4.0 * N_T * 3 * N_ATOMS * K_CHUNK
+    bytes_moved = 4.0 * (3 * N_T * N_ATOMS + 6 * N_ATOMS + 3 * K_CHUNK + 2 * 3 * N_T * K_CHUNK)
+    out = {}
+    for tier in TOL_TIERS:
+        kern = proj.sed_projection(*work, precision=tier)
+        plain = proj.sed_projection_plain(*work, precision=tier)
+        torch.cuda.synchronize()
+        err_abs, scale = pair_err(kern, plain)
+        del kern, plain
+        check(err_abs / scale <= TOL_KERNEL,
+              f"{tier} kernel vs plain at the working chunk {err_abs / scale:.3e} > {TOL_KERNEL}")
+        plain_ms = [cuda_ms(lambda: proj.sed_projection_plain(*work, precision=tier), 1)]
+        kern_ms = [cuda_ms(lambda: proj.sed_projection(*work, precision=tier), 2) for _ in range(2)]
+        plain_ms.append(cuda_ms(lambda: proj.sed_projection_plain(*work, precision=tier), 1))
+        torch.cuda.empty_cache()
+
+        tcalc, _, _ = working_calculator(velocities.device, precision=tier)
+        tcalc.preload_device_group_data(velocities, hi_dev, lo_dev)
+        proj.launches = 0
+        t0 = time.perf_counter()
+        sed = tcalc.calculate(np.array([], np.float32), k_vecs, k_grid_shape=grid_shape,
+                              k_chunk_size=K_CHUNK)
+        wall = time.perf_counter() - t0
+        launches = proj.launches
+        got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
+        calc_err = rel(got.to(torch.complex128), oracle)
+        check(bool(np.isfinite(sed.sed).all()) and launches == -(-len(k_vecs) // K_CHUNK),
+              f"{tier} calculate: launches {launches}")
+        check(calc_err <= TOL_TIERS[tier],
+              f"{tier} calculate vs f64 oracle {calc_err:.3e} > {TOL_TIERS[tier]}")
+        del sed, got, tcalc
+        bound = {"operations": flop / TIER_PEAK[tier] * 1e3, "bytes": bytes_moved / HBM_RATE * 1e3}
+        bound_by = max(bound, key=bound.get)
+        out[tier] = {"ms": float(np.mean(kern_ms)), "plain_ms": float(np.mean(plain_ms)),
+                     "max_abs_err": err_abs, "rel_err": err_abs / scale,
+                     "calculate_rel_err": calc_err, "calculate_wall_s": wall,
+                     "launches": launches, "bound_ms": bound[bound_by], "bound_by": bound_by}
+        log('tiers', f"{tier}: working chunk (n_t,A,K)=({N_T},{N_ATOMS},{K_CHUNK}) kernel vs plain "
+                     f"rel err {err_abs / scale:.3e} (tol {TOL_KERNEL}); kernel {out[tier]['ms']:.3f} ms, "
+                     f"plain {out[tier]['plain_ms']:.3f} ms, bound {bound[bound_by]:.3f} ms by "
+                     f"{bound_by}; calculate {len(k_vecs)} k {wall:.3f} s wall, launches {launches}, "
+                     f"4 k-columns vs f64 oracle {calc_err:.3e} (tol {TOL_TIERS[tier]})")
+    return out
+
+
+def fill_positions(host_pos, make_frames):
+    """Write positions made on the card into the host array ``host_pos``
+    (n_t, N, 3) float32, GEN_FRAMES frames at a time: ``make_frames(t0, t1)``
+    returns the (t1 − t0, N, 3) float32 block on the card (and may keep
+    what it needs for an oracle)."""
+    for t0 in range(0, host_pos.shape[0], GEN_FRAMES):
+        t1 = min(t0 + GEN_FRAMES, host_pos.shape[0])
+        torch.from_numpy(host_pos[t0:t1]).copy_(make_frames(t0, t1))
+
+
+def npt_chain(lam, n_cells=16, a=2.5, dt_ps=0.01, mode_m=5, nu_thz=4.0, amp=0.02):
+    """A chain in a cell scaled by lam(t) (n_frames values), one commensurate
+    phonon riding in fractional space at mode ``mode_m`` and ``nu_thz``."""
+    from psa_tpu_torch import Trajectory
+    from psa_tpu_torch.core.trajectory import make_box_arrays
+    n_frames, length = len(lam), n_cells * a
+    x_frac = (np.arange(n_cells) + 0.5) / n_cells
+    phase = 2 * np.pi * (mode_m * x_frac[None, :] - nu_thz * np.arange(n_frames)[:, None] * dt_ps)
+    lam = np.asarray(lam, dtype=np.float64)
+    pos = np.zeros((n_frames, n_cells, 3), dtype=np.float32)
+    pos[:, :, 0] = (lam[:, None] * length) * (x_frac[None, :] + (amp / length) * np.sin(phase))
+    vel = np.zeros_like(pos)
+    vel[:, :, 0] = lam[:, None] * amp * (-2 * np.pi * nu_thz) * np.cos(phase)
+    boxes = (lam[:, None, None] * np.diag([length, 10.0, 10.0])[None]).astype(np.float32)
+    return Trajectory(pos, vel, np.ones(n_cells, dtype=np.int32), np.arange(n_frames, dtype=np.float32),
+                      boxes[0], *make_box_arrays(boxes[0]), dt_ps=dt_ps, box_matrices=boxes)
+
+
+def npt_small(dev, proj):
+    """Phase 10b: a chain whose cell drifts by 10%: the fractional anchor
+    keeps the ridden phonon on its frequency with clean neighbours, where
+    the fixed-cell projection loses its peak; then ``ised(npt=True)``."""
+    from psa_tpu_torch import SEDCalculator
+    nu, mode_m, n_frames = 4.0, 7, 128
+    traj = npt_chain(1.0 + 0.10 * np.linspace(0.0, 1.0, n_frames), mode_m=mode_m)
+    calc = SEDCalculator(traj, nx=16, ny=1, nz=1, device=dev)
+    m = np.stack([np.arange(1, 9), np.zeros(8), np.zeros(8)], axis=1)
+    proj.launches = 0
+    sed = calc.calculate_npt(m)
+    launches = proj.launches
+    pos = sed.freqs >= 0
+    inten, col = sed.intensity[pos], mode_m - 1
+    df = sed.freqs[1] - sed.freqs[0]
+    kv = (2 * np.pi / (16 * 2.5)) * m.astype(np.float32)
+    fixed = calc.calculate(np.linalg.norm(kv, axis=1), kv).intensity[pos]
+    peak = sed.freqs[pos][np.argmax(inten[:, col])]
+    side = max(inten[:, col - 1].max(), inten[:, col + 1].max()) / inten[:, col].max()
+    gain = inten[:, col].max() / fixed[:, col].max()
+    check(launches > 0 and abs(peak - nu) <= df + 1e-9 and side < 0.05 and gain > 1.2,
+          f"NPT chain: peak {peak} THz, neighbours {side:.3e} of it, gain over fixed cell {gain:.2f}")
+    log('npt', f"drifting chain (10% over {n_frames} frames): ridden phonon at {peak:.3f} THz "
+               f"(want {nu}), neighbours {side:.2e} of its peak, {gain:.2f}x the fixed-cell peak; "
+               f"launches {launches}")
+    lam = 1.0 + 0.03 * np.sin(np.linspace(0, 2 * np.pi, 96))
+    icalc = SEDCalculator(npt_chain(lam), nx=16, ny=1, nz=1, device=dev)
+    proj.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dump = f"{tmp}/npt.dump"
+        icalc.ised(k_dir_spec=[1, 0, 0], k_target=2 * np.pi * 5 / (lam.mean() * 16 * 2.5),
+                   w_target=4.0, char_len_k_path=2.5, nk_on_path=8, bz_cov_ised=8.0,
+                   rescale_factor='auto', n_recon_frames=32, dump_filepath=dump, npt=True)
+        with open(dump) as f:
+            n_frames = f.read().count("ITEM: TIMESTEP")
+    check(n_frames == 32 and proj.launches > 0, f"NPT iSED dump frames {n_frames}")
+    log('npt', f"ised(npt=True) dump: {n_frames} frames of 16 atoms; launches {proj.launches}")
+    return launches
+
+
+def npt_working_data(dev, host_vel, host_pos):
+    """The working size in a breathing cell, h(t) = h̄ (1 + NPT_AMP
+    sin(2πt/NPT_PERIOD)), r_a(t) = h(t)(s_a + u_a(t)) with seeded
+    displacements u made on the card and written into ``host_pos``, and the
+    velocities ``host_vel``: (calculator holding the velocities on the card,
+    the 50x50 Miller grid spanning the fixed-cell grid's k range, the
+    oracle's float64 s̄ on the card, seconds to make the positions)."""
+    from psa_tpu_torch import SEDCalculator, Trajectory
+    from psa_tpu_torch.core.trajectory import make_box_arrays
+    sites, side, a0 = si_sites(N_ATOMS)
+    length = float(np.float32(sites.max() + a0))
+    lam = 1.0 + NPT_AMP * np.sin(2 * np.pi * np.arange(N_T) / NPT_PERIOD)
+    h32 = (lam * length).astype(np.float32)                 # the diagonal of h(t), as stored
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    s_dev = torch.from_numpy(sites / length).to(dev)
+    h_dev = torch.from_numpy(h32.astype(np.float64)).to(dev)
+    sbar = torch.zeros((N_ATOMS, 3), dtype=torch.float64, device=dev)
+
+    def frames(t0, t1):
+        u = torch.randn((t1 - t0, N_ATOMS, 3), generator=gen, device=dev) * (THERMAL_U / length)
+        r = (h_dev[t0:t1, None, None] * (s_dev[None] + u.double())).float()
+        sbar.add_((r.double() / h_dev[t0:t1, None, None]).sum(dim=0))   # oracle s̄ = mean h⁻¹ r
+        return r
+    t0 = time.perf_counter()
+    fill_positions(host_pos, frames)
+    sbar /= N_T
+    t_gen = time.perf_counter() - t0
+    boxes = h32[:, None, None] * np.eye(3, dtype=np.float32)[None]
+    traj = Trajectory(host_pos, host_vel, np.ones(N_ATOMS, dtype=np.int32),
+                      np.arange(N_T, dtype=np.float32), boxes[0], *make_box_arrays(boxes[0]),
+                      dt_ps=0.01, box_matrices=boxes)
+    ncalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=int(13e9), device=dev)
+    m_max = round(5.0 * length / (2 * np.pi))              # |k| <= 5 Å⁻¹, the fixed-cell grid
+    axis = np.rint(np.linspace(-m_max, m_max, GRID))
+    miller = np.stack([np.repeat(axis, GRID), np.tile(axis, GRID), np.zeros(GRID * GRID)], axis=1)
+    return ncalc, miller, sbar, t_gen
+
+
+def npt_working_size(dev, proj, velocities, host_vel, host_pos):
+    """Phase 10: :func:`npt_working_data`'s breathing cell:
+    ``calculate_npt_peaks`` on its Miller grid, then ``calculate_npt`` on
+    the same k, against a float64 NPT oracle on the card; the kernel against
+    its plain version at the paths' k-chunks.  Returns the launches of the
+    two paths and the checks."""
+    from psa_tpu_torch.core.calculator import peaks_np
+    from psa_tpu_torch.ops.spectral import split_f64
+    ncalc, miller, sbar, t_gen = npt_working_data(dev, host_vel, host_pos)
+    boxes = ncalc.traj.box_matrices
+    m_max = int(miller[:, 0].max())
+    n_k = len(miller)
+
+    walls, launches = [], []
+    for _ in range(2):                                       # the first call sums s̄ and uploads
+        torch.cuda.synchronize()
+        proj.launches = 0
+        t0 = time.perf_counter()
+        pf, ph, _, k_cart = ncalc.calculate_npt_peaks(miller, n_peaks=N_PEAKS,
+                                                       k_chunk_size=K_CHUNK_GRID)
+        walls.append(time.perf_counter() - t0)
+        launches.append(proj.launches)
+    check(launches == [-(-n_k // K_CHUNK_GRID)] * 2, f"npt_peaks launches {launches}")
+    proj.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sed = ncalc.calculate_npt(miller, k_chunk_size=K_CHUNK)
+    npt_wall = time.perf_counter() - t0
+    npt_launches = proj.launches
+    peak_mem = torch.cuda.max_memory_allocated() / 1e9
+    check(npt_launches == -(-n_k // K_CHUNK) and sed.sed.shape == (N_T, n_k, 3)
+          and bool(np.isfinite(sed.sed).all()), f"calculate_npt launches {npt_launches}")
+
+    sbar_port = ncalc._fractional_mean_positions64()
+    sbar_err = float(np.abs(sbar_port - sbar.cpu().numpy()).max() / np.abs(sbar_port).max())
+    check(sbar_err <= 1e-12, f"fractional mean vs the oracle's {sbar_err:.3e}")
+    cols = np.array([0, n_k * 777 // 2500, n_k // 2, n_k - 1])     # phase 5's columns
+    k_eff = (2.0 * np.pi * miller).astype(np.float32)
+    oracle = f64_oracle(velocities, sbar, torch.from_numpy(k_eff[cols].astype(np.float64)).to(dev))
+    got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(dev).to(torch.complex128)
+    err = rel(got, oracle)
+    check(err <= TOL_KERNEL, f"calculate_npt vs f64 NPT oracle {err:.3e} > {TOL_KERNEL}")
+    del sed, got
+    freqs = np.fft.fftfreq(N_T, 0.01)
+    keep = freqs >= 0
+    orc = (oracle.abs() ** 2).sum(dim=-1).cpu().numpy()[keep]
+    want_f, want_h, _ = peaks_np(orc, freqs[keep].astype(np.float32), n_peaks=N_PEAKS)
+    tied = near_tie_columns(orc, N_PEAKS, 4, NEAR_TIE)
+    for j in np.flatnonzero(~tied):
+        col = cols[j]
+        h_err = float(np.max(np.abs(ph[:, col] - want_h[:, j])) / orc[:, j].max())
+        check(np.array_equal(pf[:, col], want_f[:, j]) and h_err <= TOL_KERNEL,
+              f"NPT peaks of k-column {col}: bins {pf[:, col]} vs {want_f[:, j]}, heights {h_err:.3e}")
+    check(np.allclose(k_cart[:, 0], 2 * np.pi * miller[:, 0] / boxes.astype(np.float64)[:, 0, 0].mean(),
+                      rtol=1e-6), "k_cart is the mean cell's image of m")
+    log('npt', f"breathing cell (±{NPT_AMP:.0%}, period {NPT_PERIOD} frames), {N_ATOMS} atoms x {N_T} "
+               f"frames made on the card and copied to the host in {t_gen:.2f} s; "
+               f"calculate_npt_peaks {n_k} Miller k (|m| <= {m_max}), n_peaks={N_PEAKS}: first "
+               f"{walls[0]:.3f} s (s̄ and the velocity upload), warm {walls[1]:.3f} s, "
+               f"{n_k / walls[1]:.1f} k-points/s, launches {launches}; {int((~tied).sum())} of 4 oracle "
+               f"columns' peaks checked (bins exact, heights <= {TOL_KERNEL} of max)")
+    log('npt', f"calculate_npt {n_k} k: {npt_wall:.3f} s wall, {n_k / npt_wall:.1f} k-points/s, "
+               f"launches {npt_launches}, peak device memory {peak_mem:.1f} GB; 4 k-columns vs the "
+               f"f64 NPT oracle {err:.3e} (tol {TOL_KERNEL}); s̄ vs the oracle's {sbar_err:.2e}")
+
+    hi, lo = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in split_f64(sbar_port))
+    k_dev = torch.from_numpy(k_eff).to(dev)
+    t0 = time.perf_counter()
+    chunks = chunk_errors(proj, velocities, hi, lo, k_dev, K_CHUNK_GRID)
+    chunks += chunk_errors(proj, velocities, hi, lo, k_dev[:K_CHUNK], K_CHUNK)
+    log('npt', "kernel vs plain over the whole output at the NPT paths' k-chunks: "
+               + ", ".join(f"{s}: rel err {e:.3e}" for s, e in chunks)
+               + f" (tol {TOL_KERNEL}); {time.perf_counter() - t0:.2f} s")
+    del ncalc, oracle
+    torch.cuda.empty_cache()
+    return launches[-1], npt_launches, chunks
+
+
+def dsf_oracles(pos, vel, k64, self_k64, n_lags, atoms=2000):
+    """float64 oracles on the card of the instantaneous-phase family from
+    the (n_t, N, 3) float32 positions and velocities: (S, C_L, S(k), F)
+    on the columns ``k64`` and (S_s, F_s) on ``self_k64``, all rows, each
+    normalized by N, the ISF rows for τ < n_lags."""
+    from psa_tpu_torch.ops.instantaneous import _autocorr_fft_len
+    n_t, n_a = pos.shape[:2]
+    fft_len = _autocorr_fft_len(n_t)
+    rho = torch.zeros((n_t, k64.shape[0]), dtype=torch.complex128, device=pos.device)
+    cur = torch.zeros((n_t, k64.shape[0], 3), dtype=torch.complex128, device=pos.device)
+    s_self = torch.zeros((n_t, self_k64.shape[0]), dtype=torch.float64, device=pos.device)
+    f_self = torch.zeros((n_lags, self_k64.shape[0]), dtype=torch.float64, device=pos.device)
+    lags = (n_t - torch.arange(n_lags, device=pos.device)).double()
+    for a0 in range(0, n_a, atoms):
+        p = pos[:, a0:a0 + atoms].double()
+        ph = torch.exp(1j * (p @ k64.T))                               # (n_t, a, K)
+        rho += ph.sum(dim=1)
+        cur += torch.einsum('tak,tac->tkc', ph, vel[:, a0:a0 + atoms].double().to(ph.dtype))
+        ph = torch.exp(1j * (p @ self_k64.T))
+        s_self += (torch.fft.fft(ph, dim=0).abs() ** 2).sum(dim=1) / n_t ** 2
+        spec = torch.fft.fft(ph, n=fft_len, dim=0)
+        corr = torch.fft.ifft(spec.abs() ** 2 + 0j, dim=0)[:n_lags].real.sum(dim=1)
+        f_self += corr / lags[:, None]
+        del p, ph, spec
+    rho_w = torch.fft.fft(rho, dim=0) / n_t
+    cur_w = torch.fft.fft(cur, dim=0) / n_t
+    k_unit = k64 / torch.clamp(k64.norm(dim=1, keepdim=True), min=1e-300)
+    c_l = (cur_w * k_unit[None]).sum(dim=-1).abs() ** 2
+    spec = torch.fft.fft(rho, n=fft_len, dim=0)
+    isf = torch.fft.ifft(spec.abs() ** 2 + 0j, dim=0)[:n_lags].real / lags[:, None]
+    return [x / n_a for x in (rho_w.abs() ** 2, c_l, (rho.abs() ** 2).mean(dim=0), isf,
+                              s_self, f_self)]
+
+
+def dsf_working_data(dev, host_vel, host_pos):
+    """The Si sites in a fixed cell with seeded thermal displacements made on
+    the card and written into ``host_pos``, and the velocities ``host_vel``:
+    (trajectory, the DSF_K-point commensurate [100] path, cells per side,
+    box length, seconds to make the positions)."""
+    from psa_tpu_torch import Trajectory
+    from psa_tpu_torch.core.trajectory import make_box_arrays
+    from psa_tpu_torch.ops.instantaneous import nearest_commensurate
+    sites, side, a0 = si_sites(N_ATOMS)
+    length = float(np.float32(sites.max() + a0))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sites_dev = torch.from_numpy(sites).to(dev)
+    t0 = time.perf_counter()
+    fill_positions(host_pos, lambda t0, t1: (sites_dev[None] + THERMAL_U * torch.randn(
+        (t1 - t0, N_ATOMS, 3), generator=gen, device=dev, dtype=torch.float64)).float())
+    t_gen = time.perf_counter() - t0
+    box = np.diag([length] * 3).astype(np.float32)
+    traj = Trajectory(host_pos, host_vel, np.ones(N_ATOMS, dtype=np.int32),
+                      np.arange(N_T, dtype=np.float32), box, *make_box_arrays(box), dt_ps=0.01)
+    kv = nearest_commensurate(np.outer(np.arange(DSF_K) * (2 * np.pi / length), [1.0, 0.0, 0.0]),
+                              traj.box_lengths)
+    check(len(np.unique(kv[:, 0])) == DSF_K, "the [100] path must hold DSF_K distinct k")
+    return traj, kv, side, length, t_gen
+
+
+def dsf_working_size(dev, proj, host_vel, host_pos):
+    """Phase 11: the instantaneous-phase family at the working size: the
+    Si sites in a fixed cell with seeded thermal displacements made on the
+    card and the working-size velocities (24 GB, resident under
+    DSF_BUDGET).  ``calculate_dsf``, ``calculate_sk`` and
+    ``calculate_isf`` on a DSF_K-point commensurate [100] path,
+    ``calculate_dsf_self`` and ``calculate_isf_self`` on SELF_K of them,
+    2 columns of each against float64 oracles on the card; then
+    ``calculate_dsf`` at the default device budget, streamed, against the
+    resident planes.  Returns the walls."""
+    from psa_tpu_torch import SEDCalculator
+    from psa_tpu_torch.core.calculator import _DEFAULT_MAX_DEVICE_BYTES
+    traj, kv, side, length, t_gen = dsf_working_data(dev, host_vel, host_pos)
+    dcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=DSF_BUDGET, device=dev)
+    self_kv = kv[::DSF_K // SELF_K]
+    n_lags = N_T // 2
+
+    walls, peaks = {}, {}
+    proj.launches = 0
+    runs = (('dsf', lambda: dcalc.calculate_dsf(kv)), ('dsf_warm', lambda: dcalc.calculate_dsf(kv)),
+            ('sk', lambda: dcalc.calculate_sk(kv)), ('isf', lambda: dcalc.calculate_isf(kv)),
+            ('dsf_self', lambda: dcalc.calculate_dsf_self(self_kv)),
+            ('isf_self', lambda: dcalc.calculate_isf_self(self_kv)))
+    out = {}
+    for name, run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[name] = run()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+    check(proj.launches == 0, "the instantaneous-phase family launched the projection kernel")
+    freqs, s_pl, cl_pl, ct_pl = out['dsf_warm']
+    check(all(np.array_equal(a, b) for a, b in zip(out['dsf'], out['dsf_warm'])),
+          "the warm DSF differs from the first")
+    check(all(np.isfinite(x).all() for r in out.values() for x in (r if isinstance(r, tuple) else (r,))),
+          "non-finite DSF-family values")
+
+    pos_dev, vel_dev = dcalc._dsf_device_arrays(np.arange(N_ATOMS), True)
+    # oracle columns: the path's last k, thermal-diffuse, and the sites' (400)
+    # reflection (at the working size 127 and 99 box periods, the box being
+    # 24.75 cells); where |ρ_k| is small, its float32 phasor sum carries
+    # ~√N·1e-7 of absolute error, so the diffuse column is taken at large k
+    bragg = int(round(4 * length / SI_A0))
+    check(bragg < DSF_K - 1, "the [100] path must reach past the (400) reflection")
+    cols, self_cols = np.array([DSF_K - 1, bragg]), np.array([1, 3 * SELF_K // 4])
+    t0 = time.perf_counter()
+    o_s, o_cl, o_sk, o_isf, o_ss, o_fs = (x.cpu().numpy() for x in dsf_oracles(
+        pos_dev, vel_dev, torch.from_numpy(kv[cols].astype(np.float64)).to(dev),
+        torch.from_numpy(self_kv[self_cols].astype(np.float64)).to(dev), n_lags))
+    t_oracle = time.perf_counter() - t0
+    keep = np.fft.fftfreq(N_T, 0.01) >= 0
+    errs = {}
+    for name, got, want in (
+            ('S', s_pl[:, cols], o_s[keep]), ('C_L', cl_pl[:, cols], o_cl[keep]),
+            ('S(k)', out['sk'][cols][None], o_sk[None]), ('ISF', out['isf'][1][:, cols], o_isf),
+            ('S_s', out['dsf_self'][1][:, self_cols], o_ss[keep]),
+            ('F_s', out['isf_self'][1][:, self_cols], o_fs)):
+        errs[name] = float(np.max(np.abs(got - want) / np.abs(want).max(axis=0)))
+        check(errs[name] <= TOL_KERNEL, f"{name} vs f64 oracle {errs[name]:.3e} > {TOL_KERNEL}")
+    del pos_dev, vel_dev
+    dcalc.clear_device_cache()
+    torch.cuda.empty_cache()
+    log('dsf', f"{N_ATOMS} thermal Si atoms x {N_T} frames made on the card, copied to the host in "
+               f"{t_gen:.2f} s; max_device_bytes={DSF_BUDGET:.0e} (positions + velocities resident); "
+               + "; ".join(f"{n} {walls[n]:.3f} s, peak {peaks[n]:.1f} GB" for n in walls)
+               + f"; {DSF_K} k ({SELF_K} for the self parts, n_lags {n_lags})")
+    log('dsf', "2 columns vs f64 oracles on the card (of each column's max): "
+               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+               + f" (tol {TOL_KERNEL}); oracles {t_oracle:.2f} s")
+
+    scalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=_DEFAULT_MAX_DEVICE_BYTES,
+                          device=dev)
+    check(2 * host_pos.nbytes > scalc.max_device_bytes,
+          "positions + velocities must exceed the default max_device_bytes")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    streamed = scalc.calculate_dsf(kv)
+    walls['dsf_streamed'] = time.perf_counter() - t0
+    stream_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    s_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(streamed[1:3], (s_pl, cl_pl)))
+    tot_err = float(np.abs((streamed[2] + streamed[3]) - (cl_pl + ct_pl)).max()
+                    / np.abs(cl_pl + ct_pl).max())
+    check(scalc.streamed_bytes == (2 * host_pos.nbytes) * -(-DSF_K // 512),
+          f"the streamed DSF moved {scalc.streamed_bytes} bytes")
+    check(max(s_err, tot_err) <= TOL_KERNEL and np.array_equal(streamed[0], freqs),
+          f"streamed DSF vs resident {s_err:.3e}, C_L + C_T {tot_err:.3e}")
+    log('dsf', f"calculate_dsf at the default max_device_bytes={scalc.max_device_bytes:.0e}: the "
+               f"group streams in blocks of {scalc.stream_block_atoms(N_ATOMS)} atoms, "
+               f"{scalc.streamed_bytes / 1e9:.1f} GB host->device, {walls['dsf_streamed']:.3f} s wall, "
+               f"peak device memory above the call's start {stream_peak:.2f} GB; S and C_L vs "
+               f"resident {s_err:.3e}, C_L + C_T {tot_err:.3e} of max (tol {TOL_KERNEL})")
+    return walls
+
+
+def dsf_small(dev):
+    """Phase 11b: the physics of tests/test_dsf.py on the card: Bragg S(k)
+    on a static lattice, the chain's current-spectrum peaks on
+    ν = W|sin(ka/2)|, Σ_ω S(k,ω) = S(k), Σ_ω S_s = 1 and F_s(k,0) = 1."""
+    from psa_tpu_torch import SEDCalculator, Trajectory
+    from psa_tpu_torch.core.trajectory import make_box_arrays
+    from psa_tpu_torch.models import make_chain_trajectory
+    from psa_tpu_torch.ops import instantaneous as inst
+    from psa_tpu_torch.ops.spectral import unit_k_vectors
+    a0, n_cells, n_t = 2.0, 8, 16
+    pos = np.zeros((n_t, n_cells, 3), np.float32)
+    pos[:, :, 0] = np.arange(n_cells) * a0
+    box = np.diag([n_cells * a0] * 3).astype(np.float32)
+    static = Trajectory(pos, np.zeros_like(pos), np.ones(n_cells, np.int32),
+                        np.arange(n_t, dtype=np.float32), box, *make_box_arrays(box), dt_ps=0.02)
+    scalc = SEDCalculator(static, nx=n_cells, ny=1, nz=1, device=dev)
+    kv = np.array([[np.pi, 0, 0], [2 * np.pi * 3 / (n_cells * a0), 0, 0]], np.float32)
+    sk = scalc.calculate_sk(kv)
+    _, s, _, _ = scalc.calculate_dsf(kv)
+    check(abs(sk[0] - n_cells) <= 1e-4 * n_cells and sk[1] <= 1e-6 * n_cells
+          and abs(s[0, 0] - n_cells) <= 1e-4 * n_cells and s[1:, 0].max() <= 1e-6 * n_cells,
+          f"Bragg: S(G) {sk[0]}, S(k) off G {sk[1]}, S(G, 0) {s[0, 0]}")
+    log('dsf', f"static chain: S(G) = {sk[0]:.6f} (N = {n_cells}), S at m=3 of 8 {sk[1]:.2e}, "
+               f"all of S(G, ω) at ω = 0")
+
+    chain = make_chain_trajectory(n_cells=16, n_frames=128, dt_ps=0.02, a=2.5, omega_max_thz=8.0,
+                                  seed=5)
+    ccalc = SEDCalculator(chain, nx=16, ny=1, nz=1, device=dev)
+    kc = np.zeros((3, 3), np.float32)
+    kc[:, 0] = 2 * np.pi * np.array([2, 5, 8]) / (16 * 2.5)
+    kc = inst.nearest_commensurate(kc, chain.box_lengths)
+    freqs, _, c_l, c_t = ccalc.calculate_dsf(kc)
+    miss = max(abs(freqs[np.argmax(c_l[:, j])] - 8.0 * abs(np.sin(kc[j, 0] * 2.5 / 2)))
+               for j in range(3))
+    check(miss <= 0.5 and c_t.max() <= 1e-8 * c_l.max(), f"chain C_L peaks off by {miss} THz")
+    log('dsf', f"chain C_L peaks on nu = 8|sin(ka/2)| within {miss:.4f} THz (<= 0.5); C_T "
+               f"{c_t.max() / c_l.max():.1e} of C_L")
+
+    rng = np.random.default_rng(SEED)
+    p = torch.from_numpy(rng.uniform(0, 9, (16, 7, 3)).astype(np.float32)).to(dev)
+    kr = rng.uniform(-2, 2, (3, 3)).astype(np.float32)
+    re, im = inst.instant_modes(p, torch.zeros_like(p), torch.from_numpy(kr).to(dev), t_chunk=5)
+    s_all = inst.dsf_reduce(re, im, torch.from_numpy(unit_k_vectors(kr)).to(dev),
+                            torch.arange(16, device=dev))[0].sum(dim=0)
+    parseval = float((s_all / inst.sk_reduce(re, im) - 1).abs().max())
+    s_s = inst.dsf_self_block(p, torch.from_numpy(kr).to(dev), torch.arange(16, device=dev)) / 7
+    self_sum = float((s_s.sum(dim=0) - 1).abs().max())
+    _, f_s = ccalc.calculate_isf_self(kc, n_lags=8)
+    check(parseval <= 1e-5 and self_sum <= 1e-6 and np.allclose(f_s[0], 1.0, rtol=1e-6),
+          f"Parseval {parseval:.2e}, Σ S_s - 1 {self_sum:.2e}, F_s(k,0) {f_s[0]}")
+    log('dsf', f"Σ_ω S(k,ω) = S(k) to {parseval:.1e}; Σ_ω S_s = 1 to {self_sum:.1e}; "
+               f"F_s(k,0) = {f_s[0].min():.7f}..{f_s[0].max():.7f}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA GPU")
@@ -667,6 +1147,7 @@ def main():
     from psa_tpu_torch.ops.spectral import split_f64
 
     dev = torch.device('cuda')
+    t_start = time.perf_counter()
 
     # -- 1. device --------------------------------------------------------
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -784,17 +1265,8 @@ def main():
     check(sed.sed.shape == (N_T, n_k, 3), f"SED shape {sed.sed.shape}")
     check(bool(np.isfinite(sed.sed).all()), "non-finite SED values")
     cols = np.array([0, 777, 1250, n_k - 1])
-    kc = torch.from_numpy(k_vecs[cols].astype(np.float64)).to(dev)
-    mp = torch.from_numpy(mean64).to(dev)
-    s_re = torch.zeros((N_T, len(cols), 3), dtype=torch.float64, device=dev)
-    s_im = torch.zeros_like(s_re)
-    for a0_ in range(0, N_ATOMS, 5000):
-        ph = mp[a0_:a0_ + 5000] @ kc.T
-        d = velocities[:, a0_:a0_ + 5000].double()
-        s_re += torch.einsum('tac,ak->tkc', d, torch.cos(ph))
-        s_im += torch.einsum('tac,ak->tkc', d, torch.sin(ph))
-        del d
-    oracle = torch.fft.fft(torch.complex(s_re, s_im), dim=0) / N_T
+    oracle = f64_oracle(velocities, torch.from_numpy(mean64).to(dev),
+                        torch.from_numpy(k_vecs[cols].astype(np.float64)).to(dev))
     got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(dev).to(torch.complex128)
     main_err = rel(got, oracle)
     check(main_err <= TOL_KERNEL, f"working-size SED vs f64 oracle {main_err:.3e} > {TOL_KERNEL}")
@@ -814,9 +1286,14 @@ def main():
                                                                  nu_max, a)
     log('grid', f"grid phases took {time.perf_counter() - t0:.2f} s")
 
+    # -- 5d. the precision tiers -------------------------------------------
+    t0 = time.perf_counter()
+    tier_info = tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols)
+    log('tiers', f"tier phase took {time.perf_counter() - t0:.2f} s")
+
     # -- 7/8/9. out of core, resume, from disk ------------------------------
     t0 = time.perf_counter()
-    streamed_launches, streamed_peaks_launches, streamed_loop = out_of_core(
+    streamed_launches, streamed_peaks_launches, streamed_loop, host_vel = out_of_core(
         velocities, calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed, resident_peaks)
     del resident_sed
     log('ooc', f"out-of-core phase took {time.perf_counter() - t0:.2f} s")
@@ -826,10 +1303,24 @@ def main():
     t0 = time.perf_counter()
     dump_launches, dump_loop = from_disk(dev, proj, k_vecs)
     log('disk', f"from-disk phase took {time.perf_counter() - t0:.2f} s")
-    del oracle, s_re, s_im
+    del oracle
     calc.clear_device_cache()
+    torch.cuda.empty_cache()
+
+    # -- 10/11. NPT and the instantaneous-phase family ----------------------
+    host_pos = np.empty_like(host_vel)
+    t0 = time.perf_counter()
+    npt_peaks_launches, npt_launches, npt_chunks = npt_working_size(dev, proj, velocities,
+                                                                    host_vel, host_pos)
+    npt_chain_launches = npt_small(dev, proj)
+    log('npt', f"NPT phase took {time.perf_counter() - t0:.2f} s")
     del velocities
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dsf_working_size(dev, proj, host_vel, host_pos)
+    dsf_small(dev)
+    log('dsf', f"instantaneous-phase phase took {time.perf_counter() - t0:.2f} s")
+    del host_pos, host_vel
 
     # -- 6. the rest of the slice -----------------------------------------
     crystal = make_random_crystal_trajectory(n_cells_xyz=(6, 6, 6), basis=2, n_frames=256,
@@ -887,6 +1378,7 @@ def main():
     bytes_moved = 4.0 * (3 * N_T * N_ATOMS + 6 * N_ATOMS + 3 * K_CHUNK + 2 * 3 * N_T * K_CHUNK)
     bound = {"operations": flop / TF32_PEAK * 1e3, "bytes": bytes_moved / HBM_RATE * 1e3}
     bound_by = max(bound, key=bound.get)
+    log('done', f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "sed_projection", "route": "cuda", "design": DESIGN,
         "source": "psa_tpu_torch/csrc/sed_projection.cu",
@@ -895,16 +1387,20 @@ def main():
         "ms": work_ms, "plain_ms": work_plain_ms,
         "bound_ms": bound[bound_by], "bound_by": bound_by, "library_ms": None,
         "design_bound_ms": 3 * flop / TF32_PEAK * 1e3,
-        "ptxas": ptxas_info, "out_accumulate_rel_err": out_errs,
+        "ptxas": ptxas_info, "out_accumulate_rel_err": out_errs, "tiers": tier_info,
         "launches_per_path": {"calculate": main_launches, "kgrid_peaks": peaks_launches,
                               "kgrid_browse": browse_launches, "lt": lt_launches,
                               "welch": welch_launches, "calculate_streamed": streamed_launches,
                               "kgrid_peaks_streamed": streamed_peaks_launches,
-                              "resume_rerun": rerun_launches, "from_dump": dump_launches},
+                              "resume_rerun": rerun_launches, "from_dump": dump_launches,
+                              "calculate_balanced": tier_info['balanced']['launches'],
+                              "calculate_fast": tier_info['fast']['launches'],
+                              "npt_peaks": npt_peaks_launches, "npt": npt_launches,
+                              "npt_chain": npt_chain_launches},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
-                                 ("square_lattice", small_chunks))
+                                 ("square_lattice", small_chunks), ("npt", npt_chunks))
             for shape, err in chunks] + streamed_loop + [dump_loop]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

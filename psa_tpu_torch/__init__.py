@@ -10,7 +10,10 @@ and the out-of-core and on-disk path: groups larger than the device budget
 stream from the host, sweeps checkpoint per k-chunk and resume, trajectory
 files load through ``TrajectoryLoader`` (LAMMPS dump with a C parser,
 extxyz, OUTCAR, H5MD), and ``sed_from_dump_streaming`` projects a dump
-without holding it.  The projection runs in
+without holding it; the NPT family (a breathing cell, phases anchored in
+fractional space) and the instantaneous-phase family (DSF and current
+spectra, S(k), the intermediate scattering function and their self parts).
+The projection runs, at the precision tier the calculator names, in
 a hand-written CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc``
 at first use) on a GPU, and in its plain PyTorch version on CPU tensors;
 the reductions are torch ops on the same device.  This package imports

@@ -98,7 +98,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(LIB_PATH))
             fn = lib.psa_sed_projection
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
-                + [ctypes.c_int, ctypes.c_void_p]
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             lib.psa_sed_projection_smem_bytes.argtypes = []
             lib.psa_sed_projection_smem_bytes.restype = ctypes.c_int

@@ -7,10 +7,16 @@ incoherent, velocities or displacements, optional mass weighting),
 on-device grid reductions: ``calculate_welch``, ``calculate_kgrid_browse``,
 ``calculate_lt``, ``calculate_kgrid_peaks``, and on top of the peaks
 ``calculate_group_velocity_path``/``_surface`` and
-``calculate_thermal_conductivity``; and ``calculate_dos``.  Group
-bookkeeping and k generation run on the host in NumPy; per (group, k-chunk)
-projections and their reductions run on ``device`` through
-:mod:`psa_tpu_torch.ops.spectral`.
+``calculate_thermal_conductivity``; ``calculate_dos``; the NPT family
+(``calculate_npt``, ``calculate_npt_browse``, ``calculate_npt_peaks``,
+``ised(npt=True)``: the fractional phase anchor exp(2πi m·s̄)); and the
+instantaneous-phase family (``calculate_dsf``, ``calculate_sk``,
+``calculate_isf``, ``calculate_isf_self``, ``calculate_dsf_self``: phases
+exp(i k·r_a(t)), :mod:`psa_tpu_torch.ops.instantaneous`).  Every precision
+tier of the projection kernel ('parity', 'balanced', 'fast') runs on every
+projecting surface.  Group bookkeeping and k generation run on the host in
+NumPy; per (group, k-chunk) projections and their reductions run on
+``device`` through :mod:`psa_tpu_torch.ops.spectral`.
 
 Out of core: a group larger than ``max_device_bytes`` streams from the host
 in atom blocks through pinned staging buffers (the next block's copy
@@ -21,9 +27,9 @@ the host assembles chunk i while the device computes chunk i+1.
 with the JAX package), so a killed sweep resumes.
 
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-precision tiers 'balanced' and 'fast', the gridded NUFFT engine
-(``engine='gridded'``), device meshes (``mesh=``), NPT iSED and iSED
-plotting.  The JAX class's other public methods are absent.
+gridded NUFFT engine (``engine='gridded'``), device meshes (``mesh=``), the
+'incremental' and 'factored' phase engines and iSED plotting.  The JAX
+class's other public methods are absent.
 """
 from __future__ import annotations
 
@@ -36,9 +42,9 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..ops import spectral
+from ..ops import instantaneous, spectral
 from ..ops.sed_projection import sed_projection
-from ..utils.helpers import DirectionSpec, parse_direction
+from ..utils.helpers import DirectionSpec, miller_line, parse_direction
 from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows
 from .sed import SED
 from .trajectory import Trajectory
@@ -48,10 +54,10 @@ logger = logging.getLogger(__name__)
 _DEFAULT_MAX_DEVICE_BYTES = int(8e9)
 #: Largest atom block, in bytes, of a group streamed from the host (two are staged).
 STREAM_BLOCK_BYTES = 1 << 28
-# The JAX package's defaults, written into shard-cache keys so that a cache
-# written by either package resumes in the other.
-_JAX_PHASE_MODE = 'auto'
-_JAX_PHASE_ANCHOR = 'cartesian'
+#: Instantaneous-phase engines of the JAX package; the port runs 'exact' ('auto' resolves to it).
+PHASE_MODES = ('auto', 'incremental', 'exact', 'factored')
+#: Frames per chunk of the fractional mean, in position elements.
+FRAC_MEAN_CHUNK_ELEMS = int(2e8)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -88,7 +94,7 @@ class _Projections:
         s, e = self.bounds[ci]
         if not self.calc._oversize(group):
             data, hi, lo = self.calc._group_device_arrays(group)
-            return sed_projection(data, hi, lo, self.k_dev[s:e])
+            return sed_projection(data, hi, lo, self.k_dev[s:e], precision=self.calc.precision)
         if (gi, ci) not in self._ready:
             chunks = self._pass(ci)
             outs = self.calc._streamed_projections(
@@ -179,11 +185,15 @@ class SEDCalculator:
         use_displacements: project displacements u(t)=r(t)−r̄ instead of velocities.
         dt_ps: optional override of the trajectory timestep (deprecated in the
             reference, kept for compatibility).
-        precision: 'parity' (IEEE float32 contraction; holds 1e-6 against the
-            float64 oracle).  'balanced' and 'fast' are not ported yet.
+        precision: the projection kernel's tier: 'parity' (3xTF32 products,
+            IEEE float32 sums; holds 1e-6 against the float64 oracle),
+            'balanced' (3xBF16, ~1e-5) or 'fast' (1xTF32, ~1e-3).
         max_device_bytes: largest group (n_t·n_atoms·3·4 bytes) held on the
             device; a larger group streams from the host in atom blocks.
         mass_weighted: weight each atom's data by √m_a (requires ``traj.masses``).
+        phase_mode: engine of the instantaneous-phase family (DSF, S(k), ISF,
+            self parts): 'auto' and 'exact' run the exact engine (float64
+            angle per element); 'incremental' and 'factored' are not ported.
         device: 'cuda' (default; raises when CUDA is absent) or 'cpu'.
     """
 
@@ -192,11 +202,12 @@ class SEDCalculator:
                  precision: str = 'parity',
                  max_device_bytes: int = _DEFAULT_MAX_DEVICE_BYTES,
                  mass_weighted: bool = False,
+                 phase_mode: str = 'auto',
                  device: Union[str, torch.device] = 'cuda'):
         if not (nx > 0 and ny > 0 and nz > 0):
             raise ValueError("System dimensions (nx, ny, nz) must be positive.")
         self._configure(traj, use_displacements, precision, max_device_bytes,
-                        mass_weighted, device)
+                        mass_weighted, device, phase_mode)
         if dt_ps is not None:
             logger.warning("Explicitly providing dt_ps to SEDCalculator is deprecated; "
                            "it overrides the Trajectory's dt_ps.")
@@ -232,10 +243,15 @@ class SEDCalculator:
 
     def _configure(self, traj: Trajectory, use_displacements: bool, precision: str,
                    max_device_bytes: int, mass_weighted: bool,
-                   device: Union[str, torch.device]) -> None:
+                   device: Union[str, torch.device], phase_mode: str = 'auto') -> None:
         """Everything but the lattice and the timestep (shared with
         :func:`psa_tpu_torch.core.convert.from_reference_calculator`)."""
         spectral.check_precision(precision)
+        if phase_mode not in PHASE_MODES:
+            raise ValueError("phase_mode must be 'auto', 'factored', "
+                             "'incremental' or 'exact'.")
+        if phase_mode in ('incremental', 'factored'):
+            raise _not_ported(f"phase_mode={phase_mode!r}", "A10")
         if mass_weighted and traj.masses is None:
             raise ValueError("mass_weighted=True requires Trajectory.masses.")
         self.device = resolve_device(device)
@@ -244,6 +260,12 @@ class SEDCalculator:
         self.precision = precision
         self.max_device_bytes = max_device_bytes
         self.mass_weighted = mass_weighted
+        self.phase_mode = phase_mode
+        # Phase anchor: 'cartesian' (exp(i k·r̄), the reference formula) or
+        # 'fractional' (exp(2πi m·s̄), set while an NPT path runs); part of
+        # the device-cache and shard-cache keys.
+        self._phase_anchor = 'cartesian'
+        self._frac_mean64: Optional[np.ndarray] = None
         # The lock guards the device cache: worker threads may call calculate()
         # concurrently.
         self._mean_pos64: Optional[np.ndarray] = None
@@ -424,12 +446,43 @@ class SEDCalculator:
     @property
     def mean_positions64(self) -> np.ndarray:
         """Time-averaged positions r̄ in float64, cached (shipped to the
-        device as a split (hi, lo) float32 pair)."""
+        device as a split (hi, lo) float32 pair); while an NPT path runs,
+        the fractional mean s̄ (:meth:`_fractional_mean_positions64`)."""
+        if self._phase_anchor == 'fractional':
+            return self._fractional_mean_positions64()
         if self._mean_pos64 is None:
             # dtype=float64 accumulates in f64 without materializing a copy of
             # the (possibly huge / broadcast-view) positions array.
             self._mean_pos64 = np.mean(self.traj.positions, axis=0, dtype=np.float64)
         return self._mean_pos64
+
+    def _fractional_mean_positions64(self) -> np.ndarray:
+        """Time-averaged fractional coordinates s̄ = mean_t h(t)⁻¹ r(t), float64.
+
+        The NPT phase anchor: exp(2πi m·s̄) does not move with the cell's
+        breathing, where the fixed-cell exp(i k·r̄) smears.  Frame chunks
+        cross to the device through the pinned staging and are summed there
+        in float64 (h⁻¹ from the host's float64 inverse), so the (n_t, N, 3)
+        float64 fractional array never exists whole.  Cached.
+        """
+        if self._frac_mean64 is None:
+            if self.traj.box_matrices is None:
+                raise ValueError("Fractional phase anchor requires "
+                                 "Trajectory.box_matrices (per-frame cells).")
+            n_t, n_a = self.traj.n_frames, self.traj.n_atoms
+            hinv = torch.from_numpy(np.linalg.inv(
+                np.asarray(self.traj.box_matrices, dtype=np.float64))).to(self.device)
+            chunk = max(1, min(n_t, FRAC_MEAN_CHUNK_ELEMS // max(1, n_a * 3)))
+            stager = HostToDevice(self.device, chunk * n_a * 3)
+            acc = torch.zeros((n_a, 3), dtype=torch.float64, device=self.device)
+            for t0 in range(0, n_t, chunk):
+                t1 = min(t0 + chunk, n_t)
+                r = stager.put(lambda dst, t0=t0, t1=t1: copy_rows(
+                    dst, self.traj.positions[t0:t1]), (t1 - t0, n_a, 3))
+                # columns are cell vectors: r = h @ s  =>  s = h⁻¹ r
+                acc += torch.einsum('tij,taj->ai', hinv[t0:t1], r.double())
+            self._frac_mean64 = _to_host(acc / n_t)
+        return self._frac_mean64
 
     @property
     def mean_positions(self) -> np.ndarray:
@@ -464,7 +517,8 @@ class SEDCalculator:
 
     def _group_cache_key(self, group_idx: np.ndarray) -> bytes:
         return group_idx.tobytes() + (b'D' if self.use_displacements else b'V') \
-            + (b'M' if self.mass_weighted else b'')
+            + (b'M' if self.mass_weighted else b'') \
+            + (b'F' if self._phase_anchor == 'fractional' else b'')
 
     def _cache_put(self, key: bytes, entry: tuple) -> tuple:
         """Insert into the 2-slot LRU (caller holds the lock)."""
@@ -546,6 +600,18 @@ class SEDCalculator:
         budget = min(self.max_device_bytes // 4, STREAM_BLOCK_BYTES)
         return max(1, min(n_atoms, budget // (12 * max(1, self.traj.n_frames))))
 
+    @staticmethod
+    def _host_blocks(group_idx: np.ndarray):
+        """take(src, a0, a1): the (n_t, a1 − a0, 3) host rows of atoms
+        ``group_idx[a0:a1]`` of a trajectory array; a slice, not a gather,
+        when the group is a run of consecutive atoms."""
+        n = int(group_idx.size)
+        if n and int(group_idx[-1]) - int(group_idx[0]) == n - 1 and bool(
+                np.all(np.diff(group_idx) == 1)):
+            first = int(group_idx[0])
+            return lambda src, a0, a1: src[:, first + a0:first + a1]
+        return lambda src, a0, a1: src[:, group_idx[a0:a1]]
+
     def _stream_group(self, group_idx: np.ndarray, block_atoms: Optional[int] = None):
         """Yield (a0, a1, data, mp_hi, mp_lo) device tensors for consecutive
         atom blocks [a0, a1) of a group, read from the host trajectory.
@@ -564,22 +630,12 @@ class SEDCalculator:
         weights = (torch.sqrt(self._to_device(self.traj.masses[group_idx]))
                    if self.mass_weighted else None)
         src = self.traj.positions if self.use_displacements else self.traj.velocities
-        # a run of consecutive atoms is a slice of the host array, not a gather
-        run = bool(n) and int(group_idx[-1]) - int(group_idx[0]) == n - 1 and bool(
-            np.all(np.diff(group_idx) == 1))
+        take = self._host_blocks(group_idx)
         stager = HostToDevice(self.device, n_t * block * 3)
         logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
         for a0 in range(0, n, block):
             a1 = min(a0 + block, n)
-            if run:
-                part = src[:, int(group_idx[a0]):int(group_idx[a0]) + a1 - a0]
-            else:
-                part = None
-
-            def fill(dst, a0=a0, a1=a1, part=part):
-                copy_rows(dst, part if part is not None else src[:, group_idx[a0:a1]])
-
-            data = stager.put(fill, (n_t, a1 - a0, 3))
+            data = stager.put(lambda dst: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
             hi, lo = hi_dev[a0:a1], lo_dev[a0:a1]
             if self.use_displacements:
                 data = spectral.displacement_data(data, hi, lo)
@@ -601,7 +657,8 @@ class SEDCalculator:
                       for _ in range(2)) for kv in k_chunks]
         for i, (_, _, data, hi, lo) in enumerate(self._stream_group(group_idx)):
             for out, kv in zip(outs, k_chunks):
-                sed_projection(data, hi, lo, kv, out=out, accumulate=i > 0)
+                sed_projection(data, hi, lo, kv, out=out, accumulate=i > 0,
+                               precision=self.precision)
         return outs
 
     # ------------------------------------------------------------------
@@ -668,7 +725,7 @@ class SEDCalculator:
                 'precision': self.precision,
                 'dt_ps': float(self.dt_ps),
                 'k_chunk_size': int(bounds[0][1] - bounds[0][0]),
-                'anchor': _JAX_PHASE_ANCHOR,
+                'anchor': self._phase_anchor,
             })
         todo = self._resume(cache, bounds, lambda c, s, e: c.shape[1] == e - s,
                             lambda c, s, e: full_sed.__setitem__(np.s_[:, s:e], c))
@@ -756,9 +813,9 @@ class SEDCalculator:
                      extra: Optional[Dict] = None):
         """Per-k-chunk resumable-sweep cache, or None: the JAX package's
         content key (trajectory fingerprint, k set, observable, calculator
-        transforms, chunk size, observable parameters), with its default
-        ``phase_mode`` and Cartesian phase anchor, so a cache written by
-        either package resumes in the other."""
+        transforms, ``phase_mode``, phase anchor, chunk size, observable
+        parameters), so a cache written by either package resumes in the
+        other."""
         if cache_dir is None:
             return None
         from ..io.shard_cache import ShardedSEDCache, trajectory_fingerprint
@@ -769,8 +826,8 @@ class SEDCalculator:
             'use_displacements': self.use_displacements,
             'mass_weighted': self.mass_weighted,
             'precision': self.precision,
-            'phase_mode': _JAX_PHASE_MODE,
-            'anchor': _JAX_PHASE_ANCHOR,
+            'phase_mode': self.phase_mode,
+            'anchor': self._phase_anchor,
             'dt_ps': float(self.dt_ps),
             'k_chunk_size': int(block),
         }
@@ -1154,6 +1211,465 @@ class SEDCalculator:
         return tuple(_to_host(torch.cat(found, dim=-1)))
 
     # ------------------------------------------------------------------
+    # NPT: a time-dependent cell, phases anchored in fractional space
+    # ------------------------------------------------------------------
+
+    def _npt_k_setup(self, k_miller: np.ndarray):
+        """(k_eff, k_cart, k_mags) for the fractional-anchor NPT paths:
+        k_eff = 2π·m (the kernel's k against s̄), k_cart = B̄·m with
+        B̄ = 2π h̄⁻ᵀ of the mean cell, and |k_cart|."""
+        if self.traj.box_matrices is None:
+            raise ValueError("NPT paths require Trajectory.box_matrices "
+                             "(per-frame cells); this trajectory has none.")
+        if self.use_displacements:
+            raise ValueError("NPT paths support velocity projection only; "
+                             "use_displacements entangles the Cartesian "
+                             "mean with the moving cell.")
+        m = np.asarray(k_miller, dtype=np.float64)
+        if m.ndim != 2 or m.shape[1] != 3:
+            raise ValueError(f"k_miller must be (n_k, 3) fractional "
+                             f"wavevectors, got {m.shape}")
+        k_eff = (2.0 * np.pi * m).astype(np.float32)
+        hbar = np.mean(np.asarray(self.traj.box_matrices, dtype=np.float64), axis=0)
+        bbar = 2.0 * np.pi * np.linalg.inv(hbar).T
+        k_cart = (m @ bbar.T).astype(np.float32)
+        return k_eff, k_cart, np.linalg.norm(k_cart, axis=1).astype(np.float32)
+
+    def _fractional(self, run):
+        """``run()`` with the fractional phase anchor; Cartesian again after,
+        whatever happens."""
+        self._phase_anchor = 'fractional'
+        try:
+            return run()
+        finally:
+            self._phase_anchor = 'cartesian'
+
+    def calculate_npt(self, k_miller: np.ndarray,
+                      basis_atom_indices=None, basis_atom_types=None,
+                      summation_mode: str = 'coherent',
+                      k_chunk_size: int = 500,
+                      cache_dir: Optional[Union[str, Path]] = None) -> SED:
+        """SED for a time-dependent (NPT) cell, anchored in fractional space.
+
+        Projects onto exp(2πi m·s̄_a), s_a(t) = h(t)⁻¹ r_a(t) the per-frame
+        fractional coordinates and ``m`` wavevectors in fractional units
+        (integer rows = box-commensurate modes): the phases do not move with
+        the cell's volume or shape, where the fixed-cell exp(i k·r̄) smears.
+        Velocities are projected unchanged (Cartesian).  Runs
+        :meth:`calculate` at k = 2π·m against s̄, through the same kernel.
+
+        Requires ``Trajectory.box_matrices``; ``use_displacements`` is not
+        supported (the Cartesian mean is entangled with the moving cell).
+        Returns an :class:`SED` whose ``k_vectors`` are the mean-cell
+        Cartesian images B̄·m and ``k_points`` their magnitudes.
+        """
+        k_eff, k_cart, k_mags = self._npt_k_setup(k_miller)
+        sed = self._fractional(lambda: self.calculate(
+            k_mags, k_eff, basis_atom_indices=basis_atom_indices,
+            basis_atom_types=basis_atom_types, summation_mode=summation_mode,
+            k_chunk_size=k_chunk_size, cache_dir=cache_dir))
+        sed.k_vectors = k_cart     # physical axes for plotting/export
+        return sed
+
+    def calculate_npt_browse(self, k_miller: np.ndarray, mesh=None, **browse_kwargs):
+        """Device-reduced browse planes for a time-dependent (NPT) cell: the
+        fractional anchor of :meth:`calculate_npt` on
+        :meth:`calculate_kgrid_browse` (``browse_kwargs`` pass through).
+        ``mesh`` is not ported and raises.
+
+        Returns:
+            (freqs_kept, intensity (n_keep, n_k) float32, phase or None,
+             k_cart (n_k, 3) mean-cell Cartesian images).
+        """
+        if mesh is not None:
+            raise _not_ported("mesh= (the multi-device sweep)", "A13")
+        k_eff, k_cart, _ = self._npt_k_setup(k_miller)
+        freqs, inten, phase = self._fractional(
+            lambda: self.calculate_kgrid_browse(k_eff, **browse_kwargs))
+        return freqs, inten, phase, k_cart
+
+    def calculate_npt_peaks(self, k_miller: np.ndarray, mesh=None, **peaks_kwargs):
+        """On-device peaks for a time-dependent (NPT) cell: the fractional
+        anchor of :meth:`calculate_npt` on :meth:`calculate_kgrid_peaks`
+        (``peaks_kwargs`` pass through).  ``mesh`` is not ported and raises.
+
+        Returns the peaks result plus ``k_cart``:
+        (freq_surfaces, intensity_surfaces, width_surfaces[, phase], k_cart).
+        """
+        if mesh is not None:
+            raise _not_ported("mesh= (the multi-device sweep)", "A13")
+        k_eff, k_cart, _ = self._npt_k_setup(k_miller)
+        out = self._fractional(lambda: self.calculate_kgrid_peaks(k_eff, **peaks_kwargs))
+        return tuple(out) + (k_cart,)
+
+    # ------------------------------------------------------------------
+    # Instantaneous-phase observables: DSF, current spectra, S(k), ISF
+    # ------------------------------------------------------------------
+
+    def _instant_streams(self, group_idx: np.ndarray, with_velocities: bool) -> bool:
+        """True when a group's positions (and velocities) exceed
+        ``max_device_bytes``: the instantaneous-phase paths then stream it."""
+        return (1 + with_velocities) * self._group_bytes(group_idx) > self.max_device_bytes
+
+    def _dsf_plan(self, num_k: int, group_idx: np.ndarray,
+                  with_velocities: bool) -> Tuple[int, int]:
+        """(atom_chunk, t_chunk) of the mode stacks' tiles: the phasor
+        transients of a (t_chunk, atom_chunk, num_k) tile, PHASOR_BYTES per
+        element, within a quarter of ``max_device_bytes``; a streamed group's
+        atom chunk is its staged block, and the time tiles fill the budget
+        for that block."""
+        budget = max(1 << 22, int(self.max_device_bytes) // (4 * instantaneous.PHASOR_BYTES))
+        n = int(group_idx.size)
+        atom_chunk = max(1, min(n, budget // max(1, num_k)))
+        if self._instant_streams(group_idx, with_velocities):
+            atom_chunk = min(atom_chunk, self.stream_block_atoms(n))
+        t_chunk = int(np.clip(budget // (atom_chunk * max(1, num_k)), 1, self.traj.n_frames))
+        return atom_chunk, t_chunk
+
+    def _dsf_freqs(self, max_freq: Optional[float], segments: int = 1):
+        """(freqs_kept float64, freq_idx) of the ω ≥ 0 (and ≤ max_freq) rows
+        of the n_t // segments spectrum, as the JAX package's DSF paths
+        return them."""
+        _, idx = self._kept_freqs(max_freq, segments)
+        return spectral.fftfreq_thz(self.traj.n_frames // segments, self.dt_ps)[idx], idx
+
+    def _dsf_union_group(self, basis_atom_indices, basis_atom_types) -> np.ndarray:
+        """The one atom set of the instantaneous-phase paths: the union of the
+        resolved groups, duplicates collapsed (each atom enters ρ once)."""
+        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'coherent')
+        if not groups:
+            return np.array([], dtype=int)
+        return np.unique(np.concatenate([np.asarray(g).ravel() for g in groups])).astype(int)
+
+    def _dsf_commensurate_warn(self, k_vectors_3d) -> None:
+        dev = instantaneous.commensurate_deviation(k_vectors_3d, self.traj.box_matrix)
+        if dev > 1e-4:
+            logger.warning(
+                "DSF k-vectors are off the box reciprocal lattice (max fractional "
+                "deviation %.3g): exp(i k·r(t)) is not invariant under periodic "
+                "wrapping and box-periodicity discontinuities will leak into the "
+                "spectra — snap with psa_tpu_torch.ops.instantaneous.nearest_commensurate.",
+                dev)
+
+    def _dsf_device_arrays(self, group_idx: np.ndarray, with_velocities: bool):
+        """Device-resident (positions, velocities or None) of a group for the
+        instantaneous-phase paths, in the calculator's 2-slot LRU, so warm
+        DSF/S(k)/ISF/self calls upload nothing.  An entry with velocities
+        serves the density-only paths too."""
+        base = group_idx.tobytes() + b'I'
+        keys = [base + b'PV'] + ([] if with_velocities else [base + b'P'])
+        with self._cache_lock:
+            for key in keys:
+                if key in self._device_cache:
+                    pos, vel = self._device_cache[key]
+                    return pos, (vel if with_velocities else None)
+        take = self._host_blocks(group_idx)
+        n = int(group_idx.size)
+
+        def upload(src):
+            host = np.ascontiguousarray(take(src, 0, n), dtype=np.float32)
+            if not host.flags.writeable:        # torch.from_numpy needs a writable buffer
+                host = host.copy()
+            return torch.from_numpy(host).to(self.device)
+        entry = (upload(self.traj.positions),
+                 upload(self.traj.velocities) if with_velocities else None)
+        with self._cache_lock:
+            return self._cache_put(keys[-1], entry)
+
+    def _dsf_blocks(self, group_idx: np.ndarray, atom_chunk: int, with_velocities: bool):
+        """Yield (positions, velocities or None) device tensors of consecutive
+        blocks of at most ``atom_chunk`` atoms of a group, each (n_t, a, 3)
+        float32.  A group whose arrays fit ``max_device_bytes`` is sliced from
+        its resident copy; a larger one streams from the host through pinned
+        staging (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`), in
+        blocks of at most :meth:`stream_block_atoms`, once per call."""
+        n, n_t = int(group_idx.size), self.traj.n_frames
+        if not self._instant_streams(group_idx, with_velocities):
+            pos, vel = self._dsf_device_arrays(group_idx, with_velocities)
+            for a0 in range(0, n, atom_chunk):
+                yield pos[:, a0:a0 + atom_chunk], None if vel is None else vel[:, a0:a0 + atom_chunk]
+            return
+        block = min(atom_chunk, self.stream_block_atoms(n))
+        take = self._host_blocks(group_idx)
+        srcs = [self.traj.positions] + ([self.traj.velocities] if with_velocities else [])
+        stagers = [HostToDevice(self.device, n_t * block * 3) for _ in srcs]
+        logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
+        for a0 in range(0, n, block):
+            a1 = min(a0 + block, n)
+            out = [st.put(lambda dst, src=src: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
+                   for st, src in zip(stagers, srcs)]
+            yield out[0], out[1] if with_velocities else None
+        self.streamed_bytes += sum(st.bytes_moved for st in stagers)
+
+    def _dsf_mode_chunks(self, group_idx: np.ndarray, k_vectors_3d, bounds, todo,
+                         density_only: bool = False):
+        """Yield (ci, s, e, acc_re, acc_im) for each k-chunk ``ci`` in
+        ``todo``: the mode stack (n_t, e − s, C) accumulated on the device
+        over every atom block of the group.  Channels [ρ, j_x, j_y, j_z], or
+        [ρ] alone with ``density_only`` (S(k), ISF), which reads no
+        velocities.  Shared by :meth:`calculate_dsf`, :meth:`calculate_sk`
+        and :meth:`calculate_isf`."""
+        n_t = self.traj.n_frames
+        atom_chunk, t_chunk = self._dsf_plan(bounds[0][1] - bounds[0][0], group_idx,
+                                             not density_only)
+        logger.info("DSF: %d k-points in %d chunks; atom_chunk=%d t_chunk=%d.",
+                    len(k_vectors_3d), len(bounds), atom_chunk, t_chunk)
+        k_dev = self._to_device(k_vectors_3d)
+        n_ch = 1 if density_only else 4
+        for ci in todo:
+            s, e = bounds[ci]
+            acc = [torch.zeros((n_t, e - s, n_ch), dtype=torch.float32, device=self.device)
+                   for _ in range(2)]
+            for pos, vel in self._dsf_blocks(group_idx, atom_chunk, not density_only):
+                instantaneous.accumulate_modes(*acc, pos, vel, k_dev[s:e], t_chunk)
+            yield ci, s, e, acc[0], acc[1]
+
+    def _instant_sweep(self, k_vectors_3d, k_chunk_size: int, cache, fits, chunks, reduce,
+                       store) -> None:
+        """The k-chunk loop of an instantaneous-phase path.  A chunk stored
+        in ``cache`` that ``fits(chunk, s, e)`` goes to ``store(chunk, None,
+        s, e, cached=True)``; for the others, ``chunks(bounds, todo)``
+        yields (ci, s, e, *device results), ``reduce(s, e, *results)`` gives
+        the device arrays to read back, and ``store(arrays, ci, s, e)``
+        takes them on the host (one-deep pinned readback: the host stores
+        chunk i while the device computes chunk i+1)."""
+        bounds = self._chunk_bounds(len(k_vectors_3d), k_chunk_size)
+        todo = self._resume(cache, bounds, fits,
+                            lambda c, s, e: store(c, None, s, e, cached=True))
+        if not todo:
+            return
+        readback = DeviceToHost(self.device)
+        for ci, s, e, *res in chunks(bounds, todo):
+            readback.push(list(reduce(s, e, *res)), functools.partial(store, ci=ci, s=s, e=e))
+        readback.finish()
+
+    def calculate_dsf(self, k_vectors_3d: np.ndarray,
+                      basis_atom_indices=None, basis_atom_types=None,
+                      max_freq: Optional[float] = None,
+                      k_chunk_size: int = 512,
+                      welch_segments: Optional[int] = None,
+                      welch_window: str = 'hann',
+                      cache_dir=None):
+        """Dynamic structure factor and current spectra, on the device.
+
+        Projects onto the instantaneous phases exp(i k·r_a(t)):
+
+            S(k,ω)   = |FFT_t Σ_a e^{i k·r_a(t)}|² / (n_t² N)
+            C_L(k,ω) = |k̂ · FFT_t Σ_a v_a e^{i k·r_a(t)}|² / (n_t² N)
+            C_T(k,ω) = (Σ_α |FFT_t j_α|² − |k̂ · ĵ|²) / (n_t² N)
+
+        Σ_ω S(k,ω) over all rows is S(k) (this returns the ω ≥ 0 rows); at Γ
+        C_L = 0.  k must be box-commensurate for wrap invariance (snap with
+        :func:`psa_tpu_torch.ops.instantaneous.nearest_commensurate`).  The
+        basis selects one (union) atom set.  ``welch_segments`` averages the
+        planes over that many windows (``welch_window`` taper) at
+        n_t // welch_segments frequency rows.  A group whose positions and
+        velocities exceed ``max_device_bytes`` streams from the host in atom
+        blocks, once per k-chunk.  ``cache_dir`` checkpoints each k-chunk
+        under the JAX package's key.
+
+        Returns:
+            (freqs_kept, S, C_L, C_T): freqs (n_keep,); planes (n_keep, n_k)
+            float32.
+        """
+        self._dsf_commensurate_warn(k_vectors_3d)
+        segments = self._welch_segments(welch_segments, welch_window)
+        freqs_kept, freq_idx = self._dsf_freqs(max_freq, segments)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        num_k = len(k_vectors_3d)
+        planes = np.zeros((3, len(freq_idx), num_k), dtype=np.float32)
+        if num_k == 0 or group_idx.size == 0:
+            return (freqs_kept,) + tuple(planes)
+        inv_n = 1.0 / float(group_idx.size)
+        cache = self._chunk_cache(cache_dir, 'dsf', k_vectors_3d, min(max(1, k_chunk_size), num_k),
+                                  {'group': group_idx, 'max_freq': max_freq,
+                                   'welch': [segments, welch_window]})
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        k_unit = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
+        window = welch_window if segments > 1 else 'rect'
+
+        def store(arrays, ci, s, e, cached=False):
+            planes[:, :, s:e] = arrays if cached else [a * inv_n for a in arrays]
+            if cache is not None and not cached:
+                cache.store(ci, planes[:, :, s:e])
+        self._instant_sweep(
+            k_vectors_3d, k_chunk_size, cache,
+            lambda c, s, e: c.shape == (3, len(freq_idx), e - s),
+            lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo),
+            lambda s, e, re, im: instantaneous.dsf_reduce(re, im, k_unit[s:e], freq_idx_dev,
+                                                          segments, window),
+            store)
+        return (freqs_kept,) + tuple(planes)
+
+    def _density_sweep(self, observable: str, k_vectors_3d, basis_atom_indices,
+                       basis_atom_types, k_chunk_size: int, cache_dir, rows: Optional[int],
+                       reduce, extra: Optional[Dict] = None) -> np.ndarray:
+        """S(k) (``rows`` None: out (n_k,)) or the ISF (out (rows, n_k)) from
+        the density-only mode stacks: ``reduce(re, im)`` gives one chunk's
+        device result, divided by N on the host."""
+        self._dsf_commensurate_warn(k_vectors_3d)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        num_k = len(k_vectors_3d)
+        out = np.zeros((num_k,) if rows is None else (rows, num_k), dtype=np.float32)
+        if num_k == 0 or group_idx.size == 0:
+            return out
+        inv_n = 1.0 / float(group_idx.size)
+        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d,
+                                  min(max(1, k_chunk_size), num_k),
+                                  dict({'group': group_idx}, **(extra or {})))
+
+        def store(arrays, ci, s, e, cached=False):
+            out[..., s:e] = arrays if cached else arrays[0] * inv_n
+            if cache is not None and not cached:
+                cache.store(ci, out[..., s:e])
+        self._instant_sweep(
+            k_vectors_3d, k_chunk_size, cache, lambda c, s, e: c.shape == out[..., s:e].shape,
+            lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo,
+                                                       density_only=True),
+            lambda s, e, re, im: [reduce(re, im)], store)
+        return out
+
+    def calculate_sk(self, k_vectors_3d: np.ndarray,
+                     basis_atom_indices=None, basis_atom_types=None,
+                     k_chunk_size: int = 512, cache_dir=None) -> np.ndarray:
+        """Static structure factor S(k) = ⟨|ρ_k(t)|²⟩_t / N, on the device.
+
+        Bragg peaks at reciprocal-lattice k for crystals, S(k) → 1 at large k
+        for uncorrelated positions; equals Σ_ω S(k,ω) over all frequency rows
+        of :meth:`calculate_dsf` without the FFT, from the density mode alone
+        (no velocities are read).  k box-commensurate; group semantics as in
+        :meth:`calculate_dsf`.
+
+        Returns:
+            S: (n_k,) float32.
+        """
+        return self._density_sweep('sk', k_vectors_3d, basis_atom_indices, basis_atom_types,
+                                   k_chunk_size, cache_dir, None, instantaneous.sk_reduce)
+
+    def _isf_lags(self, n_lags: Optional[int]) -> int:
+        n_t = self.traj.n_frames
+        if n_lags is None:
+            n_lags = n_t // 2          # beyond n_t/2 the overlap statistics thin out
+        return int(np.clip(n_lags, 1, n_t))
+
+    def calculate_isf(self, k_vectors_3d: np.ndarray,
+                      basis_atom_indices=None, basis_atom_types=None,
+                      n_lags: Optional[int] = None,
+                      k_chunk_size: int = 512, cache_dir=None):
+        """Coherent intermediate scattering function F(k,τ), on the device.
+
+        F(k,τ) = Re ⟨ρ_k(t')* ρ_k(t'+τ)⟩_{t'} / N, the time-domain companion
+        of :meth:`calculate_dsf`: linear (non-circular) autocorrelation, each
+        lag divided by its overlap count; F(k,0) = S(k).  From the density
+        mode alone; k box-commensurate; group semantics as in
+        :meth:`calculate_dsf`.
+
+        Args:
+            n_lags: τ rows returned (default n_t // 2).
+
+        Returns:
+            (lags_ps (n_lags,), F (n_lags, n_k) float32), τ in ps.
+        """
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        return lags_ps, self._density_sweep(
+            'isf', k_vectors_3d, basis_atom_indices, basis_atom_types, k_chunk_size, cache_dir,
+            n_lags, lambda re, im: instantaneous.isf_reduce(re, im, n_lags),
+            {'n_lags': int(n_lags)})
+
+    def _self_sweep(self, observable: str, k_vectors_3d, basis_atom_indices,
+                    basis_atom_types, k_chunk_size: int, cache_dir, rows: int,
+                    bytes_per_atom_k: int, kernel, extra: Dict) -> np.ndarray:
+        """(rows, n_k) float32 of a per-atom-FFT ("self") observable:
+        ``kernel(pos, k)`` gives the (rows, K) partial of one atom block (the
+        full time axis of its atoms).  The partials are added on the device
+        in block order, in float32, and each k-chunk is read back once,
+        divided by N.  ``bytes_per_atom_k`` is the block's device transient
+        per (atom, k); it sizes the blocks within a quarter of
+        ``max_device_bytes``.  Velocities are never read."""
+        self._dsf_commensurate_warn(k_vectors_3d)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        num_k = len(k_vectors_3d)
+        out = np.zeros((rows, num_k), dtype=np.float32)
+        if num_k == 0 or group_idx.size == 0:
+            return out
+        block = min(max(1, k_chunk_size), num_k)
+        budget = max(1 << 24, int(self.max_device_bytes) // 4)
+        atom_chunk = int(np.clip(budget // max(1, bytes_per_atom_k * block), 1, group_idx.size))
+        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d, block,
+                                  dict({'group': group_idx}, **extra))
+        logger.info("%s: %d k-points in chunks of %d; atom_chunk=%d.", observable, num_k,
+                    block, atom_chunk)
+        k_dev = self._to_device(k_vectors_3d)
+
+        def chunks(bounds, todo):
+            for ci in todo:
+                s, e = bounds[ci]
+                acc = torch.zeros((rows, e - s), dtype=torch.float32, device=self.device)
+                for pos, _ in self._dsf_blocks(group_idx, atom_chunk, False):
+                    acc += kernel(pos, k_dev[s:e])
+                yield ci, s, e, acc
+
+        def store(arrays, ci, s, e, cached=False):
+            out[:, s:e] = arrays if cached else arrays[0] / float(group_idx.size)
+            if cache is not None and not cached:
+                cache.store(ci, out[:, s:e])
+        self._instant_sweep(k_vectors_3d, k_chunk_size, cache,
+                            lambda c, s, e: c.shape == (rows, e - s), chunks,
+                            lambda s, e, acc: [acc], store)
+        return out
+
+    def calculate_isf_self(self, k_vectors_3d: np.ndarray,
+                           basis_atom_indices=None, basis_atom_types=None,
+                           n_lags: Optional[int] = None,
+                           k_chunk_size: int = 256, cache_dir=None):
+        """Self intermediate scattering function F_s(k,τ), on the device.
+
+        F_s(k,τ) = (1/N) Σ_a Re ⟨e^{i k·(r_a(t'+τ) − r_a(t'))}⟩_{t'}, the
+        single-particle relaxation function (F_s(k,0) = 1; for Fickian
+        diffusion e^{−k² D τ}).  Each atom's phase signal is autocorrelated
+        by an FFT of length :func:`~psa_tpu_torch.ops.instantaneous._autocorr_fft_len`
+        over the full time axis, so atoms go in blocks.
+
+        Returns:
+            (lags_ps (n_lags,), F_s (n_lags, n_k) float32).
+        """
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        # the padded complex spectrum, its power and its inverse transform
+        # beside the phase signal
+        fft_len = instantaneous._autocorr_fft_len(self.traj.n_frames)
+        return lags_ps, self._self_sweep(
+            'isf_self', k_vectors_3d, basis_atom_indices, basis_atom_types, k_chunk_size,
+            cache_dir, n_lags, 32 * fft_len,
+            lambda pos, k: instantaneous.isf_self_block(pos, k, n_lags), {'n_lags': int(n_lags)})
+
+    def calculate_dsf_self(self, k_vectors_3d: np.ndarray,
+                           basis_atom_indices=None, basis_atom_types=None,
+                           max_freq: Optional[float] = None,
+                           k_chunk_size: int = 256, cache_dir=None):
+        """Self (incoherent) dynamic structure factor, on the device:
+
+            S_s(k,ω) = Σ_a |FFT_t e^{i k·r_a(t)}|² / (n_t² N)
+
+        (Σ_ω over all rows = 1; this returns the ω ≥ 0 rows), whose
+        quasi-elastic width measures self-diffusion.  The per-atom FFT needs
+        the full time axis, so atoms go in blocks.
+
+        Returns:
+            (freqs_kept (n_keep,), S_s (n_keep, n_k) float32).
+        """
+        freqs_kept, freq_idx = self._dsf_freqs(max_freq)
+        freq_idx_dev = self._to_device(freq_idx, np.int64)
+        n_t = self.traj.n_frames
+        # the phasors' float64 angle and turns, then the complex signal and its FFT
+        return freqs_kept, self._self_sweep(
+            'dsf_self', k_vectors_3d, basis_atom_indices, basis_atom_types, k_chunk_size,
+            cache_dir, len(freq_idx), 32 * n_t,
+            lambda pos, k: instantaneous.dsf_self_block(pos, k, freq_idx_dev),
+            {'max_freq': max_freq})
+
+    # ------------------------------------------------------------------
     # Vibrational density of states
     # ------------------------------------------------------------------
 
@@ -1401,10 +1917,15 @@ class SEDCalculator:
              plot_theme: str = 'light', npt: bool = False) -> None:
         """Inverse SED: reconstruct real-space motion of the mode nearest
         (k_target, w_target) and export a LAMMPS dump animation (reference
-        sed_calculator.py:373-589).  Fixed cell only: ``npt=True`` and
-        ``plot_dir_ised`` are not ported."""
-        if npt:
-            raise NotImplementedError("ised(npt=True) is not ported (ROADMAP A9, NPT family)")
+        sed_calculator.py:373-589).
+
+        ``npt=True``: the path sweeps fractional Miller space along
+        ``k_dir_spec`` up to ``bz_cov_ised`` Miller orders
+        (:func:`psa_tpu_torch.utils.helpers.miller_line`), spectra anchor on
+        the per-frame fractional coordinates (:meth:`calculate_npt`), and the
+        mode phase is synthesized from 2π m·s̄.  ``k_target`` stays physical
+        (mean-cell |B̄·m|); ``char_len_k_path`` is ignored.
+        ``plot_dir_ised`` is not ported."""
         if plot_dir_ised:
             raise NotImplementedError("ised(plot_dir_ised=...) is not ported "
                                       "(ROADMAP A7, plotting)")
@@ -1423,16 +1944,27 @@ class SEDCalculator:
             logger.error("iSED aborted: the reconstruction basis resolved to no groups.")
             return
 
-        k_mags_ised, k_vecs_ised = self.get_k_path(
-            direction_spec=k_dir_unit, bz_coverage=bz_cov_ised,
-            n_k=nk_on_path, lat_param=char_len_k_path)
+        if npt:
+            # the unnormalized Miller direction, the NPT sweeps' line
+            m_rows = miller_line(k_dir_spec, nk_on_path, float(bz_cov_ised))
+            m_dir = m_rows[-1] / np.linalg.norm(m_rows[-1])
+            k_vecs_ised, _, k_mags_ised = self._npt_k_setup(m_rows)
+        else:
+            k_mags_ised, k_vecs_ised = self.get_k_path(
+                direction_spec=k_dir_unit, bz_coverage=bz_cov_ised,
+                n_k=nk_on_path, lat_param=char_len_k_path)
 
         wiggles = np.zeros((n_recon_frames, n_atoms_total, 4), dtype=np.float32)
         time_p = np.linspace(0, 2 * np.pi, n_recon_frames, endpoint=False).astype(np.float32)
-        pos_proj_k_dir = np.dot(avg_pos, k_dir_unit)
+        if npt:
+            # mode phase 2π m·s̄ = (2π|m|)·(s̄·m̂)
+            pos_proj_k_dir = np.dot(self._fractional_mean_positions64(), m_dir).astype(np.float32)
+        else:
+            pos_proj_k_dir = np.dot(avg_pos, k_dir_unit)
 
         k_match_idx = int(np.argmin(np.abs(k_mags_ised - k_target)))
         k_actual = float(k_mags_ised[k_match_idx])
+        k_synth = float(2.0 * np.pi * np.linalg.norm(m_rows[k_match_idx])) if npt else k_actual
         logger.info("iSED matched requested k=%.4f to path point %.4f 2π/Å (index %d)",
                     k_target, k_actual, k_match_idx)
 
@@ -1446,11 +1978,11 @@ class SEDCalculator:
             logger.info("iSED reconstructing group %d of %d — %d atoms, types %s.", i_grp + 1,
                         len(recon_atom_groups), len(grp_atom_idx),
                         np.unique(sys_atom_types[grp_atom_idx]))
-            sed_obj = self.calculate(k_points_mags=k_mags_ised,
-                                     k_vectors_3d=k_vecs_ised,
-                                     basis_atom_indices=grp_atom_idx,
-                                     k_grid_shape=None,
-                                     summation_mode='coherent')
+            def run(grp_atom_idx=grp_atom_idx):
+                return self.calculate(k_points_mags=k_mags_ised, k_vectors_3d=k_vecs_ised,
+                                      basis_atom_indices=grp_atom_idx, k_grid_shape=None,
+                                      summation_mode='coherent')
+            sed_obj = self._fractional(run) if npt else run()
             freqs_group = sed_obj.freqs
             w_match_idx = int(np.argmin(np.abs(freqs_group - w_target)))
             w_actual = float(freqs_group[w_match_idx])
@@ -1462,15 +1994,24 @@ class SEDCalculator:
             proj_grp = pos_proj_k_dir[grp_atom_idx].astype(np.float32)
             motion = spectral.synthesize_mode_motion(
                 torch.from_numpy(amps).to(self.device),
-                torch.from_numpy(proj_grp).to(self.device), k_actual, time_dev)
+                torch.from_numpy(proj_grp).to(self.device), k_synth, time_dev)
             wiggles[:, grp_atom_idx, :3] += motion.cpu().numpy()
 
             recon_done = True
             if isinstance(rescale_factor, str) and rescale_factor.lower() == 'auto':
                 max_amp_grp = float(np.amax(np.abs(wiggles[:, grp_atom_idx, :3])))
                 max_wiggle_amp_all = max(max_wiggle_amp_all, max_amp_grp)
-                orig_disp_grp = (self.traj.positions[:, grp_atom_idx, :]
-                                 - avg_pos[None, grp_atom_idx, :])
+                if npt:
+                    # under a breathing cell the Cartesian displacement is the
+                    # drift (λ(t) − λ̄)·r: detrend in fractional space and map
+                    # back with the mean cell, so 'auto' scales to the vibration
+                    h = np.asarray(self.traj.box_matrices, dtype=np.float64)
+                    s_grp = np.einsum('tij,taj->tai', np.linalg.inv(h),
+                                      self.traj.positions[:, grp_atom_idx, :].astype(np.float64))
+                    orig_disp_grp = (s_grp - s_grp.mean(axis=0, keepdims=True)) @ h.mean(axis=0).T
+                else:
+                    orig_disp_grp = (self.traj.positions[:, grp_atom_idx, :]
+                                     - avg_pos[None, grp_atom_idx, :])
                 std_dev_sum += float(np.std(orig_disp_grp)) * len(grp_atom_idx)
                 n_atoms_recon_sum += len(grp_atom_idx)
 

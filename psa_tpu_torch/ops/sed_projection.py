@@ -14,8 +14,16 @@ slice of a longer signal, when the time axis streams in blocks), and
 ``accumulate=True`` to add to them (an atom axis streamed in blocks).
 
 The angle is formed and folded in float64, then cast to float32 before
-sin/cos; the contraction is IEEE float32.  The double-single arithmetic of
-the JAX package exists only because its TPU has no float64.
+sin/cos.  The double-single arithmetic of the JAX package exists only
+because its TPU has no float64.
+
+``precision`` picks the kernel's tier (the JAX package's ``--precision``):
+'parity' (3xTF32 products, IEEE float32 sums; 1e-6 of max against the
+float64 oracle), 'balanced' (3xBF16, hi = rn_bf16(x), lo = rn_bf16(x − hi);
+~1e-5) and 'fast' (one TF32 product; ~1e-3).  Each tier's plain version
+rounds the operands exactly as the kernel does and multiplies in float32,
+where a TF32 or bf16 product is exact, so the two differ only in the order
+of the sum.
 """
 from __future__ import annotations
 
@@ -25,8 +33,12 @@ import torch
 
 from .. import _build
 
-#: Launches of the CUDA kernel in this process (the plain version counts nothing).
+#: Launches of the CUDA kernel in this process, every tier (the plain version counts nothing).
 launches = 0
+#: Tier name -> the kernel entry point's ``tier`` argument.
+TIERS = {'parity': 0, 'balanced': 1, 'fast': 2}
+#: Data elements per atom block of the tiers' plain versions (bounds their copies).
+PLAIN_BLOCK_ELEMS = 1 << 28
 
 
 def accurate_angles(mp_hi: torch.Tensor, mp_lo: torch.Tensor,
@@ -45,23 +57,58 @@ def phase_table(mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=1)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: add 0x1000 to
+    the bits, clear the low 13 (finite x)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to bfloat16, to nearest with ties to even, as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tier_product(d: torch.Tensor, c: torch.Tensor, precision: str) -> torch.Tensor:
+    """d @ c with both operands split and rounded as the tier's kernel
+    splits them, each product exact in float32 and summed in float32: the
+    small terms first, then big·big."""
+    if precision == 'fast':
+        return round_tf32(d) @ round_tf32(c)
+    d_hi, c_hi = round_bf16(d), round_bf16(c)
+    out = round_bf16(d - d_hi) @ c_hi
+    out += d_hi @ round_bf16(c - c_hi)
+    return out.add_(d_hi @ c_hi)
+
+
 def sed_projection_plain(data: torch.Tensor, mp_hi: torch.Tensor,
                          mp_lo: torch.Tensor, k_vectors: torch.Tensor,
                          out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                         accumulate: bool = False
+                         accumulate: bool = False, precision: str = 'parity'
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: materialized (A, 2K) table and one float32 matmul.
+    """Plain version: materialized (A, 2K) table and float32 matmuls.
 
-    Returns (re, im), each (n_t, 3, K) float32: new tensors, or ``out``
-    written (``accumulate=False``) or added to (``accumulate=True``).
-    Needs ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's
-    default) to stay IEEE float32 on a GPU.
+    'parity' is one IEEE float32 matmul; 'balanced' and 'fast' round the
+    operands as their kernels do (:func:`_tier_product`) and sum blocks of
+    atoms, so their copies of the data stay small.  Returns (re, im), each
+    (n_t, 3, K) float32: new tensors, or ``out`` written
+    (``accumulate=False``) or added to (``accumulate=True``).  Needs
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` (PyTorch's default) to
+    stay IEEE float32 on a GPU.
     """
+    _check_precision(precision)
     n_t, n_atoms, _ = data.shape
     n_k = k_vectors.shape[0]
     cs = phase_table(mp_hi, mp_lo, k_vectors)
-    data2d = data.transpose(1, 2).reshape(n_t * 3, n_atoms)
-    proj = (data2d @ cs).reshape(n_t, 3, 2 * n_k)
+    if precision == 'parity':
+        proj = data.transpose(1, 2).reshape(n_t * 3, n_atoms) @ cs
+    else:
+        block = max(1, PLAIN_BLOCK_ELEMS // (3 * n_t))
+        proj = None
+        for a0 in range(0, n_atoms, block):
+            d = data[:, a0:a0 + block].transpose(1, 2).reshape(n_t * 3, -1)
+            part = _tier_product(d, cs[a0:a0 + block], precision)
+            proj = part if proj is None else proj.add_(part)
+    proj = proj.reshape(n_t, 3, 2 * n_k)
     re, im = proj[..., :n_k], proj[..., n_k:]
     if out is None:
         return re.contiguous(), im.contiguous()
@@ -71,6 +118,11 @@ def sed_projection_plain(data: torch.Tensor, mp_hi: torch.Tensor,
         else:
             dst.copy_(src)
     return out
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in TIERS:
+        raise ValueError(f"precision must be one of {sorted(TIERS)}, got {precision!r}")
 
 
 def _check_out(out, shape, device) -> None:
@@ -108,7 +160,8 @@ def _check(data, mp_hi, mp_lo, k_vectors) -> None:
 def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
                    k_vectors: torch.Tensor,
                    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                   accumulate: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                   accumulate: bool = False, precision: str = 'parity'
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(re, im) projections, each (n_t, 3, K) float32.
 
     Args:
@@ -118,6 +171,8 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         out: optional (re, im) pair of contiguous (n_t, 3, n_k) float32
             tensors on ``data``'s device to write the result into.
         accumulate: add the result to ``out`` instead of overwriting it.
+        precision: the tier, 'parity', 'balanced' or 'fast'; on CUDA each
+            launches its own variant of the kernel.
 
     Any n_t, n_atoms and n_k ≥ 1 are accepted; the kernel masks the edges.
     On CUDA the inputs must be contiguous; a ``data`` view that does not
@@ -126,6 +181,7 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     """
     global launches
     _check(data, mp_hi, mp_lo, k_vectors)
+    _check_precision(precision)
     device = data.device
     if out is not None:
         _check_out(out, (data.shape[0], 3, k_vectors.shape[0]), device)
@@ -133,7 +189,7 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         raise ValueError("accumulate=True needs out=")
     if device.type == 'cpu':
         return sed_projection_plain(data, mp_hi, mp_lo, k_vectors, out=out,
-                                    accumulate=accumulate)
+                                    accumulate=accumulate, precision=precision)
     if device.type != 'cuda':
         raise ValueError(f"sed_projection runs on cpu or cuda, got {device}")
     tensors = (data, mp_hi, mp_lo, k_vectors)
@@ -153,7 +209,7 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         err = lib.psa_sed_projection(
             data.data_ptr(), mp_hi.data_ptr(), mp_lo.data_ptr(),
             k_vectors.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
-            n_t, n_atoms, n_k, int(accumulate), stream)
+            n_t, n_atoms, n_k, int(accumulate), TIERS[precision], stream)
     if err != 0:
         raise RuntimeError(f"sed_projection kernel launch failed: CUDA error {err}")
     launches += 1

@@ -29,13 +29,9 @@ PRECISIONS = ('parity', 'balanced', 'fast')
 
 
 def check_precision(precision: str) -> None:
-    """Accept 'parity'; the reduced-precision tiers are not ported yet."""
+    """Accept the projection kernel's tiers: 'parity', 'balanced', 'fast'."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, got {precision!r}")
-    if precision != 'parity':
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported (ROADMAP B: TF32 / 3xTF32 "
-            "tensor-core tiers); use 'parity'")
 
 
 def fftfreq_thz(n_t: int, dt_ps: float) -> np.ndarray:
@@ -62,13 +58,15 @@ def sed_spectrum(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
         mp_hi, mp_lo: (n_atoms, 3) float32 split of the float64 mean positions
             (see :func:`split_f64`).
         k_vectors: (n_k, 3) float32.
-        precision: 'parity' (IEEE float32 contraction).
+        precision: the projection kernel's tier, 'parity' (3xTF32 products,
+            IEEE float32 sums), 'balanced' (3xBF16) or 'fast' (1xTF32).
 
     Returns:
         (n_t, n_k, 3) complex64.
     """
     check_precision(precision)
-    return finalize_spectrum(*sed_projection(data, mp_hi, mp_lo, k_vectors))
+    return finalize_spectrum(*sed_projection(data, mp_hi, mp_lo, k_vectors,
+                                             precision=precision))
 
 
 def finalize_spectrum(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:

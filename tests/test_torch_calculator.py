@@ -215,9 +215,10 @@ def test_ised_dump_matches_jax(tmp_path, kw):
 
 @pytest.mark.parametrize('call', ['cache_dir', 'streamed', 'npt', 'plot'])
 def test_unported_paths_raise(tmp_path, small_trajectory, call):
-    """NPT and plotting iSED still raise.  The shard cache and groups over
-    max_device_bytes are ported: those cases hold the port to the JAX
-    package on the same call instead."""
+    """Plotting iSED still raises.  The shard cache, groups over
+    max_device_bytes and NPT iSED are ported: those cases hold the port to
+    the JAX package on the same call instead (NPT iSED on a trajectory
+    without per-frame cells raises the same ValueError in both)."""
     ref, port = pair(small_trajectory)
     k_mags, k_vecs = port.get_k_path('x', 1.0, 3)
     if call in ('cache_dir', 'streamed'):
@@ -229,16 +230,27 @@ def test_unported_paths_raise(tmp_path, small_trajectory, call):
         assert rel_err(got.sed, reference_sed_oracle(small_trajectory, k_vecs)) < RTOL
         assert (call == 'streamed') == (port.streamed_bytes > 0)
         return
+    if call == 'npt':
+        for calc in (port, ref):
+            with pytest.raises(ValueError, match="box_matrices"):
+                calc.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
+                          dump_filepath=str(tmp_path / 'x.dump'), npt=True)
+        return
     with pytest.raises(NotImplementedError):
         port.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
                   dump_filepath=str(tmp_path / 'x.dump'), npt=call == 'npt',
                   plot_dir_ised=tmp_path if call == 'plot' else None)
 
 
-@pytest.mark.parametrize('precision,exc', [('fast', NotImplementedError),
-                                           ('balanced', NotImplementedError),
+@pytest.mark.parametrize('precision,exc', [('fast', None), ('balanced', None),
                                            ('bogus', ValueError)])
 def test_precision_validation(small_trajectory, precision, exc):
+    """The tiers are ported (tests/test_torch_precision.py holds their
+    numbers); an unknown name raises."""
+    if exc is None:
+        calc = SEDCalculator(small_trajectory, 1, 1, 1, precision=precision, device='cpu')
+        assert calc.precision == precision
+        return
     with pytest.raises(exc):
         SEDCalculator(small_trajectory, 1, 1, 1, precision=precision, device='cpu')
 

@@ -16,6 +16,13 @@ accumulator and truncates once to float32) and is held against the float64
 oracle at a small ragged size.  Two other paths must miss the bar, which
 shows the test can tell them apart: one TF32 product alone, and three TF32
 products chained in the truncating accumulator over a whole partial.
+
+The other two tiers run the same pipeline: 'balanced' splits each operand
+into hi = rn_bf16(x) and lo = rn_bf16(x - hi) (round to nearest, ties to
+even) and takes lo*hi + hi*lo + hi*hi in MMAs of depth 16; 'fast' takes
+the one product big*big of the TF32 split in MMAs of depth 8.  Each is held
+to its bar against the oracle (5e-5 and 5e-3 of max) and to the wrapper's
+plain version of the tier at 1e-6, which rounds the operands the same way.
 """
 import re
 from pathlib import Path
@@ -53,32 +60,40 @@ def truncate(x64):
     return x32
 
 
-def split(x):
-    big = tf32(x)
-    return big, tf32(x - big)
+def bf16(x):
+    """Round float32 to bfloat16 (to nearest, ties to even), as float32."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    lsb = (bits >> np.uint32(16)) & np.uint32(1)
+    return ((bits + np.uint32(0x7FFF) + lsb) & np.uint32(0xFFFF0000)).view(np.float32)
 
 
-def emulate(d, c, terms, sum_atoms, chain_atoms):
+def split(x, rnd=tf32):
+    big = rnd(x)
+    return big, rnd(x - big)
+
+
+def emulate(d, c, terms, sum_atoms, chain_atoms, rnd=tf32, depth=MMA_DEPTH):
     """Σ_a d[m, a] c[a, n] along the kernel's path.
 
     ``terms`` names the MMAs of each k-step, in the kernel's order, as pairs
-    of (part of d, part of c) with 'big' or 'small'.  The MMAs of each
-    ``chain_atoms`` atoms run from zero in the truncating accumulator.
+    of (part of d, part of c) with 'big' or 'small' of the split ``rnd``
+    makes.  Each MMA adds its ``depth`` exact products and truncates; the
+    MMAs of each ``chain_atoms`` atoms run from zero.
     """
     n_atoms = d.shape[1]
     pad = -n_atoms % sum_atoms
     d = np.pad(d, ((0, 0), (0, pad)))
     c = np.pad(c, ((0, pad), (0, 0)))
     parts = {'big': 0, 'small': 1}
-    d_parts, c_parts = split(d), split(c)
-    steps = d.shape[1] // MMA_DEPTH
+    d_parts, c_parts = split(d, rnd), split(c, rnd)
+    steps = d.shape[1] // depth
     # products of each MMA step, exact in float64: (term, step, m, n)
     prods = [np.einsum('msa,san->smn',
-                       d_parts[parts[dp]].reshape(d.shape[0], steps, MMA_DEPTH).astype(np.float64),
-                       c_parts[parts[cp]].reshape(steps, MMA_DEPTH, -1).astype(np.float64))
+                       d_parts[parts[dp]].reshape(d.shape[0], steps, depth).astype(np.float64),
+                       c_parts[parts[cp]].reshape(steps, depth, -1).astype(np.float64))
              for dp, cp in terms]
     total = np.zeros((d.shape[0], c.shape[1]), np.float32)
-    per_sum, per_chain = sum_atoms // MMA_DEPTH, chain_atoms // MMA_DEPTH
+    per_sum, per_chain = sum_atoms // depth, chain_atoms // depth
     for s0 in range(0, steps, per_sum):
         partial = np.zeros_like(total)
         for c0 in range(s0, s0 + per_sum, per_chain):
@@ -93,6 +108,9 @@ def emulate(d, c, terms, sum_atoms, chain_atoms):
 
 THREE_TF32 = [('small', 'big'), ('big', 'small'), ('big', 'big')]
 ONE_TF32 = [('big', 'big')]
+#: tier -> (MMA terms, rounding of the split, MMA depth in atoms, bar against the oracle)
+TIERS = {'parity': (THREE_TF32, tf32, 8, 1e-6), 'balanced': (THREE_TF32, bf16, 16, 5e-5),
+         'fast': (ONE_TF32, tf32, 8, 5e-3)}
 
 
 @pytest.fixture(scope='module')
@@ -114,14 +132,15 @@ def rel(got, want):
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
-def kernel_path(d, c, terms):
-    return emulate(d, c, terms, kernel_constant('SUM_ATOMS'), kernel_constant('CHAIN_ATOMS'))
+def kernel_path(d, c, terms, rnd=tf32, depth=MMA_DEPTH):
+    return emulate(d, c, terms, kernel_constant('SUM_ATOMS'), kernel_constant('CHAIN_ATOMS'),
+                   rnd, depth)
 
 
 def test_kernel_constants_are_read():
     assert kernel_constant('SUM_ATOMS') % kernel_constant('BA') == 0
     assert kernel_constant('BA') % kernel_constant('CHAIN_ATOMS') == 0
-    assert kernel_constant('CHAIN_ATOMS') % MMA_DEPTH == 0
+    assert kernel_constant('CHAIN_ATOMS') % 16 == 0      # whole k16 steps of the bf16 tier
 
 
 def test_truncate_rounds_toward_zero():
@@ -162,3 +181,35 @@ def test_emulated_kernel_against_plain(problem):
     n_t, _, n_k = SHAPE
     plain = torch.cat([re_, im_], dim=2).reshape(n_t * 3, 2 * n_k).numpy()
     assert rel(kernel_path(d, table, THREE_TF32), plain) < 1e-6
+
+
+def test_bf16_rounds_to_nearest_even():
+    """The NumPy model, the plain version's rounding and hand cases agree."""
+    x = np.array([1.0, 1.0 + 2.0 ** -8, 1.0 + 3 * 2.0 ** -8, 1.0 + 2.0 ** -8 + 2.0 ** -20,
+                  -(1.0 + 3 * 2.0 ** -8), 3.0e-39], np.float32)
+    want = np.array([1.0, 1.0, 1.0 + 2.0 ** -6, 1.0 + 2.0 ** -7, -(1.0 + 2.0 ** -6)],
+                    np.float32)
+    np.testing.assert_array_equal(bf16(x)[:5], want)
+    y = np.random.default_rng(5).normal(size=4096).astype(np.float32) * 1e3
+    np.testing.assert_array_equal(bf16(y), tproj.round_bf16(torch.from_numpy(y)).numpy())
+    np.testing.assert_array_equal(tf32(y), tproj.round_tf32(torch.from_numpy(y)).numpy())
+    np.testing.assert_array_equal(bf16(x)[5:], tproj.round_bf16(torch.from_numpy(x[5:])).numpy())
+    hi, lo = split(y, bf16)
+    assert np.max(np.abs((hi.astype(np.float64) + lo) - y) / np.abs(y)) < 2.0 ** -16
+
+
+@pytest.mark.parametrize('tier', ['balanced', 'fast'])
+def test_emulated_tier_against_oracle_and_plain(problem, tier):
+    """Each tier's path meets its bar against the float64 oracle, misses the
+    tier above (balanced is not parity, fast is not balanced), and agrees
+    with the wrapper's plain version of the tier to 1e-6 of max."""
+    data, hi, lo, kv, d, table, oracle = problem
+    terms, rnd, depth, bar = TIERS[tier]
+    got = kernel_path(d, table, terms, rnd, depth)
+    above = {'balanced': TIERS['parity'][3], 'fast': TIERS['balanced'][3]}[tier]
+    assert above < rel(got, oracle) < bar
+    re_, im_ = tproj.sed_projection(*(torch.from_numpy(np.ascontiguousarray(x))
+                                      for x in (data, hi, lo, kv)), precision=tier)
+    n_t, _, n_k = SHAPE
+    plain = torch.cat([re_, im_], dim=2).reshape(n_t * 3, 2 * n_k).numpy()
+    assert rel(got, plain) < 1e-6

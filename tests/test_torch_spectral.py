@@ -166,11 +166,17 @@ def test_host_helpers_identical():
     np.testing.assert_array_equal(tspec.fftfreq_thz(17, 0.01), jspec.fftfreq_thz(17, 0.01))
 
 
-@pytest.mark.parametrize('precision,exc', [('balanced', NotImplementedError),
-                                           ('fast', NotImplementedError),
+@pytest.mark.parametrize('precision,exc', [('balanced', None), ('fast', None),
                                            ('bogus', ValueError)])
 def test_precision_tiers(precision, exc):
-    data, hi, lo, kv, _ = make_problem(2, 4, 3)
+    """'balanced' and 'fast' run their plain versions on the CPU within their
+    bars of the float64 oracle (5e-5, 5e-3 of max); an unknown tier raises."""
+    data, hi, lo, kv, mean64 = make_problem(2, 4, 3)
+    if exc is None:
+        got = tspec.sed_spectrum(t(data), t(hi), t(lo), t(kv), precision=precision).numpy()
+        bar = {'balanced': 5e-5, 'fast': 5e-3}[precision]
+        assert rel_err(got, oracle(data, mean64, kv)) < bar
+        return
     with pytest.raises(exc):
         tspec.sed_spectrum(t(data), t(hi), t(lo), t(kv), precision=precision)
 
@@ -212,6 +218,7 @@ def test_build_module_imports_without_nvcc():
 def test_import_leaves_jax_out():
     code = ("import sys, psa_tpu_torch, psa_tpu_torch.core.convert, psa_tpu_torch.models, "
             "psa_tpu_torch.ops.dispersion, psa_tpu_torch.ops.transport, "
+            "psa_tpu_torch.ops.instantaneous, "
             "psa_tpu_torch.io.loader, psa_tpu_torch.io.lammps, psa_tpu_torch.io.h5md, "
             "psa_tpu_torch.io.shard_cache, psa_tpu_torch.io.native, psa_tpu_torch.io.writer, "
             "psa_tpu_torch.core.streaming, psa_tpu_torch.utils.transfer; "
