@@ -28,14 +28,24 @@ in a breathing cell against a float64 NPT oracle, a drifting-cell chain and
 ``ised(npt=True)`` (phase 10); the instantaneous-phase family (DSF, S(k),
 ISF and their self parts) at the working size against float64 oracles,
 streamed under the default budget, and its physics at small sizes (phase
-11); and the rest of the slice (incoherent groups, chiral phase, iSED).
+11); the time correlations (``calculate_vacf``, ``calculate_msd``) on the
+same working-size data, cold, warm, in other atom chunks and streamed,
+against float64 direct sums, and their physics at small sizes (phase 12);
+g(r) by the brute sweep (10^5 atoms x 2 frames), by the linked cells (10^5
+atoms x 64 frames) and by ``method='auto'``, cells against brute bin for
+bin and both against a float64 all-pairs count (phase 13); the command line
+(``psa_tpu_torch.cli``) on the 10^4-atom dump with a JSON config holding
+every section, in this process and as ``python -m psa_tpu_torch.cli``, its
+saved SED against the library's bit for bit (phase 14); and the rest of the
+slice (incoherent groups, chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel
 (launches on the main paths, error, times per tier); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
-any result.  About 3 minutes on an H100 machine.
+any result.  About 2.5 minutes on an H100 machine.
 """
 import json
+import logging
 import re
 import subprocess
 import sys
@@ -70,6 +80,12 @@ DSF_K, SELF_K = 128, 16               # k of the [100] path; of them, those of t
 DSF_BUDGET = int(30e9)                # max_device_bytes holding 24 GB of positions + velocities
 GEN_FRAMES = 500                      # frames per block of positions made on the card
 SI_A0 = 5.43                          # Å, the Si cubic cell
+TOL_TIMECORR = (5e-5, 1e-4)           # rtol, atol (of max|oracle|) of MSD/VACF vs float64 direct sums
+TOL_INVARIANT = 1e-5                  # other atom chunks, streamed vs resident: of max
+RDF_R_MAX, RDF_BINS = 6.0, 200        # Å; the g(r) range of phases 13 and 14
+RDF_BRUTE_FRAMES, RDF_CELLS_FRAMES = 2, 64
+RDF_SUBSAMPLE, RDF_ORACLE_ATOMS = 20_000, 2_000
+EDGE_EPS = 2e-6                       # Å: a pair this close to a bin edge may fall either side
 
 
 def log(phase, msg):
@@ -1023,7 +1039,7 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     check(all(np.isfinite(x).all() for r in out.values() for x in (r if isinstance(r, tuple) else (r,))),
           "non-finite DSF-family values")
 
-    pos_dev, vel_dev = dcalc._dsf_device_arrays(np.arange(N_ATOMS), True)
+    pos_dev, vel_dev = dcalc._raw_device_arrays(np.arange(N_ATOMS), 'PV')
     # oracle columns: the path's last k, thermal-diffuse, and the sites' (400)
     # reflection (at the working size 127 and 99 box periods, the box being
     # 24.75 cells); where |ρ_k| is small, its float32 phasor sum carries
@@ -1080,7 +1096,7 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
                f"{scalc.streamed_bytes / 1e9:.1f} GB host->device, {walls['dsf_streamed']:.3f} s wall, "
                f"peak device memory above the call's start {stream_peak:.2f} GB; S and C_L vs "
                f"resident {s_err:.3e}, C_L + C_T {tot_err:.3e} of max (tol {TOL_KERNEL})")
-    return walls
+    return walls, traj, side
 
 
 def dsf_small(dev):
@@ -1135,6 +1151,485 @@ def dsf_small(dev):
           f"Parseval {parseval:.2e}, Σ S_s - 1 {self_sum:.2e}, F_s(k,0) {f_s[0]}")
     log('dsf', f"Σ_ω S(k,ω) = S(k) to {parseval:.1e}; Σ_ω S_s = 1 to {self_sum:.1e}; "
                f"F_s(k,0) = {f_s[0].min():.7f}..{f_s[0].max():.7f}")
+
+
+def timed(fn):
+    """(result, wall seconds, peak device GB) of ``fn()``, the device drained."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def timecorr_oracles(pos, vel, n_lags):
+    """float64 direct sums on the card over all time origins: (MSD, VACF),
+    each (n_lags,), the mean over the atoms of (n_t, A, 3) inputs."""
+    pos, vel = pos.double(), vel.double()
+    n_t = pos.shape[0]
+    msd = torch.zeros(n_lags, dtype=torch.float64, device=pos.device)
+    vacf = torch.zeros_like(msd)
+    for tau in range(n_lags):
+        d = pos[tau:] - pos[:n_t - tau]
+        msd[tau] = (d * d).sum(dim=-1).mean()
+        vacf[tau] = (vel[:n_t - tau] * vel[tau:]).sum(dim=-1).mean()
+    return msd.cpu().numpy(), vacf.cpu().numpy()
+
+
+def timecorr_working_size(dev, proj, traj, side):
+    """Phase 12: ``calculate_vacf`` and ``calculate_msd`` on the phase-11
+    trajectory (10^5 thermal Si atoms x 10^4 frames), default n_lags
+    (n_t // 2): cold (12 GB uploaded) and warm under DSF_BUDGET, 8 atoms
+    against float64 direct sums on the card, VACF(0) against the seeded
+    N(0, 1) velocities' 3, another atom chunk, and both streamed at the
+    default budget."""
+    from psa_tpu_torch import SEDCalculator
+    from psa_tpu_torch.core.calculator import _DEFAULT_MAX_DEVICE_BYTES
+    from psa_tpu_torch.ops import timecorr
+    calc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=DSF_BUDGET, device=dev)
+    n_lags = N_T // 2
+    chunk = (DSF_BUDGET // 4) // timecorr.block_bytes_per_atom(N_T)
+    walls, peaks, out = {}, {}, {}
+    proj.launches = 0
+    for name, run in (('vacf', calc.calculate_vacf), ('vacf_warm', calc.calculate_vacf),
+                      ('msd', calc.calculate_msd), ('msd_warm', calc.calculate_msd)):
+        out[name], walls[name], peaks[name] = timed(run)
+    for kind in ('vacf', 'msd'):
+        check(np.array_equal(out[kind][1], out[kind + '_warm'][1]), f"warm {kind} differs")
+        check(out[kind][1].shape == (1, n_lags) and np.isfinite(out[kind][1]).all(),
+              f"{kind} shape or values")
+    check(len(calc._device_cache) == 2, "raw positions and velocities must both stay resident")
+    v0, v0_err = float(out['vacf'][1][0, 0]), 5 * 3 * np.sqrt(2.0 / (3.0 * N_T * N_ATOMS)) + 3e-6
+    check(abs(v0 - 3.0) <= v0_err, f"VACF(0) {v0} is not <|v|^2> = 3 within {v0_err:.1e}")
+
+    other = {kind: fn(atom_chunk_size=1000)[1] for kind, fn in
+             (('msd', calc.calculate_msd), ('vacf', calc.calculate_vacf))}
+    chunk_err = {k: float(np.abs(other[k] - out[k][1]).max() / np.abs(out[k][1]).max())
+                 for k in other}
+    check(max(chunk_err.values()) <= TOL_INVARIANT, f"atom chunks of 1000 vs {chunk}: {chunk_err}")
+
+    # (the 8-atom groups take the resident arrays' slots in the 2-slot cache)
+    atoms = np.arange(8) * (N_ATOMS // 8) + 17
+    pos8, vel8 = (torch.from_numpy(np.ascontiguousarray(x[:, atoms])).to(dev)
+                  for x in (traj.positions, traj.velocities))
+    t0 = time.perf_counter()
+    want = dict(zip(('msd', 'vacf'), timecorr_oracles(pos8, vel8, n_lags)))
+    t_oracle = time.perf_counter() - t0
+    errs = {}
+    for kind, fn in (('msd', calc.calculate_msd), ('vacf', calc.calculate_vacf)):
+        got = fn(basis_atom_indices=atoms)[1][0].astype(np.float64)
+        scale = np.abs(want[kind]).max()
+        excess = np.abs(got - want[kind]) - TOL_TIMECORR[0] * np.abs(want[kind])
+        errs[kind] = float(excess.max() / scale)
+        check(errs[kind] <= TOL_TIMECORR[1],
+              f"{kind} of 8 atoms vs the f64 direct sum: {errs[kind]:.3e} of max beyond rtol")
+    check(proj.launches == 0, "the time correlations launched the projection kernel")
+    calc.clear_device_cache()
+    torch.cuda.empty_cache()
+    log('timecorr', f"{N_ATOMS} atoms x {N_T} frames, n_lags {n_lags}, atom chunks of {chunk} "
+                    f"({timecorr.block_bytes_per_atom(N_T)} bytes per atom): "
+                    + "; ".join(f"{n} {walls[n]:.3f} s ({N_ATOMS / walls[n]:.0f} atoms/s), peak "
+                                f"{peaks[n]:.1f} GB" for n in walls))
+    log('timecorr', f"8 atoms vs f64 direct sums on the card, beyond rtol {TOL_TIMECORR[0]} of max: "
+                    f"MSD {errs['msd']:.3e}, VACF {errs['vacf']:.3e} (tol {TOL_TIMECORR[1]}); "
+                    f"oracles {t_oracle:.2f} s; VACF(0) = {v0:.6f} (3 within {v0_err:.1e}); chunks "
+                    f"of 1000 vs {chunk}: MSD {chunk_err['msd']:.3e}, VACF {chunk_err['vacf']:.3e} "
+                    f"(tol {TOL_INVARIANT})")
+
+    scalc = SEDCalculator(traj, nx=side, ny=side, nz=side,
+                          max_device_bytes=_DEFAULT_MAX_DEVICE_BYTES, device=dev)
+    check(scalc._oversize(np.arange(N_ATOMS)), "the group must exceed the default budget")
+    s_err = {}
+    for kind, fn in (('vacf', scalc.calculate_vacf), ('msd', scalc.calculate_msd)):
+        res, walls[kind + '_streamed'], peaks[kind + '_streamed'] = timed(fn)
+        s_err[kind] = float(np.abs(res[1] - out[kind][1]).max() / np.abs(out[kind][1]).max())
+    check(scalc.streamed_bytes == 2 * traj.positions.nbytes and not scalc._device_cache,
+          f"the streamed time correlations moved {scalc.streamed_bytes} bytes")
+    check(max(s_err.values()) <= TOL_INVARIANT, f"streamed vs resident {s_err}")
+    log('timecorr', f"at the default max_device_bytes={scalc.max_device_bytes:.0e} the group streams "
+                    f"in blocks of {scalc.stream_block_atoms(N_ATOMS)} atoms: VACF "
+                    f"{walls['vacf_streamed']:.3f} s, MSD {walls['msd_streamed']:.3f} s, "
+                    f"{scalc.streamed_bytes / 1e9:.1f} GB host->device, peak "
+                    f"{peaks['msd_streamed']:.2f} GB; vs resident VACF {s_err['vacf']:.3e}, MSD "
+                    f"{s_err['msd']:.3e} of max (tol {TOL_INVARIANT})")
+
+
+def small_trajectory(pos, vel, box_edge, dt_ps, types=None):
+    from psa_tpu_torch import Trajectory
+    from psa_tpu_torch.core.trajectory import make_box_arrays
+    box = np.diag([box_edge] * 3).astype(np.float32)
+    types = np.ones(pos.shape[1], np.int32) if types is None else types
+    return Trajectory(pos.astype(np.float32), vel.astype(np.float32), types,
+                      np.arange(pos.shape[0], dtype=np.float32), box, *make_box_arrays(box),
+                      dt_ps=dt_ps)
+
+
+def timecorr_small(dev):
+    """Phase 12b: the physics of tests/test_timecorr.py on the card:
+    Brownian walkers' MSD -> 6 D tau, harmonic oscillators' VACF = <|v|^2> cos."""
+    from psa_tpu_torch import SEDCalculator
+    rng = np.random.default_rng(7)
+    n_t, n_a, d_true, dt_ps = 2048, 128, 0.3, 0.1
+    pos = np.cumsum(rng.normal(0, np.sqrt(2 * d_true * dt_ps), (n_t, n_a, 3)), axis=0)
+    calc = SEDCalculator(small_trajectory(pos, np.zeros_like(pos), 20.0, dt_ps), 1, 1, 1, device=dev)
+    lags, msd = calc.calculate_msd(n_lags=100)
+    d_est = np.polyfit(lags[1:], msd[0, 1:].astype(np.float64), 1)[0] / 6.0
+    check(abs(msd[0, 0]) < 1e-4 * msd[0, -1] and abs(d_est / d_true - 1) <= 0.05,
+          f"Einstein slope D {d_est} vs {d_true}")
+    rng = np.random.default_rng(9)
+    n_t, n_a, dt_ps, nu, amp = 512, 200, 0.02, 4.0, 1.3
+    t = np.arange(n_t) * dt_ps
+    vel = amp * np.cos(2 * np.pi * nu * t[:, None, None] + rng.uniform(0, 2 * np.pi, (n_a, 3))[None])
+    calc = SEDCalculator(small_trajectory(np.zeros_like(vel), vel, 20.0, dt_ps), 1, 1, 1, device=dev)
+    lags, vacf = calc.calculate_vacf(n_lags=64)
+    v = vacf[0].astype(np.float64)
+    miss = float(np.abs(v - v[0] * np.cos(2 * np.pi * nu * lags.astype(np.float64))).max() / v[0])
+    check(abs(v[0] / (3 * amp ** 2 / 2) - 1) <= 0.02 and miss <= 0.05,
+          f"harmonic VACF(0) {v[0]}, off the cosine by {miss}")
+    log('timecorr', f"Brownian walkers: MSD slope / 6 = {d_est:.4f} (D = {d_true}, within 5%); "
+                    f"harmonic bath: VACF(0) = {v[0]:.4f} (3A^2/2 = {3 * amp ** 2 / 2:.4f}), "
+                    f"off cos(2 pi nu tau) by {miss:.3f} of VACF(0) (<= 0.05)")
+
+
+def rdf_oracle(pos, length, n_pairs_norm):
+    """float64 all-pairs minimum-image histogram on the card of (t, A, 3)
+    float32 positions in a cubic cell: (g (RDF_BINS,), per-bin count of
+    pairs within EDGE_EPS of one of the bin's edges, each worth that much
+    of g)."""
+    p = pos.double()
+    edges = torch.linspace(0.0, RDF_R_MAX, RDF_BINS + 1, dtype=torch.float64, device=pos.device)
+    counts = torch.zeros(RDF_BINS + 2, dtype=torch.int64, device=pos.device)
+    near = torch.zeros(RDF_BINS + 1, dtype=torch.int64, device=pos.device)
+    eye = torch.eye(p.shape[1], dtype=torch.bool, device=pos.device)
+    for frame in p:
+        d = frame[:, None, :] - frame[None, :, :]
+        d -= length * torch.round(d / length)
+        r = d.norm(dim=-1).masked_fill_(eye, float('inf'))
+        counts += torch.bincount(torch.bucketize(r, edges, right=True).reshape(-1),
+                                 minlength=RDF_BINS + 2)
+        edge = torch.round(r / (RDF_R_MAX / RDF_BINS)).clamp_(max=RDF_BINS).long()
+        close = (r - edges[edge]).abs() < EDGE_EPS
+        near += torch.bincount(edge[close], minlength=RDF_BINS + 1)
+    e = edges.cpu().numpy()
+    ideal = n_pairs_norm * 4.0 / 3.0 * np.pi * (e[1:] ** 3 - e[:-1] ** 3) / length ** 3
+    near = near.cpu().numpy()
+    return counts[1:RDF_BINS + 1].cpu().numpy() / ideal, (near[:-1] + near[1:]) / ideal
+
+
+def rdf_working_size(dev, proj, traj, side):
+    """Phase 13: g(r) on the phase-11 trajectory, r < RDF_R_MAX in RDF_BINS
+    bins: (a) the brute sweep over 10^5 atoms x RDF_BRUTE_FRAMES frames; (b)
+    the linked cells over 10^5 atoms x RDF_CELLS_FRAMES frames, the host's
+    occupancy and bucketing time apart; (c) ``method='auto'``.  Cells against
+    brute bin for bin on RDF_SUBSAMPLE atoms wrapped into the cell, twice
+    for the bits; on the raw ones the pairs that change bin counted, and bin
+    for bin again once the atoms outside the cell are left out; both
+    against a float64 all-pairs count on RDF_ORACLE_ATOMS atoms."""
+    from psa_tpu_torch import SEDCalculator
+    calc = SEDCalculator(traj, nx=side, ny=side, nz=side, device=dev)
+    kw = dict(r_max=RDF_R_MAX, n_bins=RDF_BINS)
+    proj.launches = 0
+    (r, g_brute), t_brute, peak_brute = timed(lambda: calc.calculate_rdf(
+        method='brute', max_frames=RDF_BRUTE_FRAMES, **kw))
+    pairs = float(N_ATOMS) ** 2 * RDF_BRUTE_FRAMES
+    check(calc._last_rdf_method == 'brute' and np.isfinite(g_brute).all(), "brute g(r)")
+    (_, g_cells), t_cells, peak_cells = timed(lambda: calc.calculate_rdf(
+        method='cells', max_frames=RDF_CELLS_FRAMES, **kw))
+    t_host = calc._last_rdf_host_seconds
+    check(calc._last_rdf_method == 'cells' and np.isfinite(g_cells).all(), "cells g(r)")
+    (_, g_auto), t_auto, _ = timed(lambda: calc.calculate_rdf(max_frames=RDF_CELLS_FRAMES, **kw))
+    check(calc._last_rdf_method == 'cells' and np.array_equal(g_auto, g_cells),
+          f"auto took {calc._last_rdf_method} at the working size")
+    # the first Si shell (2.35 Å) holds 4 neighbours in the bulk; the sites are a truncated
+    # block in a box that is no whole number of cells, so this is logged, not asserted
+    shell = r < 3.0
+    rho = N_ATOMS / float(np.prod(traj.box_lengths))
+    coord = [float(4 * np.pi * rho * np.sum((g * r.astype(np.float64) ** 2)[shell]) * (r[1] - r[0]))
+             for g in (g_brute, g_cells)]
+    log('rdf', f"brute: {N_ATOMS} atoms x {RDF_BRUTE_FRAMES} frames = {pairs:.1e} pairs in "
+               f"{t_brute:.3f} s, {pairs / t_brute:.3e} pairs/s, peak {peak_brute:.2f} GB; cells: "
+               f"{N_ATOMS} atoms x {RDF_CELLS_FRAMES} frames in {t_cells:.3f} s, of it "
+               f"{t_host:.3f} s host occupancy and bucketing, "
+               f"{float(N_ATOMS) ** 2 * RDF_CELLS_FRAMES / t_cells:.3e} brute-equivalent pairs/s, "
+               f"peak {peak_cells:.2f} GB; auto took cells ({t_auto:.3f} s); first-shell "
+               f"coordination {coord[0]:.3f} (brute), {coord[1]:.3f} (cells)")
+
+    # Cells against brute on a common subsample.  The cells path wraps the
+    # positions into the cell (float64, rounded to float32); an atom that
+    # the thermal motion carried across a face then enters the same float32
+    # fold from another image, and a pair within a rounding of a bin edge
+    # may change bin.  So bin for bin holds on positions inside the cell:
+    # asserted on the wrapped copy; on the raw ones the moved pairs are counted.
+    sub = np.arange(RDF_SUBSAMPLE)
+    frames = np.arange(0, N_T, -(-N_T // RDF_BRUTE_FRAMES))
+    length = float(traj.box_lengths[0])
+    raw = traj.positions[frames][:, sub].astype(np.float64)
+    wrapped = (raw / length - np.floor(raw / length)) * length
+    crossed = int((np.abs(wrapped - raw) > 1.0).any(axis=(0, 2)).sum())
+    wcalc = SEDCalculator(small_trajectory(wrapped, np.zeros_like(wrapped), length, 0.01),
+                          side, side, side, device=dev)
+    runs = [wcalc.calculate_rdf(method=m, **kw)[1] for m in ('brute', 'cells', 'brute', 'cells')]
+    check(np.array_equal(runs[0], runs[1]),
+          "cells differ from brute on the subsample wrapped into the cell")
+    check(np.array_equal(runs[0], runs[2]) and np.array_equal(runs[1], runs[3]),
+          "a rerun of g(r) changed bits")
+    shell_vol = 4.0 / 3.0 * np.pi * np.diff(np.linspace(0.0, RDF_R_MAX, RDF_BINS + 1) ** 3)
+    ideal = len(frames) * RDF_SUBSAMPLE * (RDF_SUBSAMPLE - 1) * shell_vol / length ** 3
+    counts = [np.rint(calc.calculate_rdf(method=m, max_frames=RDF_BRUTE_FRAMES,
+                                         basis_atom_indices=sub, **kw)[1] * ideal)
+              for m in ('brute', 'cells')]
+    moved = float(np.abs(counts[0] - counts[1]).sum() / 2)
+    check(moved <= 1e-4 * counts[0].sum() and abs(counts[0].sum() - counts[1].sum()) <= 4,
+          f"cells vs brute on the raw subsample: {moved} of {counts[0].sum()} pairs changed bin")
+    # the moved pairs are the crossed atoms' alone: the raw subsample less
+    # every atom that leaves [0, L) in a sampled frame is bin for bin again
+    inside = sub[((raw >= 0.0) & (raw < length)).all(axis=(0, 2))]
+    kept = [calc.calculate_rdf(method=m, max_frames=RDF_BRUTE_FRAMES, basis_atom_indices=inside,
+                               **kw)[1] for m in ('brute', 'cells')]
+    check(len(inside) >= 0.9 * RDF_SUBSAMPLE and kept[0].any() and np.array_equal(*kept),
+          f"cells differ from brute on the {len(inside)} raw atoms that stay inside the cell")
+    few = np.arange(RDF_ORACLE_ATOMS)
+    pos = torch.from_numpy(np.ascontiguousarray(traj.positions[frames][:, few])).to(dev)
+    want, slack = rdf_oracle(pos, float(traj.box_lengths[0]),
+                             len(frames) * RDF_ORACLE_ATOMS * (RDF_ORACLE_ATOMS - 1))
+    worst = {}
+    for method in ('brute', 'cells'):
+        got = calc.calculate_rdf(method=method, max_frames=RDF_BRUTE_FRAMES,
+                                 basis_atom_indices=few, **kw)[1]
+        excess = np.abs(got - want) - 1e-4 * np.abs(want) - slack
+        worst[method] = float(excess.max())
+        check(worst[method] <= 1e-5, f"{method} g(r) vs the f64 all-pairs count: {worst[method]:.3e}")
+    check(proj.launches == 0, "g(r) launched the projection kernel")
+    log('rdf', f"cells == brute bin for bin on {RDF_SUBSAMPLE} atoms x {RDF_BRUTE_FRAMES} frames "
+               f"wrapped into the cell, reruns bitwise equal; on the raw positions ({crossed} "
+               f"atoms across a face) {moved:.0f} of {counts[0].sum():.0f} pairs changed bin "
+               f"(<= 1e-4), none once those atoms are left out ({len(inside)} raw atoms, bin for "
+               f"bin); {RDF_ORACLE_ATOMS} atoms vs a float64 all-pairs minimum-image "
+               f"count on the card: beyond rtol 1e-4 (and {int(round((slack > 0).sum()))} bins' "
+               f"pairs within {EDGE_EPS} Å of an edge) brute {worst['brute']:.2e}, cells "
+               f"{worst['cells']:.2e} in g (tol 1e-5)")
+
+
+def rdf_small(dev):
+    """Phase 13b: ``auto`` takes brute on a 512-atom Si box; the simple-cubic
+    shells hold 6 and 18 neighbours; an ideal gas is flat at 1 (the fixtures
+    of tests/test_rdf.py)."""
+    from psa_tpu_torch import SEDCalculator
+    sites, side, a0 = si_sites(512)
+    rng = np.random.default_rng(SEED)
+    pos = sites[None] + THERMAL_U * rng.standard_normal((4, 512, 3))
+    calc = SEDCalculator(small_trajectory(pos, np.zeros_like(pos), side * a0, 0.01), side, side, side,
+                         device=dev)
+    _, g = calc.calculate_rdf(n_bins=100)
+    check(calc._last_rdf_method == 'brute' and np.isfinite(g).all(), "auto on 512 atoms")
+    a0, n_c = 2.0, 5
+    grid = np.stack(np.meshgrid(*([np.arange(n_c) * a0] * 3), indexing='ij'), -1).reshape(-1, 3)
+    calc = SEDCalculator(small_trajectory(grid[None], np.zeros_like(grid[None]), n_c * a0, 0.05),
+                         n_c, n_c, n_c, device=dev)
+    shells = {}
+    for method in ('brute', 'cells'):
+        r, g = calc.calculate_rdf(r_max=4.5, n_bins=90, method=method)
+        coord = 4 * np.pi * (len(grid) / (n_c * a0) ** 3) * np.cumsum(
+            g * r.astype(np.float64) ** 2) * (r[1] - r[0])
+        shells[method] = (float(coord[np.searchsorted(r, (1.0 + np.sqrt(2)) / 2 * a0)]),
+                          float(coord[np.searchsorted(r, (np.sqrt(2) + np.sqrt(3)) / 2 * a0)]))
+        check(abs(shells[method][0] / 6 - 1) <= 0.02 and abs(shells[method][1] / 18 - 1) <= 0.02
+              and g[r < 0.9 * a0].max() == 0.0, f"simple-cubic shells ({method}) {shells[method]}")
+    gas = np.random.default_rng(3).uniform(0, 15.0, (8, 500, 3))
+    calc = SEDCalculator(small_trajectory(gas, np.zeros_like(gas), 15.0, 0.05), 1, 1, 1, device=dev)
+    _, g = calc.calculate_rdf(n_bins=30)
+    check(np.abs(g[5:] - 1.0).max() <= 0.12 and abs(g[5:].mean() - 1.0) < 0.02,
+          f"ideal gas g(r) {g[5:].min()}..{g[5:].max()}")
+    log('rdf', f"auto takes brute on 512 atoms; simple cubic: coordination "
+               f"{shells['brute'][0]:.3f} and {shells['brute'][1]:.3f} (6 and 18 within 2%), cells "
+               f"the same; ideal gas g = {g[5:].mean():.4f} on average, within "
+               f"{np.abs(g[5:] - 1).max():.3f} of 1")
+
+
+class SectionClock(logging.Handler):
+    """Seconds the command line spent up to each of its log lines."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.marks = []
+
+    def emit(self, record):
+        self.marks.append((time.perf_counter(), record.getMessage()))
+
+    def sections(self, t_start):
+        """Seconds per section: the time up to each line that ends a step of it."""
+        ends = (('load', 'Calculating global max'), ('sed', 'SED data saved'),
+                ('kgrid', 'k-grid dispersion surface written'), ('dos', 'DOS written'),
+                ('dsf', 'DSF maps written'), ('timecorr', 'MSD written'),
+                ('timecorr', 'VACF written'), ('rdf', 'RDF written'),
+                ('ised', 'iSED motion dump written'))
+        out, last = {}, t_start
+        for stamp, msg in self.marks:
+            for name, start in ends:
+                if msg.startswith(start):
+                    out[name], last = out.get(name, 0.0) + stamp - last, stamp
+                    break
+        check(set(out) == {name for name, _ in ends},
+              f"the command line's log gave no end for {sorted({n for n, _ in ends} - set(out))}")
+        return out
+
+
+def cli_config(side):
+    """Every section of the command line on the phase-9 dump: two SED
+    directions, a 24x24 k-grid's peaks, the DOS, S(k, w), S(k) and the ISF
+    with its KWW fit, MSD and VACF, g(r) and an iSED reconstruction."""
+    return {
+        'md_system': {'dt': 0.01, 'nx': side, 'ny': side, 'nz': side, 'lattice_parameter': SI_A0},
+        'sed_calculation': {'directions': ['x', [1, 1, 0]], 'n_kpoints': 64, 'bz_coverage': 1.0},
+        'plotting': {'max_freq_2d': 25.0},
+        'kgrid': {'apply': True, 'plane': 'xy', 'k_range': [-2.0, 2.0], 'n_k': 24, 'n_peaks': 2,
+                  'group_velocity': True},
+        'dos': {'apply': True, 'max_freq': 40.0},
+        'dsf': {'apply': True, 'directions': ['x'], 'n_kpoints': 16, 'bz_coverage': 1.0,
+                'observables': ['total', 'longitudinal', 'sk', 'isf'], 'n_lags': 64, 'kww': True},
+        'timecorr': {'apply': True, 'observables': ['msd', 'vacf'], 'n_lags': 100},
+        'rdf': {'apply': True, 'r_max': RDF_R_MAX, 'n_bins': RDF_BINS, 'max_frames': 8},
+        'ised': {'apply': True,
+                 'k_path': {'direction': 'x', 'characteristic_length': SI_A0, 'n_points': 32,
+                            'bz_coverage': 1.0},
+                 'target_point': {'k_value': 0.5, 'w_value_thz': 10.0},
+                 'reconstruction': {'rescaling_factor': 'auto', 'num_animation_timesteps': 8,
+                                    'output_dump_filename': 'ised_motion.dump'}},
+    }
+
+
+CLI_FILES = (['kgrid_peaks_xy.npz', 'dos.csv', 'dsf_x.npz', 'msd.csv', 'vacf.csv', 'rdf.csv',
+              'ised_motion.dump']
+             + [f'sed_data_{{kind}}_{d}.{part}.npy' for d in ('x', '1.00_1.00_0.00')
+                for part in ('sed', 'freqs', 'k_points', 'k_vectors')])
+
+
+def check_cli_output(out, kind):
+    """Every data file the sections write is there and loads."""
+    for name in CLI_FILES:
+        path = out / name.format(kind=kind)
+        check(path.exists() and path.stat().st_size > 0, f"the command line wrote no {path.name}")
+        if path.suffix == '.npy':
+            check(np.isfinite(np.load(path)).all(), f"{path.name} holds non-finite values")
+        elif path.suffix == '.npz':
+            data = np.load(path)
+            check(all(np.isfinite(data[k]).all() for k in data.files
+                      if not k.startswith(('kww_', 'tau_alpha_'))),
+                  f"{path.name} holds non-finite values")
+        elif path.suffix == '.csv':
+            check(np.isfinite(np.loadtxt(path, delimiter=',', skiprows=1)).all(), path.name)
+    dsf = np.load(out / 'dsf_x.npz')
+    check({'s', 'c_l', 'sk', 'isf', 'lags_ps', 'kww_tau_isf', 'tau_alpha_isf'} <= set(dsf.files),
+          f"dsf_x.npz holds {sorted(dsf.files)}")
+    check(np.loadtxt(out / 'rdf.csv', delimiter=',', skiprows=1).shape == (RDF_BINS, 2), "rdf.csv")
+    check((out / 'ised_motion.dump').read_text().count('ITEM: TIMESTEP') == 8, "iSED frames")
+    if kind == 'chiral':
+        for d in ('x', '1.00_1.00_0.00'):
+            check((out / f'sed_data_chiral_{d}.phase.npy').exists(), f"no chiral phase for {d}")
+
+
+def cli_chunk_errors(dev, proj, calc, traj, config, launches):
+    """Kernel vs plain at every (n_t, A, K) the command line's sections gave
+    the kernel on the loaded dump: each SED direction's k-path (projected
+    twice, once for the global maximum), the k-grid in chunks of
+    ``calculate_kgrid_peaks``'s default 2,048, and the iSED path.  The
+    launches these calls make must be the ``launches`` the run counted.
+    Returns the path_chunks_rel_err entry."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    sed_cfg, kg, kp = config['sed_calculation'], config['kgrid'], config['ised']['k_path']
+    data = torch.from_numpy(np.ascontiguousarray(traj.velocities, np.float32)).to(dev)
+    hi, lo = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in split_f64(calc.mean_positions64))
+    k_sets = [(calc.get_k_path(d, sed_cfg['bz_coverage'], sed_cfg['n_kpoints'], SI_A0)[1], K_CHUNK, 2)
+              for d in sed_cfg['directions']]
+    k_sets.append((calc.get_k_grid(kg['plane'], tuple(kg['k_range']), tuple(kg['k_range']),
+                                   kg['n_k'], kg['n_k'], k_fixed_val=0.0)[1], 2048, 1))
+    k_sets.append((calc.get_k_path(kp['direction'], kp['bz_coverage'], kp['n_points'],
+                                   kp['characteristic_length'])[1], K_CHUNK, 1))
+    out, expect = [], 0
+    for kv, chunk, times in k_sets:
+        k_dev = torch.from_numpy(np.ascontiguousarray(kv, dtype=np.float32)).to(dev)
+        errs = chunk_errors(proj, data, hi, lo, k_dev, chunk)
+        out += errs
+        expect += times * len(errs)
+    check(expect == launches,
+          f"the command line launched {launches} kernels, its sections' k-sets make {expect}")
+    return {"path": "cli", "shapes": sorted({shape for shape, _ in out}),
+            "rel_err": max(err for _, err in out)}
+
+
+def command_line(dev, proj):
+    """Phase 14: ``psa_tpu_torch.cli`` on the phase-9 dump (10^4 Si atoms x
+    200 frames) with a JSON config holding every section: in this process
+    with no ``--device`` (so it takes the card), its saved SED against the
+    library's ``calculate`` on the same dump bit for bit; again without
+    ``--recalculate-sed`` (the saved SED is loaded, fewer launches); then
+    ``python -m psa_tpu_torch.cli --chiral`` as a process of its own.
+    The kernel is then held against its plain version at the shapes the
+    sections gave it.  Returns the launches of the first run and that check."""
+    from psa_tpu_torch import SEDCalculator, TrajectoryLoader
+    from psa_tpu_torch.cli import main as cli_main
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        side = write_dump(tmp / 'si.dump', SEED)
+        config = cli_config(side)
+        (tmp / 'config.json').write_text(json.dumps(config))
+        args = ['--trajectory', str(tmp / 'si.dump'), '--config', str(tmp / 'config.json')]
+        clock = SectionClock()
+        logging.getLogger().addHandler(clock)
+        logging.getLogger().setLevel(logging.INFO)
+        proj.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_main(args + ['--output-dir', str(tmp / 'out')])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        logging.getLogger().removeHandler(clock)
+        launches = proj.launches
+        check(launches > 0, "the command line launched no projection kernel")
+        check_cli_output(tmp / 'out', 'regular')
+        sections = clock.sections(t0)
+
+        traj = TrajectoryLoader(str(tmp / 'si.dump'), dt=0.01).load()
+        calc = SEDCalculator(traj, nx=side, ny=side, nz=side, device=dev)
+        same = []
+        for direction, label in (('x', 'x'), ([1, 1, 0], '1.00_1.00_0.00')):
+            k_mags, k_vecs = calc.get_k_path(direction, 1.0, 64, SI_A0)
+            want = calc.calculate(k_mags, k_vecs, k_chunk_size=500).sed
+            same.append(np.array_equal(np.load(tmp / 'out' / f'sed_data_regular_{label}.sed.npy'),
+                                       want))
+        check(all(same), f"the command line's saved SED differs from the library's: {same}")
+        loop = cli_chunk_errors(dev, proj, calc, traj, config, launches)
+
+        proj.launches = 0
+        t0 = time.perf_counter()
+        cli_main(args + ['--output-dir', str(tmp / 'out')])
+        torch.cuda.synchronize()
+        rerun_wall, rerun_launches = time.perf_counter() - t0, proj.launches
+        check(0 < rerun_launches < launches,
+              f"the rerun launched {rerun_launches} kernels, the first run {launches}")
+
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, '-m', 'psa_tpu_torch.cli', *args, '--chiral',
+                               '--output-dir', str(tmp / 'out_chiral')], timeout=600,
+                              cwd=Path(__file__).resolve().parent, capture_output=True, text=True)
+        if done.returncode:
+            print(done.stderr[-4000:], file=sys.stderr, flush=True)
+        done.check_returncode()
+        process_wall = time.perf_counter() - t0
+        check_cli_output(tmp / 'out_chiral', 'chiral')
+    log('cli', f"python -m psa_tpu_torch.cli on {DUMP_ATOMS} atoms x {DUMP_FRAMES} frames, JSON "
+               f"config, every section, no --device: {wall:.3f} s wall, launches {launches}; "
+               + ", ".join(f"{k} {v:.3f} s" for k, v in sections.items())
+               + f"; {len(CLI_FILES)} data files present and finite; saved SED == library "
+               f"calculate bit for bit (2 directions)")
+    log('cli', f"rerun without --recalculate-sed: {rerun_wall:.3f} s, launches {rerun_launches} "
+               f"(the saved SED is loaded); as a process of its own with --chiral: "
+               f"{process_wall:.3f} s, phases written")
+    log('cli', f"kernel vs plain at the command line's shapes {loop['shapes']}: rel err "
+               f"{loop['rel_err']:.3e} (tol {TOL_KERNEL})")
+    return launches, loop
 
 
 def main():
@@ -1317,10 +1812,23 @@ def main():
     del velocities
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dsf_working_size(dev, proj, host_vel, host_pos)
+    _, thermal, side = dsf_working_size(dev, proj, host_vel, host_pos)
     dsf_small(dev)
     log('dsf', f"instantaneous-phase phase took {time.perf_counter() - t0:.2f} s")
-    del host_pos, host_vel
+
+    # -- 12/13/14. time correlation, g(r), the command line ------------------
+    t0 = time.perf_counter()
+    timecorr_working_size(dev, proj, thermal, side)
+    timecorr_small(dev)
+    log('timecorr', f"time-correlation phase took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rdf_working_size(dev, proj, thermal, side)
+    rdf_small(dev)
+    log('rdf', f"g(r) phase took {time.perf_counter() - t0:.2f} s")
+    del host_pos, host_vel, thermal
+    t0 = time.perf_counter()
+    cli_launches, cli_loop = command_line(dev, proj)
+    log('cli', f"command-line phase took {time.perf_counter() - t0:.2f} s")
 
     # -- 6. the rest of the slice -----------------------------------------
     crystal = make_random_crystal_trajectory(n_cells_xyz=(6, 6, 6), basis=2, n_frames=256,
@@ -1396,12 +1904,12 @@ def main():
                               "calculate_balanced": tier_info['balanced']['launches'],
                               "calculate_fast": tier_info['fast']['launches'],
                               "npt_peaks": npt_peaks_launches, "npt": npt_launches,
-                              "npt_chain": npt_chain_launches},
+                              "npt_chain": npt_chain_launches, "cli": cli_launches},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
-            for shape, err in chunks] + streamed_loop + [dump_loop]}]}), flush=True)
+            for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

@@ -12,7 +12,11 @@ files load through ``TrajectoryLoader`` (LAMMPS dump with a C parser,
 extxyz, OUTCAR, H5MD), and ``sed_from_dump_streaming`` projects a dump
 without holding it; the NPT family (a breathing cell, phases anchored in
 fractional space) and the instantaneous-phase family (DSF and current
-spectra, S(k), the intermediate scattering function and their self parts).
+spectra, S(k), the intermediate scattering function and their self parts);
+the k-independent observables (MSD, VACF, g(r) by brute and linked-cell
+sweeps); and the command line, ``python -m psa_tpu_torch.cli``, with its
+configuration schema (YAML or JSON) and plots (matplotlib and PyYAML are
+imported only where a figure is drawn or a YAML file is read).
 The projection runs, at the precision tier the calculator names, in
 a hand-written CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc``
 at first use) on a GPU, and in its plain PyTorch version on CPU tensors;
@@ -23,12 +27,15 @@ the reductions are torch ops on the same device.  This package imports
 __version__ = "0.1.0"
 
 from .core.trajectory import Trajectory
-from .core.sed import SED
+from .core.sed import SED, average_seds
 from .core.calculator import SEDCalculator
 from .core.streaming import sed_from_dump_streaming
 from .io.loader import TrajectoryLoader
 from .io.writer import TrajectoryWriter, out_to_qdump
+from .utils.config_manager import ConfigManager
 from .utils.helpers import parse_direction
+from .visualization import SEDPlotter
 
-__all__ = ["Trajectory", "SED", "SEDCalculator", "TrajectoryLoader", "TrajectoryWriter",
-           "out_to_qdump", "parse_direction", "sed_from_dump_streaming", "__version__"]
+__all__ = ["Trajectory", "SED", "average_seds", "SEDCalculator", "TrajectoryLoader",
+           "TrajectoryWriter", "out_to_qdump", "parse_direction", "sed_from_dump_streaming",
+           "ConfigManager", "SEDPlotter", "__version__"]

@@ -12,7 +12,10 @@ on-device grid reductions: ``calculate_welch``, ``calculate_kgrid_browse``,
 ``ised(npt=True)``: the fractional phase anchor exp(2πi m·s̄)); and the
 instantaneous-phase family (``calculate_dsf``, ``calculate_sk``,
 ``calculate_isf``, ``calculate_isf_self``, ``calculate_dsf_self``: phases
-exp(i k·r_a(t)), :mod:`psa_tpu_torch.ops.instantaneous`).  Every precision
+exp(i k·r_a(t)), :mod:`psa_tpu_torch.ops.instantaneous`); and the
+k-independent observables ``calculate_msd``, ``calculate_vacf``
+(:mod:`psa_tpu_torch.ops.timecorr`) and ``calculate_rdf`` (brute and
+linked-cell sweeps, :mod:`psa_tpu_torch.ops.structure`).  Every precision
 tier of the projection kernel ('parity', 'balanced', 'fast') runs on every
 projecting surface.  Group bookkeeping and k generation run on the host in
 NumPy; per (group, k-chunk) projections and their reductions run on
@@ -27,9 +30,9 @@ the host assembles chunk i while the device computes chunk i+1.
 with the JAX package), so a killed sweep resumes.
 
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-gridded NUFFT engine (``engine='gridded'``), device meshes (``mesh=``), the
-'incremental' and 'factored' phase engines and iSED plotting.  The JAX
-class's other public methods are absent.
+gridded NUFFT engine (``engine='gridded'``), device meshes (``mesh=``) and the
+'incremental' and 'factored' phase engines.  The JAX class's other public
+methods are absent.
 """
 from __future__ import annotations
 
@@ -189,7 +192,9 @@ class SEDCalculator:
             IEEE float32 sums; holds 1e-6 against the float64 oracle),
             'balanced' (3xBF16, ~1e-5) or 'fast' (1xTF32, ~1e-3).
         max_device_bytes: largest group (n_t·n_atoms·3·4 bytes) held on the
-            device; a larger group streams from the host in atom blocks.
+            device; a larger group streams from the host in atom blocks.  It
+            bounds one array: the 2-slot cache may hold two such arrays, and a
+            sweep's transients come on top (a quarter of it per block).
         mass_weighted: weight each atom's data by √m_a (requires ``traj.masses``).
         phase_mode: engine of the instantaneous-phase family (DSF, S(k), ISF,
             self parts): 'auto' and 'exact' run the exact engine (float64
@@ -1351,18 +1356,18 @@ class SEDCalculator:
                 "spectra — snap with psa_tpu_torch.ops.instantaneous.nearest_commensurate.",
                 dev)
 
-    def _dsf_device_arrays(self, group_idx: np.ndarray, with_velocities: bool):
-        """Device-resident (positions, velocities or None) of a group for the
-        instantaneous-phase paths, in the calculator's 2-slot LRU, so warm
-        DSF/S(k)/ISF/self calls upload nothing.  An entry with velocities
-        serves the density-only paths too."""
+    def _raw_device_arrays(self, group_idx: np.ndarray, need: str):
+        """Device-resident raw (positions or None, velocities or None) of a
+        group, no displacement or mass transform: ``need`` is 'P', 'V' or
+        'PV'.  Entries live in the calculator's 2-slot LRU, so warm
+        DSF/S(k)/ISF/self/MSD/VACF calls upload nothing, and an entry with
+        both arrays serves every caller."""
         base = group_idx.tobytes() + b'I'
-        keys = [base + b'PV'] + ([] if with_velocities else [base + b'P'])
         with self._cache_lock:
-            for key in keys:
-                if key in self._device_cache:
-                    pos, vel = self._device_cache[key]
-                    return pos, (vel if with_velocities else None)
+            for have in ('PV', need):
+                if base + have.encode() in self._device_cache:
+                    pos, vel = self._device_cache[base + have.encode()]
+                    return (pos if 'P' in need else None), (vel if 'V' in need else None)
         take = self._host_blocks(group_idx)
         n = int(group_idx.size)
 
@@ -1371,35 +1376,45 @@ class SEDCalculator:
             if not host.flags.writeable:        # torch.from_numpy needs a writable buffer
                 host = host.copy()
             return torch.from_numpy(host).to(self.device)
-        entry = (upload(self.traj.positions),
-                 upload(self.traj.velocities) if with_velocities else None)
+        entry = (upload(self.traj.positions) if 'P' in need else None,
+                 upload(self.traj.velocities) if 'V' in need else None)
         with self._cache_lock:
-            return self._cache_put(keys[-1], entry)
+            return self._cache_put(base + need.encode(), entry)
 
-    def _dsf_blocks(self, group_idx: np.ndarray, atom_chunk: int, with_velocities: bool):
-        """Yield (positions, velocities or None) device tensors of consecutive
-        blocks of at most ``atom_chunk`` atoms of a group, each (n_t, a, 3)
-        float32.  A group whose arrays fit ``max_device_bytes`` is sliced from
-        its resident copy; a larger one streams from the host through pinned
-        staging (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`), in
-        blocks of at most :meth:`stream_block_atoms`, once per call."""
+    def _raw_blocks(self, group_idx: np.ndarray, atom_chunk: int, need: str, streams: bool):
+        """Yield raw (positions or None, velocities or None) device tensors
+        of consecutive blocks of at most ``atom_chunk`` atoms of a group,
+        each (n_t, a, 3) float32; ``need`` as in :meth:`_raw_device_arrays`.
+        Unless it ``streams``, the group is sliced from its resident copy;
+        else it comes from the host through pinned staging
+        (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`), in blocks of
+        at most :meth:`stream_block_atoms`, once per call."""
         n, n_t = int(group_idx.size), self.traj.n_frames
-        if not self._instant_streams(group_idx, with_velocities):
-            pos, vel = self._dsf_device_arrays(group_idx, with_velocities)
+        if not streams:
+            arrays = self._raw_device_arrays(group_idx, need)
             for a0 in range(0, n, atom_chunk):
-                yield pos[:, a0:a0 + atom_chunk], None if vel is None else vel[:, a0:a0 + atom_chunk]
+                yield tuple(None if x is None else x[:, a0:a0 + atom_chunk] for x in arrays)
             return
         block = min(atom_chunk, self.stream_block_atoms(n))
         take = self._host_blocks(group_idx)
-        srcs = [self.traj.positions] + ([self.traj.velocities] if with_velocities else [])
-        stagers = [HostToDevice(self.device, n_t * block * 3) for _ in srcs]
+        srcs = [self.traj.positions if 'P' in need else None,
+                self.traj.velocities if 'V' in need else None]
+        stagers = [None if src is None else HostToDevice(self.device, n_t * block * 3)
+                   for src in srcs]
         logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
         for a0 in range(0, n, block):
             a1 = min(a0 + block, n)
-            out = [st.put(lambda dst, src=src: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
-                   for st, src in zip(stagers, srcs)]
-            yield out[0], out[1] if with_velocities else None
-        self.streamed_bytes += sum(st.bytes_moved for st in stagers)
+            yield tuple(None if src is None else st.put(
+                lambda dst, src=src: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
+                for st, src in zip(stagers, srcs))
+        self.streamed_bytes += sum(st.bytes_moved for st in stagers if st is not None)
+
+    def _dsf_blocks(self, group_idx: np.ndarray, atom_chunk: int, with_velocities: bool):
+        """:meth:`_raw_blocks` for the instantaneous-phase paths: (positions,
+        velocities or None) blocks, streamed when the arrays read exceed
+        ``max_device_bytes``."""
+        return self._raw_blocks(group_idx, atom_chunk, 'PV' if with_velocities else 'P',
+                                self._instant_streams(group_idx, with_velocities))
 
     def _dsf_mode_chunks(self, group_idx: np.ndarray, k_vectors_3d, bounds, todo,
                          density_only: bool = False):
@@ -1725,6 +1740,321 @@ class SEDCalculator:
             out[gi] = _to_host(dos)
         return freqs[mask], out
 
+    # ------------------------------------------------------------------
+    # Time correlation (MSD, VACF) and real-space structure (g(r))
+    # ------------------------------------------------------------------
+
+    def _timecorr_sweep(self, kind: str, basis_atom_indices, basis_atom_types,
+                        n_lags: Optional[int], atom_chunk_size: Optional[int]):
+        """Shared sweep of the k-independent time-correlation observables
+        (``kind`` = 'msd' | 'vacf'); groups resolve incoherently (a flat type
+        list gives one row per type, as in :meth:`calculate_dos`).  Data is
+        read raw from the trajectory: no displacement or mass transform.
+
+        A group within ``max_device_bytes`` is sliced from the raw resident
+        copy the instantaneous-phase paths also use
+        (:meth:`_raw_device_arrays`), so a warm call uploads nothing; a
+        larger one streams atom blocks through the pinned staging.  Block
+        partials are added on the device in float64 and each group is read
+        back once.
+
+        ``max_device_bytes`` bounds one resident array, as everywhere in the
+        calculator: the 2-slot cache may hold a group's positions (after an
+        MSD) and its velocities (after a VACF) at once, each up to the
+        budget, and a block's transients take another quarter of it.
+        :meth:`clear_device_cache` between the two calls frees the first."""
+        from ..ops import timecorr
+        n_t = self.traj.n_frames
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        if atom_chunk_size is None:
+            # the block's transients within a quarter of the budget
+            atom_chunk_size = max(1, (int(self.max_device_bytes) // 4)
+                                  // timecorr.block_bytes_per_atom(n_t))
+        which = 0 if kind == 'msd' else 1          # positions or velocities
+        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'incoherent')
+        out = np.zeros((len(groups), n_lags), dtype=np.float32)
+        for gi, group in enumerate(groups):
+            group = np.asarray(group, dtype=int)
+            if group.size == 0:
+                continue
+            chunk = int(min(atom_chunk_size, group.size))
+            blocks = (pv[which] for pv in self._raw_blocks(group, chunk, 'PV'[which],
+                                                           self._oversize(group)))
+            acc = timecorr.timecorr_sum(blocks, n_lags, kind)
+            out[gi] = (_to_host(acc) / group.size).astype(np.float32)
+        return lags_ps, out
+
+    def calculate_msd(self, basis_atom_indices=None, basis_atom_types=None,
+                      n_lags: Optional[int] = None,
+                      atom_chunk_size: Optional[int] = None):
+        """Mean-squared displacement ⟨|r(t+τ) − r(t)|²⟩, on the device.
+
+        All time origins at O(n_t log n_t) per atom (FFT autocorrelation and
+        a cumulative-sum identity, :func:`psa_tpu_torch.ops.timecorr.msd_block`).
+        The Einstein relation MSD(τ) → 6·D·τ (3D) makes the long-τ slope the
+        standard self-diffusion estimate; positions must be unwrapped.
+        Group semantics follow :meth:`calculate_dos` (a flat type list gives
+        one row per type).  ``atom_chunk_size`` is the atoms per FFT batch
+        (None: sized from ``max_device_bytes``).
+
+        Returns:
+            (lags_ps (n_lags,), msd (n_groups, n_lags) float32 in Å²).
+        """
+        return self._timecorr_sweep('msd', basis_atom_indices, basis_atom_types,
+                                    n_lags, atom_chunk_size)
+
+    def calculate_vacf(self, basis_atom_indices=None, basis_atom_types=None,
+                       n_lags: Optional[int] = None,
+                       atom_chunk_size: Optional[int] = None):
+        """Velocity autocorrelation function ⟨v(t)·v(t+τ)⟩, on the device.
+
+        The time-domain twin of :meth:`calculate_dos` (Wiener–Khinchin);
+        VACF(0) = ⟨|v|²⟩ (∝ 3·k_B·T/m at equilibrium), its oscillation
+        frequencies are the vibrational modes, and the Green–Kubo integral
+        ∫VACF dτ / 3 is another D estimate.  Group semantics and
+        ``atom_chunk_size`` as in :meth:`calculate_msd`.
+
+        Returns:
+            (lags_ps (n_lags,), vacf (n_groups, n_lags) float32, (Å/ps)²).
+        """
+        return self._timecorr_sweep('vacf', basis_atom_indices, basis_atom_types,
+                                    n_lags, atom_chunk_size)
+
+    @staticmethod
+    def _cell_widths(h: np.ndarray) -> List[float]:
+        """Perpendicular widths V / face area of the cell whose columns are ``h``'s."""
+        vol = float(abs(np.linalg.det(h)))
+        cols = [h[:, i] for i in range(3)]
+        return [vol / np.linalg.norm(np.cross(cols[j], cols[k]))
+                for j, k in ((1, 2), (2, 0), (0, 1))]
+
+    def calculate_rdf(self, r_max: Optional[float] = None, n_bins: int = 200,
+                      basis_atom_indices=None, basis_atom_types=None,
+                      basis_atom_indices_b=None, basis_atom_types_b=None,
+                      max_frames: int = 64,
+                      atom_block: int = 1024, mesh=None,
+                      method: str = 'auto', cell_block: int = 64):
+        """Radial distribution function g(r), computed on the device.
+
+        The real-space twin of :meth:`calculate_sk`: coordination shells for
+        crystals, short-range order for liquids; for an ideal gas g(r) = 1.
+        Pair distances are minimum-imaged through the full cell matrix
+        (triclinic-safe) and histogrammed per (frames, A-block, B-block)
+        tile; the brute sweep costs n_frames_used · N_A · N_B.  For large
+        systems with a short histogram range (r_max ≪ box) a linked-cell
+        path cuts the pair count by about n_cells/27 (``method``): pairs go
+        only to the 27 wrapped neighbour cells, and the result equals the
+        brute sweep's bin for bin on positions inside the cell (the path
+        wraps the others into it in float64 and rounds to float32, so a pair
+        within a float32 rounding of a bin edge may change bin).
+
+        The second basis (``*_b``) selects a partial (cross) RDF g_AB(r)
+        between two species or groups; without it, the same-group g(r) with
+        self pairs excluded.
+
+        Args:
+            r_max: histogram range (default: half the minimum perpendicular
+                cell width, the minimum-image validity radius).
+            n_bins: bins in [0, r_max).
+            max_frames: frames sampled (evenly strided).
+            atom_block: A-side tile edge; with ``max_device_bytes`` it bounds
+                the (t, A, B) distance tiles.
+            mesh: not ported (raises).
+            method: 'brute' | 'cells' | 'auto'.  'auto' (default) builds the
+                cell grid, measures the actual bucket occupancy, and takes
+                the cell path only when its padded pair count is at most
+                half the brute sweep's.  The choice taken is recorded on
+                ``self._last_rdf_method``.
+            cell_block: cells per device tile on the 'cells' path.
+
+        Returns:
+            (r_centers (n_bins,), g (n_bins,) float32).
+        """
+        h = np.asarray(self.traj.box_matrix, dtype=np.float64)
+        vol = float(abs(np.linalg.det(h)))
+        if vol <= 0:
+            raise ValueError("degenerate cell — g(r) needs a 3D box")
+        r_valid = 0.5 * min(self._cell_widths(h))
+        if r_max is None:
+            r_max = r_valid
+        elif r_max > r_valid + 1e-9:
+            logger.warning("r_max=%.3f exceeds the minimum-image validity "
+                           "radius %.3f; shells beyond it are undercounted.",
+                           r_max, r_valid)
+
+        group_a = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        same = basis_atom_indices_b is None and basis_atom_types_b is None
+        group_b = group_a if same else self._dsf_union_group(
+            basis_atom_indices_b, basis_atom_types_b)
+        edges = np.linspace(0.0, float(r_max), n_bins + 1)
+        centers = 0.5 * (edges[:-1] + edges[1:]).astype(np.float32)
+        if group_a.size == 0 or group_b.size == 0:
+            return centers, np.zeros(n_bins, dtype=np.float32)
+
+        n_t = self.traj.n_frames
+        stride = max(1, -(-n_t // max_frames))
+        frames = np.arange(0, n_t, stride)
+        if method not in ('auto', 'brute', 'cells'):
+            raise ValueError("method must be 'auto', 'brute', or 'cells'")
+        if method == 'cells' and mesh is not None:
+            raise ValueError("method='cells' is single-device; drop mesh= "
+                             "(the mesh path shards the brute sweep)")
+        if mesh is not None:
+            raise _not_ported("mesh= (the multi-device sweep)", "A13")
+        self._last_rdf_method = None   # set at the start of whichever path runs
+        # host seconds the cells path spends on occupancy and bucketing
+        self._last_rdf_host_seconds = 0.0
+        counts = None
+        if method != 'brute':
+            counts = self._rdf_counts_cells(
+                group_a, group_b, same, frames, h, float(r_max), n_bins,
+                cell_block, force=(method == 'cells'))
+        if counts is None:
+            self._last_rdf_method = 'brute'
+            counts = self._rdf_counts_brute(
+                group_a, group_b, same, frames, stride, h, float(r_max),
+                n_bins, atom_block)
+
+        shell_vol = 4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
+        # equal-global-id pairs are dropped, so subtract |A ∩ B| (= N for
+        # the same-group case) from the ideal pair count
+        n_overlap = (group_a.size if same
+                     else np.intersect1d(group_a, group_b).size)
+        n_pairs = group_a.size * group_b.size - n_overlap
+        ideal = len(frames) * n_pairs * shell_vol / vol
+        g = np.where(ideal > 0, counts / np.maximum(ideal, 1e-300), 0.0)
+        return centers, g.astype(np.float32)
+
+    def _rdf_pair_budget(self) -> int:
+        """Pairs of one distance tile: ``max_device_bytes`` over the bytes
+        the histogram chain holds per pair."""
+        from ..ops import structure
+        return max(1 << 22, int(self.max_device_bytes) // structure.PAIR_BYTES)
+
+    def _rdf_counts_brute(self, group_a, group_b, same, frames, stride, h,
+                          r_max, n_bins, atom_block) -> np.ndarray:
+        """Pair counts (float64) by the full A×B tile sweep."""
+        from ..ops import structure
+        # ragged tiles need no padding, so the clamp only bounds memory
+        atom_block = max(1, min(atom_block, max(group_a.size, group_b.size)))
+        budget = self._rdf_pair_budget()
+        t_chunk = int(np.clip(budget // (atom_block * atom_block), 1, len(frames)))
+        # the B side of a tile widens while the tile stays within the budget
+        b_block = int(np.clip(budget // (t_chunk * atom_block), atom_block,
+                              max(atom_block, group_b.size)))
+        h_inv = np.linalg.inv(h)
+        logger.info("RDF: %d frames (stride %d), %dx%d atoms, tiles %dx%d, t_chunk=%d.",
+                    len(frames), stride, group_a.size, group_b.size, atom_block, b_block,
+                    t_chunk)
+        ida = self._to_device(group_a, np.int64)
+        idb = ida if same else self._to_device(group_b, np.int64)
+        counts = torch.zeros(n_bins, dtype=torch.int64, device=self.device)
+        for f0 in range(0, len(frames), t_chunk):
+            pos_t = self.traj.positions[frames[f0:f0 + t_chunk]]
+            pa = self._to_device(pos_t[:, group_a, :])
+            pb = pa if same else self._to_device(pos_t[:, group_b, :])
+            counts += structure.rdf_sweep(pa, ida, pb, idb, h, h_inv, r_max, n_bins,
+                                          atom_block, b_block)
+        return _to_host(counts).astype(np.float64)
+
+    def _rdf_counts_cells(self, group_a, group_b, same, frames, h, r_max,
+                          n_bins, cell_block, force) -> Optional[np.ndarray]:
+        """Pair counts (float64) by the linked-cell sweep, or None: use brute.
+
+        Builds the cell grid (cell width ≥ r_max per dim, so the wrapped
+        27-stencil is exact), measures the actual max bucket occupancy in a
+        host pre-pass, and, unless ``force``, gives way to the brute sweep
+        when the padded cell pair count is more than half of N_A · N_B.
+        """
+        import time
+        from ..ops import structure
+        t_host = time.perf_counter()
+        n_xyz = [max(1, int(w / r_max)) for w in self._cell_widths(h)]
+        # a very short r_max can make the grid far finer than the atom
+        # count: coarsen (wider cells keep the stencil exact) until the
+        # occupancy is sane
+        n_big = max(group_a.size, group_b.size)
+        while np.prod(n_xyz) > 4 * n_big and max(n_xyz) > 1:
+            i = int(np.argmax(n_xyz))
+            n_xyz[i] = (n_xyz[i] + 1) // 2
+        n_xyz = tuple(n_xyz)
+        nc = int(np.prod(n_xyz))
+        if nc < 27 and not force:
+            return None                  # the stencil is the whole box: no win
+        h_inv = np.linalg.inv(h)
+
+        def frac_of(pos):
+            fr = np.einsum('ij,taj->tai', h_inv, pos.astype(np.float64))
+            return fr - np.floor(fr)
+
+        def occupancy_caps(frame_sel):
+            """Max per-cell bucket occupancy over the given frames (host)."""
+            cap_a = cap_b = 0
+            chunk = max(1, (1 << 22) // max(1, group_a.size))
+            for f0 in range(0, len(frame_sel), chunk):
+                pos_t = self.traj.positions[frame_sel[f0:f0 + chunk]]
+                lin = structure.cell_counts(frac_of(pos_t[:, group_a, :]), n_xyz)
+                cap_a = max(cap_a, max(int(np.bincount(l, minlength=nc).max()) for l in lin))
+                if not same:
+                    lin = structure.cell_counts(frac_of(pos_t[:, group_b, :]), n_xyz)
+                    cap_b = max(cap_b, max(int(np.bincount(l, minlength=nc).max())
+                                           for l in lin))
+            cap_a = -(-max(cap_a, 1) // 8) * 8
+            cap_b = cap_a if same else -(-max(cap_b, 1) // 8) * 8
+            return cap_a, cap_b
+
+        brute_pairs = float(group_a.size) * group_b.size
+        if not force:
+            # the decision from a small frame subsample: occupancy only steers
+            # the choice here; the exact capacity is measured below once the
+            # cells path is committed
+            probe = frames[np.unique(np.linspace(
+                0, len(frames) - 1, min(len(frames), 4)).astype(int))]
+            cap_a, cap_b = occupancy_caps(probe)
+            if 27.0 * nc * cap_a * cap_b > 0.5 * brute_pairs:
+                return None
+        # committed: exact caps over every sampled frame (a bucket overflow
+        # would drop pairs, so the capacity must be the true max)
+        cap_a, cap_b = occupancy_caps(frames)
+        cell_pairs = 27.0 * nc * cap_a * cap_b
+        if not force and cell_pairs > 0.5 * brute_pairs:
+            return None
+        self._last_rdf_method = 'cells'
+
+        nc_pad = nc + 1                  # one empty sentinel cell; blocks are ragged
+        neigh = self._to_device(structure.neighbor_table(n_xyz, nc_pad), np.int64)
+        gid_a = self._to_device(group_a, np.int64)
+        gid_b = gid_a if same else self._to_device(group_b, np.int64)
+        # one step's (t, cell_block, Ca, 27·Cb) tile against the pair budget
+        t_chunk = int(np.clip(
+            self._rdf_pair_budget() // max(1, cell_block * cap_a * 27 * cap_b),
+            1, len(frames)))
+        logger.info("RDF cells: grid %s, caps (%d, %d), t_chunk=%d: %.1fx fewer padded "
+                    "pairs than brute.", n_xyz, cap_a, cap_b, t_chunk,
+                    brute_pairs / max(cell_pairs, 1.0))
+        self._last_rdf_host_seconds += time.perf_counter() - t_host
+
+        def buckets(pos_t, group, cap):
+            fr = frac_of(pos_t[:, group, :])
+            idx = structure.bucketize_frames(structure.cell_counts(fr, n_xyz), group.size,
+                                             nc, nc_pad, cap)
+            return np.einsum('ij,taj->tai', h, fr).astype(np.float32), idx
+
+        counts = torch.zeros(n_bins, dtype=torch.int64, device=self.device)
+        for f0 in range(0, len(frames), t_chunk):
+            t_host = time.perf_counter()
+            pos_t = self.traj.positions[frames[f0:f0 + t_chunk]]
+            pa_host, ia_host = buckets(pos_t, group_a, cap_a)
+            pb_host, ib_host = (pa_host, ia_host) if same else buckets(pos_t, group_b, cap_b)
+            self._last_rdf_host_seconds += time.perf_counter() - t_host
+            pa, ia = self._to_device(pa_host), self._to_device(ia_host, np.int32)
+            pb, ib = (pa, ia) if same else (self._to_device(pb_host),
+                                            self._to_device(ib_host, np.int32))
+            counts += structure.rdf_cells_sweep(pa, ia, gid_a, pb, ib, gid_b, neigh, h, h_inv,
+                                                r_max, n_bins, cell_block)
+        return _to_host(counts).astype(np.float64)
+
     def calculate_group_velocity_path(self, k_points_mags: np.ndarray,
                                       k_vectors_3d: np.ndarray,
                                       n_bands: int = 1,
@@ -1925,10 +2255,8 @@ class SEDCalculator:
         the per-frame fractional coordinates (:meth:`calculate_npt`), and the
         mode phase is synthesized from 2π m·s̄.  ``k_target`` stays physical
         (mean-cell |B̄·m|); ``char_len_k_path`` is ignored.
-        ``plot_dir_ised`` is not ported."""
-        if plot_dir_ised:
-            raise NotImplementedError("ised(plot_dir_ised=...) is not ported "
-                                      "(ROADMAP A7, plotting)")
+        ``plot_dir_ised`` adds a figure of the input spectrum summed over
+        the groups, with the target marked (needs matplotlib)."""
         from ..io.writer import out_to_qdump  # local import: io layer sits above core
 
         logger.info("iSED reconstruction starting.")
@@ -1970,6 +2298,7 @@ class SEDCalculator:
 
         recon_done, max_wiggle_amp_all = False, 0.0
         std_dev_sum, n_atoms_recon_sum = 0.0, 0
+        input_intensity, input_freqs = None, None      # the figure's summed spectrum
         time_dev = torch.from_numpy(time_p).to(self.device)
 
         for i_grp, grp_atom_idx in enumerate(recon_atom_groups):
@@ -1984,6 +2313,12 @@ class SEDCalculator:
                                       summation_mode='coherent')
             sed_obj = self._fractional(run) if npt else run()
             freqs_group = sed_obj.freqs
+            if plot_dir_ised:
+                grp_intensity = np.sum(np.abs(sed_obj.sed) ** 2, axis=-1)
+                if input_intensity is None:
+                    input_intensity, input_freqs = grp_intensity, freqs_group
+                else:
+                    input_intensity = input_intensity + grp_intensity
             w_match_idx = int(np.argmin(np.abs(freqs_group - w_target)))
             w_actual = float(freqs_group[w_match_idx])
             logger.info("  iSED group %d matched requested ω=%.3f to %.3f THz (index %d)",
@@ -2045,6 +2380,52 @@ class SEDCalculator:
         atom_types_dump = wiggles[0, :, 3].astype(int)
         out_to_qdump(dump_filepath, final_pos_dump, atom_types_dump, self.traj.box_matrix)
         logger.info("iSED motion dump written to %s", dump_filepath)
+
+        if plot_dir_ised:
+            self._plot_ised_spectrum(plot_dir_ised, input_intensity, input_freqs, k_mags_ised,
+                                     k_vecs_ised, k_dir_spec, k_target, w_target, k_actual,
+                                     plot_max_freq, plot_theme)
+
+    def _plot_ised_spectrum(self, plot_dir_ised, intensity, freqs, k_mags, k_vecs,
+                            k_dir_spec, k_target, w_target, k_actual,
+                            plot_max_freq, plot_theme) -> None:
+        """Figure of the iSED input spectrum, summed incoherently over the
+        groups, with the target marked (reference sed_calculator.py:540-588)."""
+        from ..visualization import SEDPlotter  # local import: viz sits above core
+
+        logger.info("Rendering the iSED input spectrum (incoherent sum over groups).")
+        mock = np.zeros((*intensity.shape, 3), dtype=np.complex64)
+        mock[:, :, 0] = np.sqrt(intensity + 1e-20)
+        plot_obj = SED(sed=mock, freqs=freqs, k_points=k_mags, k_vectors=k_vecs,
+                       is_complex=True)
+
+        if isinstance(k_dir_spec, str):
+            k_dir_str = k_dir_spec.replace(" ", "_").replace("/", "-")
+        elif isinstance(k_dir_spec, (list, tuple, np.ndarray)):
+            k_dir_str = f"({','.join(f'{x:.2f}' for x in np.asarray(k_dir_spec))})"
+        elif isinstance(k_dir_spec, dict):
+            k_dir_str = (f"(h{k_dir_spec.get('h', 0)}_k{k_dir_spec.get('k', 0)}"
+                         f"_l{k_dir_spec.get('l', 0)})")
+        else:
+            k_dir_str = str(k_dir_spec)
+        for ch in '[]()':
+            k_dir_str = k_dir_str.replace(ch, '')
+
+        k_target_str = f"{k_target:.2f}".replace('.', 'p')
+        w_target_str = f"{w_target:.2f}".replace('.', 'p')
+        fname = Path(plot_dir_ised) / f"iSED_{k_dir_str}_{k_target_str}_{w_target_str}.png"
+
+        w_actual = float(freqs[int(np.argmin(np.abs(freqs - w_target)))])
+        max_freq = plot_max_freq
+        if max_freq is None and freqs.size > 0:
+            max_freq = float(np.max(freqs))
+
+        SEDPlotter(plot_obj, '2d_intensity', str(fname),
+                   title=f"Summed iSED Input Spectrum (k≈{k_actual:.3f}, ω≈{w_actual:.3f})",
+                   direction_label=k_dir_str,
+                   highlight_region={'k_point_target': k_actual, 'freq_point_target': w_actual},
+                   max_freq=max_freq, intensity_scale='sqrt', theme=plot_theme).generate_plot()
+        logger.info("iSED input spectrum figure written: %s", fname.name)
 
     def _resolve_ised_groups(self, basis_atom_idx_ised, basis_atom_types_ised,
                              n_atoms_total: int, sys_atom_types: np.ndarray) -> List[np.ndarray]:

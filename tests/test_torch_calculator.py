@@ -215,10 +215,11 @@ def test_ised_dump_matches_jax(tmp_path, kw):
 
 @pytest.mark.parametrize('call', ['cache_dir', 'streamed', 'npt', 'plot'])
 def test_unported_paths_raise(tmp_path, small_trajectory, call):
-    """Plotting iSED still raises.  The shard cache, groups over
-    max_device_bytes and NPT iSED are ported: those cases hold the port to
-    the JAX package on the same call instead (NPT iSED on a trajectory
-    without per-frame cells raises the same ValueError in both)."""
+    """Nothing of these still raises: the shard cache, groups over
+    max_device_bytes, NPT iSED and the iSED figure are ported, so each case
+    holds the port to the JAX package on the same call instead (NPT iSED on
+    a trajectory without per-frame cells raises the same ValueError in
+    both; ``plot_dir_ised`` writes the same figure file in both)."""
     ref, port = pair(small_trajectory)
     k_mags, k_vecs = port.get_k_path('x', 1.0, 3)
     if call in ('cache_dir', 'streamed'):
@@ -236,10 +237,15 @@ def test_unported_paths_raise(tmp_path, small_trajectory, call):
                 calc.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
                           dump_filepath=str(tmp_path / 'x.dump'), npt=True)
         return
-    with pytest.raises(NotImplementedError):
-        port.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
-                  dump_filepath=str(tmp_path / 'x.dump'), npt=call == 'npt',
-                  plot_dir_ised=tmp_path if call == 'plot' else None)
+    import matplotlib
+    matplotlib.use('Agg')
+    for calc, name in ((port, 'port'), (ref, 'ref')):
+        (tmp_path / name).mkdir()
+        calc.ised('x', 0.5, 5.0, 2.5, nk_on_path=4, n_recon_frames=2,
+                  dump_filepath=str(tmp_path / name / 'x.dump'), plot_dir_ised=tmp_path / name)
+    figures = [sorted(p.name for p in (tmp_path / name).glob('*.png')) for name in ('port', 'ref')]
+    assert figures[0] == figures[1] == ['iSED_x_0p50_5p00.png']
+    assert (tmp_path / 'port' / figures[0][0]).stat().st_size > 5000
 
 
 @pytest.mark.parametrize('precision,exc', [('fast', None), ('balanced', None),

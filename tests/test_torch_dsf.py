@@ -614,11 +614,11 @@ def test_resident_arrays_are_cached_across_calls():
     _, port = pair(traj, nx=12)
     port.calculate_dsf(kv)
     group = np.arange(traj.n_atoms)
-    pos, vel = port._dsf_device_arrays(group, True)
+    pos, vel = port._raw_device_arrays(group, 'PV')
     port.calculate_sk(kv)
     port.calculate_dsf_self(kv)
     assert len(port._device_cache) == 1
-    again, none = port._dsf_device_arrays(group, False)
+    again, none = port._raw_device_arrays(group, 'P')
     assert again is pos and none is None and vel is not None
 
 
