@@ -8,12 +8,16 @@ On chip_smoke.py's working-size data (10^5 atoms x 10^4 steps, seeded
 velocities on the card, 50x50 k-grid) it runs, for each of ``calculate``
 (k-chunks of 500), ``calculate_kgrid_peaks`` (3 peaks, k-chunks of 1,280),
 ``calculate_kgrid_browse`` (k-chunks of 1,280, float32 and float16
-readback), and ``calculate`` and ``calculate_kgrid_peaks`` on the same
+readback), ``calculate_kgrid_peaks`` through the gridded (NUFFT) engine on
+that grid and on chip_smoke.py's 200x200 grid (``peaks_gridded``,
+``peaks_gridded_200``; ``peaks_direct_200`` is the direct engine there), and
+``calculate`` and ``calculate_kgrid_peaks`` on the same
 velocities copied to the host under the default device budget, so the group
 streams in atom blocks (``calculate_streamed``, ``kgrid_peaks_streamed``),
 ``calculate_npt_peaks`` on chip_smoke.py's breathing cell (``npt_peaks``) and
 ``calculate_dsf`` on its thermal fixed cell (``dsf``, positions and velocities
-resident), and on that cell ``calculate_msd`` (``msd``) and ``calculate_rdf`` by
+resident; ``dsf_factored`` and ``dsf_incremental`` under those phase engines),
+and on that cell ``calculate_msd`` (``msd``) and ``calculate_rdf`` by
 the brute sweep over 2 frames (``rdf_brute``) and by the linked cells over 64
 (``rdf_cells``): one warm-up call, three timed calls, then one call under
 torch.profiler.  ``--paths`` runs only the named ones (and makes only their
@@ -146,6 +150,15 @@ def main():
         'kgrid_browse_f16': lambda: calc.calculate_kgrid_browse(
             k_vecs, k_chunk_size=cs.K_CHUNK_GRID, readback_dtype='float16'),
     }
+    _, big_k, big_shape = calc.get_k_grid('xy', (-5, 5), (-5, 5), cs.BIG_GRID, cs.BIG_GRID)
+    paths.update({
+        'peaks_gridded': lambda: calc.calculate_kgrid_peaks(
+            k_vecs, n_peaks=cs.N_PEAKS, engine='gridded', k_grid_shape=grid_shape),
+        'peaks_gridded_200': lambda: calc.calculate_kgrid_peaks(
+            big_k, n_peaks=cs.N_PEAKS, engine='gridded', k_grid_shape=big_shape),
+        'peaks_direct_200': lambda: calc.calculate_kgrid_peaks(
+            big_k, n_peaks=cs.N_PEAKS, k_chunk_size=cs.K_CHUNK_GRID),
+    })
     for name in wanted(paths):
         print(json.dumps(profile_path(name, paths[name], out_dir)), flush=True)
     host = velocities.cpu().numpy()
@@ -174,8 +187,13 @@ def main():
     dcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=cs.DSF_BUDGET,
                           device=dev)
     rdf = dict(r_max=cs.RDF_R_MAX, n_bins=cs.RDF_BINS)
+    def dsf_under(mode):
+        dcalc.phase_mode = mode
+        return dcalc.calculate_dsf(kv)
     thermal = {
-        'dsf': lambda: dcalc.calculate_dsf(kv),
+        'dsf': lambda: dsf_under('exact'),
+        'dsf_factored': lambda: dsf_under('factored'),
+        'dsf_incremental': lambda: dsf_under('incremental'),
         'msd': dcalc.calculate_msd,
         'rdf_brute': lambda: dcalc.calculate_rdf(method='brute', max_frames=cs.RDF_BRUTE_FRAMES,
                                                  **rdf),

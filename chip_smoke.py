@@ -17,7 +17,11 @@ against the float64 oracle, the grid reductions' physics at small sizes
 (square-lattice peak surface, chiral peaks, L/T split, Welch), each
 precision tier of the kernel ('parity', 'balanced', 'fast') against its
 plain version at the working chunk and through ``calculate`` at the working
-size (phase 5d), then the out-of-core and on-disk path on the same
+size (phase 5d), the gridded (NUFFT) engine on the same data:
+``calculate_gridded``, and ``engine='gridded'`` of ``calculate_kgrid_peaks``
+and ``calculate_kgrid_browse`` against the direct engine on the 50x50 grid and
+on a 200x200 grid, walls in turns, reruns bitwise equal (phase 5e; streamed
+under the default budget in phase 7b), then the out-of-core and on-disk path on the same
 working-size data: ``calculate``, ``calculate_kgrid_peaks`` and
 ``calculate_dos`` with the velocities on the host and the default device
 budget, so the group streams in atom blocks (phase 7); kill-and-resume
@@ -27,7 +31,10 @@ loaded with ``TrajectoryLoader`` and streamed with
 in a breathing cell against a float64 NPT oracle, a drifting-cell chain and
 ``ised(npt=True)`` (phase 10); the instantaneous-phase family (DSF, S(k),
 ISF and their self parts) at the working size against float64 oracles,
-streamed under the default budget, and its physics at small sizes (phase
+then the DSF, S(k) and self DSF under each phase engine ('exact',
+'factored', 'incremental'), walls in turns, each against a float64 oracle
+at the k it evaluates (phase 11c), streamed under the default budget with
+the exact and the factored engine, and its physics at small sizes (phase
 11); the time correlations (``calculate_vacf``, ``calculate_msd``) on the
 same working-size data, cold, warm, in other atom chunks and streamed,
 against float64 direct sums, and their physics at small sizes (phase 12);
@@ -42,7 +49,7 @@ Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel
 (launches on the main paths, error, times per tier); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
-any result.  About 2.5 minutes on an H100 machine.
+any result.  About 5 minutes on an H100 machine.
 """
 import json
 import logging
@@ -86,6 +93,13 @@ RDF_R_MAX, RDF_BINS = 6.0, 200        # Å; the g(r) range of phases 13 and 14
 RDF_BRUTE_FRAMES, RDF_CELLS_FRAMES = 2, 64
 RDF_SUBSAMPLE, RDF_ORACLE_ATOMS = 20_000, 2_000
 EDGE_EPS = 2e-6                       # Å: a pair this close to a bin edge may fall either side
+BIG_GRID = 200                        # the 200x200 k-grid of the engines' peaks comparison
+TOL_PEAK_FREQ = 1e-6                  # THz: peak frequencies of two engines, near-ties apart
+TOL_TWO_ENGINES = 2e-5   # the gridded engine vs the direct one, of max: each is held to TOL_KERNEL
+#                          against the float64 oracle, so to twice that against the other
+PHASE_ENGINES = ('exact', 'factored', 'incremental')
+TOL_ENGINES = 5e-5   # a fast phase engine's planes vs the exact engine's, of max: the exact engine
+#                      evaluates the float32 k, the factored one the lattice vector it rounds
 
 
 def log(phase, msg):
@@ -314,6 +328,134 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
                 f"per-pixel rel err {f16_rel:.3e} (<= {F16_REL_EPS:.3e} above {F16_REL_FLOOR} "
                 f"of max); launches {out['float32'][2]} and {out['float16'][2]}")
     return launches[-1], out['float32'][2], chunks, (pf, tied)
+
+
+def peaks_agree(calc, k_vecs, got, want, what):
+    """Hold two engines' (or two sweeps') peak triplets together: the
+    frequencies within TOL_PEAK_FREQ and the heights within TOL_TWO_ENGINES of
+    the column's highest, on every k-column but near-ties.  A column whose
+    frequencies differ is refused unless its direct browse planes show two
+    candidates within NEAR_TIE of the column's max at some step of the
+    search.  Returns (columns that differ, worst height error)."""
+    differ = np.flatnonzero((np.abs(got[0] - want[0]) > TOL_PEAK_FREQ).any(axis=0))
+    if differ.size:
+        check(differ.size <= 0.05 * got[0].shape[1],
+              f"{what}: {differ.size} of {got[0].shape[1]} k-columns have other peak frequencies")
+        _, planes, _ = calc.calculate_kgrid_browse(k_vecs[differ])
+        tied = near_tie_columns(planes.astype(np.float64), N_PEAKS, 4, NEAR_TIE)
+        check(bool(tied.all()), f"{what}: k-columns {differ[~tied][:8]} differ in peak frequency "
+                                "and are no near-ties")
+    same = np.setdiff1d(np.arange(got[0].shape[1]), differ)
+    h_err = float(np.max(np.abs(got[1][:, same] - want[1][:, same]) / want[1][0, same]))
+    check(h_err <= TOL_TWO_ENGINES, f"{what}: peak heights {h_err:.3e} of the column's highest")
+    return int(differ.size), h_err
+
+
+def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed):
+    """Phase 5e: the gridded (NUFFT) engine at the working size, on the
+    resident velocities.  ``calculate_gridded`` against the resident
+    ``calculate`` and the f64 oracle columns; ``calculate_kgrid_peaks`` and
+    ``calculate_kgrid_browse`` with ``engine='gridded'`` against the direct
+    engine on the 50x50 grid; then the peaks of a BIG_GRID x BIG_GRID grid by
+    both engines, walls in turns.  No path may launch the projection kernel.
+    Returns the gridded 50x50 peaks and the projection launches of each
+    gridded path."""
+    n_k = len(k_vecs)
+    proj.launches = 0
+    (sed, wall, peak) = timed(lambda: calc.calculate_gridded(k_vecs, grid_shape))
+    counts = {"calculate_gridded": proj.launches}
+    check(proj.launches == 0, "calculate_gridded launched the projection kernel")
+    check(sed.sed.shape == (N_T, n_k, 3) and bool(np.isfinite(sed.sed).all()), "gridded SED")
+    vs_direct = float(np.abs(sed.sed - resident_sed).max() / np.abs(resident_sed).max())
+    got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
+    vs_oracle = rel(got.to(torch.complex128), oracle)
+    check(vs_direct <= TOL_TWO_ENGINES and vs_oracle <= TOL_KERNEL,
+          f"calculate_gridded vs calculate {vs_direct:.3e}, vs f64 oracle {vs_oracle:.3e}")
+    log('gridded', f"calculate_gridded: {n_k} k: {wall:.3f} s wall, {n_k / wall:.1f} k-points/s, "
+                   f"peak device memory {peak:.1f} GB; vs the resident calculate {vs_direct:.3e} "
+                   f"(tol {TOL_TWO_ENGINES}), 4 k-columns vs f64 oracle {vs_oracle:.3e} of max "
+                   f"(tol {TOL_KERNEL})")
+    del sed, got
+
+    def direct(kv):
+        return calc.calculate_kgrid_peaks(kv, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK_GRID)
+
+    def gridded(kv, shape):
+        return calc.calculate_kgrid_peaks(kv, n_peaks=N_PEAKS, engine='gridded', k_grid_shape=shape)
+
+    walls = {}
+    _, big_k, big_shape = calc.get_k_grid('xy', (-5, 5), (-5, 5), BIG_GRID, BIG_GRID)
+    small = None
+    for name, kv, shape in (('50x50', k_vecs, grid_shape),
+                            (f'{BIG_GRID}x{BIG_GRID}', big_k, big_shape)):
+        runs = {'direct': [], 'gridded': []}
+        for engine in ('direct', 'gridded', 'gridded', 'direct'):       # in turns
+            proj.launches = 0
+            out, wall, peak = timed((lambda: direct(kv)) if engine == 'direct'
+                                    else (lambda: gridded(kv, shape)))
+            runs[engine].append((out, wall, peak))
+            want = -(-len(kv) // K_CHUNK_GRID) if engine == 'direct' else 0
+            if engine == 'gridded':
+                counts["kgrid_peaks_gridded"] = proj.launches
+            check(proj.launches == want, f"{engine} peaks of the {name} grid launched the "
+                                         f"projection kernel {proj.launches} times, want {want}")
+        (g1, _, g_peak), (g2, _, _) = runs['gridded']
+        check(all(np.array_equal(a, b) for a, b in zip(g1, g2)),
+              f"two gridded peaks sweeps of the {name} grid differ")
+        n_differ, h_err = peaks_agree(calc, kv, g1, runs['direct'][0][0], f"peaks {name}")
+        walls[name] = {e: [r[1] for r in runs[e]] for e in runs}
+        log('gridded', f"kgrid_peaks {name} ({len(kv)} k, n_peaks={N_PEAKS}), walls in turns: "
+                       + "; ".join(f"{e} {w[0]:.3f} and {w[1]:.3f} s ({len(kv) / min(w):.1f} "
+                                   "k-points/s)" for e, w in walls[name].items())
+                       + f"; peak device memory direct {runs['direct'][0][2]:.1f} GB, gridded "
+                       f"{g_peak:.1f} GB; gridded twice bitwise equal; peak frequencies equal "
+                       f"(atol {TOL_PEAK_FREQ}) but on {n_differ} near-tied k-columns, heights "
+                       f"within {h_err:.3e} of the column's highest (tol {TOL_TWO_ENGINES})")
+        if small is None:
+            small = g1
+
+    proj.launches = 0
+    (f_g, i_g, _), wall_g, peak_g = timed(lambda: calc.calculate_kgrid_browse(
+        k_vecs, engine='gridded', k_grid_shape=grid_shape))
+    counts["kgrid_browse_gridded"] = proj.launches
+    check(proj.launches == 0, f"the gridded browse launched the projection kernel "
+                              f"{proj.launches} times")
+    (f_d, i_d, _), wall_d, _ = timed(lambda: calc.calculate_kgrid_browse(
+        k_vecs, k_chunk_size=K_CHUNK_GRID))
+    b_err = float(np.abs(i_g - i_d).max() / i_d.max())
+    orc = (oracle.abs() ** 2).sum(dim=-1).cpu().numpy()[np.fft.fftfreq(N_T, calc.dt_ps) >= 0]
+    o_err = float(np.abs(i_g[:, cols] - orc).max() / orc.max())
+    check(np.array_equal(f_g, f_d) and b_err <= TOL_TWO_ENGINES and o_err <= TOL_KERNEL,
+          f"gridded browse vs direct {b_err:.3e}, vs f64 oracle {o_err:.3e}")
+    log('gridded', f"kgrid_browse 50x50: gridded {wall_g:.3f} s (peak {peak_g:.1f} GB), direct "
+                   f"{wall_d:.3f} s wall; planes vs direct {b_err:.3e} (tol {TOL_TWO_ENGINES}), "
+                   f"4 k-columns vs f64 oracle {o_err:.3e} of max (tol {TOL_KERNEL}); 0 projection launches on the gridded "
+                   f"browse and peaks")
+    return small, counts
+
+
+def gridded_streamed(dev, proj, host_vel, k_vecs, grid_shape, resident_peaks):
+    """Phase 7b: the gridded peaks of the 50x50 grid with the velocities on
+    the host under the default device budget: the group streams through the
+    NUFFT engine in time superchunks.  Against the resident gridded peaks."""
+    scalc, _, _ = working_calculator(dev, host_vel)
+    check(scalc._oversize(np.arange(N_ATOMS)), "the working group must exceed max_device_bytes")
+    scalc.mean_positions64                           # host mean, outside the timed call
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    proj.launches = 0
+    got, wall, peak = timed(lambda: scalc.calculate_kgrid_peaks(
+        k_vecs, n_peaks=N_PEAKS, engine='gridded', k_grid_shape=grid_shape))
+    check(proj.launches == 0 and scalc.streamed_bytes == host_vel.nbytes,
+          f"streamed gridded peaks: launches {proj.launches}, {scalc.streamed_bytes} bytes moved")
+    n_differ, h_err = peaks_agree(scalc, k_vecs, got, resident_peaks, "streamed gridded peaks")
+    log('gridded', f"kgrid_peaks 50x50, engine='gridded', velocities on the host, "
+                   f"max_device_bytes={scalc.max_device_bytes:.0e}: {wall:.3f} s wall, "
+                   f"{len(k_vecs) / wall:.1f} k-points/s, {scalc.streamed_bytes / 1e9:.1f} GB "
+                   f"host->device, peak device memory above the call's start "
+                   f"{peak - base / 1e9:.2f} GB; peak frequencies equal the resident sweep's but on "
+                   f"{n_differ} near-tied k-columns, heights within {h_err:.3e}")
+    return proj.launches
 
 
 def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
@@ -1001,6 +1143,87 @@ def dsf_working_data(dev, host_vel, host_pos):
     return traj, kv, side, length, t_gen
 
 
+def phase_engines(dev, dcalc, kv, length, pos_dev, vel_dev, cols, oracle32):
+    """Phase 11c: ``calculate_dsf``, ``calculate_sk`` (the DSF_K-point path)
+    and ``calculate_dsf_self`` (SELF_K consecutive k about the (400)
+    reflection: a strided set does not factor) under each phase engine, on
+    the resident positions and velocities, warm, walls in turns (the engines
+    in order, then in reverse).  ``dcalc.phase_mode`` is switched between
+    runs, so the 24 GB stay resident.  Each engine's columns are held
+    against a float64 oracle on the card at the k it evaluates: the float32
+    k for 'exact' and 'incremental' (``oracle32``: S, C_L, S(k) on
+    ``cols``), the float64 lattice vectors m·B for 'factored'; and its
+    planes against the exact engine's.  No chunk may fall back.  Returns the
+    factored DSF and the walls."""
+    from psa_tpu_torch.ops import instantaneous as inst
+    bragg = int(cols[1])
+    self_line = kv[bragg - SELF_K // 2:bragg + SELF_K // 2]
+    box64 = float(np.float32(length))
+    lattice = 2.0 * np.pi * np.round(kv.astype(np.float64) * box64 / (2.0 * np.pi)) / box64
+    self_k = np.stack([kv[bragg].astype(np.float64), lattice[bragg]])
+    t0 = time.perf_counter()
+    o_s, o_cl, o_sk, _, o_ss, _ = (x.cpu().numpy() for x in dsf_oracles(
+        pos_dev, vel_dev, torch.from_numpy(lattice[cols]).to(dev),
+        torch.from_numpy(self_k).to(dev), 8))
+    t_oracle = time.perf_counter() - t0
+    keep = np.fft.fftfreq(N_T, 0.01) >= 0
+    truth = {'factored': (o_s[keep], o_cl[keep], o_sk, o_ss[keep][:, 1])}
+    truth['exact'] = truth['incremental'] = oracle32 + (o_ss[keep][:, 0],)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 1e9
+    walls = {m: {'dsf': [], 'sk': [], 'dsf_self': []} for m in PHASE_ENGINES}
+    peaks, out, chunks = {}, {}, {}
+    for mode in PHASE_ENGINES + PHASE_ENGINES[::-1]:
+        dcalc.phase_mode = mode
+        dcalc.factored_chunks.clear()
+        for name, run in (('dsf', lambda: dcalc.calculate_dsf(kv)),
+                          ('sk', lambda: dcalc.calculate_sk(kv)),
+                          ('dsf_self', lambda: dcalc.calculate_dsf_self(self_line))):
+            out[mode, name], wall, peak = timed(run)
+            walls[mode][name].append(wall)
+            peaks[mode, name] = peak - base
+        chunks[mode] = list(dcalc.factored_chunks)
+    dcalc.phase_mode = 'auto'
+    check(chunks['exact'] == chunks['incremental'] == [] and len(chunks['factored']) == 3
+          and None not in chunks['factored'],
+          f"chunks the factored engine took: {chunks}")
+    budget = dcalc.max_device_bytes / 4e9
+    check(max(peaks.values()) <= 1.25 * budget,
+          f"a phase engine's transients {max(peaks.values()):.2f} GB exceed the tile budget "
+          f"{budget:.2f} GB by more than a quarter")
+
+    errs = {}
+    for mode in PHASE_ENGINES:
+        (_, s_pl, cl_pl, ct_pl), sk, (_, ss) = (out[mode, n] for n in ('dsf', 'sk', 'dsf_self'))
+        t_s, t_cl, t_sk, t_ss = truth[mode]
+        got = (('S', s_pl[:, cols], t_s), ('C_L', cl_pl[:, cols], t_cl), ('S(k)', sk[cols][None], t_sk[None]),
+               ('S_s', ss[:, SELF_K // 2:SELF_K // 2 + 1], t_ss[:, None]))
+        errs[mode] = {n: float(np.max(np.abs(g - w) / np.abs(w).max(axis=0))) for n, g, w in got}
+        check(max(errs[mode].values()) <= TOL_KERNEL,
+              f"{mode} engine vs its f64 oracle {errs[mode]} > {TOL_KERNEL}")
+        if mode != 'exact':
+            (_, e_s, e_cl, e_ct), e_sk, (_, e_ss) = (out['exact', n] for n in ('dsf', 'sk', 'dsf_self'))
+            errs[mode]['vs exact'] = max(
+                float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in ((s_pl, e_s), (cl_pl, e_cl), (cl_pl + ct_pl, e_cl + e_ct), (sk, e_sk),
+                             (ss, e_ss)))
+            check(errs[mode]['vs exact'] <= TOL_ENGINES,
+                  f"{mode} engine vs the exact engine {errs[mode]['vs exact']:.3e} > {TOL_ENGINES}")
+    for mode in PHASE_ENGINES:
+        log('engines', f"phase_mode={mode!r}, warm, in turns: "
+                       + "; ".join(f"{n} {w[0]:.3f} and {w[1]:.3f} s, transients "
+                                   f"{peaks[mode, n]:.2f} GB" for n, w in walls[mode].items())
+                       + "; vs f64 oracle columns (of each column's max): "
+                       + ", ".join(f"{n} {e:.3e}" for n, e in errs[mode].items())
+                       + (f"; chunks factored as (Na, Nb) = {chunks[mode]}" if chunks[mode] else ""))
+    log('engines', f"{DSF_K} k for dsf and sk, {SELF_K} consecutive k for dsf_self; tile budget "
+                   f"{budget:.2f} GB (a quarter of max_device_bytes), bytes per element "
+                   f"{inst.PHASOR_BYTES}; tol {TOL_KERNEL} vs the oracle at the k each engine "
+                   f"evaluates, {TOL_ENGINES} vs the exact engine; lattice oracle {t_oracle:.2f} s")
+    return out['factored', 'dsf'], walls
+
+
 def dsf_working_size(dev, proj, host_vel, host_pos):
     """Phase 11: the instantaneous-phase family at the working size: the
     Si sites in a fixed cell with seeded thermal displacements made on the
@@ -1061,9 +1284,6 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
             ('F_s', out['isf_self'][1][:, self_cols], o_fs)):
         errs[name] = float(np.max(np.abs(got - want) / np.abs(want).max(axis=0)))
         check(errs[name] <= TOL_KERNEL, f"{name} vs f64 oracle {errs[name]:.3e} > {TOL_KERNEL}")
-    del pos_dev, vel_dev
-    dcalc.clear_device_cache()
-    torch.cuda.empty_cache()
     log('dsf', f"{N_ATOMS} thermal Si atoms x {N_T} frames made on the card, copied to the host in "
                f"{t_gen:.2f} s; max_device_bytes={DSF_BUDGET:.0e} (positions + velocities resident); "
                + "; ".join(f"{n} {walls[n]:.3f} s, peak {peaks[n]:.1f} GB" for n in walls)
@@ -1071,6 +1291,13 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     log('dsf', "2 columns vs f64 oracles on the card (of each column's max): "
                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                + f" (tol {TOL_KERNEL}); oracles {t_oracle:.2f} s")
+    factored_dsf, engine_walls = phase_engines(
+        dev, dcalc, kv, length, pos_dev, vel_dev, cols,
+        (o_s[keep], o_cl[keep], o_sk))
+    check(proj.launches == 0, "a phase engine launched the projection kernel")
+    del pos_dev, vel_dev
+    dcalc.clear_device_cache()
+    torch.cuda.empty_cache()
 
     scalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=_DEFAULT_MAX_DEVICE_BYTES,
                           device=dev)
@@ -1096,7 +1323,20 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
                f"{scalc.streamed_bytes / 1e9:.1f} GB host->device, {walls['dsf_streamed']:.3f} s wall, "
                f"peak device memory above the call's start {stream_peak:.2f} GB; S and C_L vs "
                f"resident {s_err:.3e}, C_L + C_T {tot_err:.3e} of max (tol {TOL_KERNEL})")
-    return walls, traj, side
+
+    fcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, phase_mode='factored', device=dev)
+    streamed, wall, _ = timed(lambda: fcalc.calculate_dsf(kv))
+    f_err = max(float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(streamed[1:3], factored_dsf[1:3]))
+    check(fcalc.factored_chunks and None not in fcalc.factored_chunks and f_err <= TOL_KERNEL
+          and fcalc.streamed_bytes == 2 * host_pos.nbytes and proj.launches == 0,
+          f"streamed factored DSF vs resident {f_err:.3e}, chunks {fcalc.factored_chunks}")
+    walls['dsf_factored_streamed'] = wall
+    log('engines', f"calculate_dsf, phase_mode='factored', at the default max_device_bytes: "
+                   f"{wall:.3f} s wall, {fcalc.streamed_bytes / 1e9:.1f} GB host->device, chunks "
+                   f"{fcalc.factored_chunks}; S and C_L vs the resident factored planes "
+                   f"{f_err:.3e} of max (tol {TOL_KERNEL})")
+    return dict(walls, engines=engine_walls, launches=proj.launches), traj, side
 
 
 def dsf_small(dev):
@@ -1781,6 +2021,12 @@ def main():
                                                                  nu_max, a)
     log('grid', f"grid phases took {time.perf_counter() - t0:.2f} s")
 
+    # -- 5e. the gridded (NUFFT) engine ------------------------------------
+    t0 = time.perf_counter()
+    gridded_peaks, gridded_launches = gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols,
+                                            resident_sed)
+    log('gridded', f"gridded phase took {time.perf_counter() - t0:.2f} s")
+
     # -- 5d. the precision tiers -------------------------------------------
     t0 = time.perf_counter()
     tier_info = tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols)
@@ -1792,6 +2038,10 @@ def main():
         velocities, calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed, resident_peaks)
     del resident_sed
     log('ooc', f"out-of-core phase took {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    gridded_launches["kgrid_peaks_gridded_streamed"] = gridded_streamed(
+        dev, proj, host_vel, k_vecs, grid_shape, gridded_peaks)
+    log('gridded', f"streamed gridded phase took {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     rerun_launches = resume(calc, proj, k_vecs)
     log('resume', f"resume phase took {time.perf_counter() - t0:.2f} s")
@@ -1812,7 +2062,7 @@ def main():
     del velocities
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, thermal, side = dsf_working_size(dev, proj, host_vel, host_pos)
+    dsf_info, thermal, side = dsf_working_size(dev, proj, host_vel, host_pos)
     dsf_small(dev)
     log('dsf', f"instantaneous-phase phase took {time.perf_counter() - t0:.2f} s")
 
@@ -1904,7 +2154,10 @@ def main():
                               "calculate_balanced": tier_info['balanced']['launches'],
                               "calculate_fast": tier_info['fast']['launches'],
                               "npt_peaks": npt_peaks_launches, "npt": npt_launches,
-                              "npt_chain": npt_chain_launches, "cli": cli_launches},
+                              "npt_chain": npt_chain_launches, "cli": cli_launches,
+                              **gridded_launches,
+                              # one count over the whole phase: every engine, resident and streamed
+                              "dsf_exact_factored_incremental": dsf_info['launches']},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),

@@ -13,9 +13,10 @@ the JAX package's CLI, with these differences:
   * every section writes its data files first and its figures after; where
     matplotlib is not installed the figures are skipped (logged once) and
     the data files are still written;
-  * a config that asks for what is not ported (``general.phase_mode``
-    'incremental'/'factored', ``kgrid.engine: gridded``) ends with the
-    library's ``NotImplementedError``, which names the ROADMAP row.
+  * ``general.phase_mode: auto`` runs the exact phase engine in every
+    family of the dsf section and ``kgrid.engine: auto`` the direct engine
+    (the JAX package picks by TPU measurements); 'factored', 'incremental'
+    and 'gridded' run when the config names them.
 
 Usage:
     python -m psa_tpu_torch.cli --trajectory traj.dump --config Si_config.json --output-dir out/

@@ -29,10 +29,14 @@ the host assembles chunk i while the device computes chunk i+1.
 ``cache_dir`` checkpoints each k-chunk (``io/shard_cache.py``, keys shared
 with the JAX package), so a killed sweep resumes.
 
-Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-gridded NUFFT engine (``engine='gridded'``), device meshes (``mesh=``) and the
-'incremental' and 'factored' phase engines.  The JAX class's other public
-methods are absent.
+The gridded NUFFT engine (:mod:`psa_tpu_torch.ops.gridded`) serves
+``calculate_gridded`` and ``engine='gridded'`` of ``calculate_kgrid_browse``
+and ``calculate_kgrid_peaks``; the 'factored' and 'incremental' phase engines
+serve the instantaneous-phase family (``phase_mode``).  Neither is what
+'auto' picks.
+
+Not ported here (raises ``NotImplementedError``; see ROADMAP.md): device
+meshes (``mesh=``).  The JAX class's other public methods are absent.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ logger = logging.getLogger(__name__)
 _DEFAULT_MAX_DEVICE_BYTES = int(8e9)
 #: Largest atom block, in bytes, of a group streamed from the host (two are staged).
 STREAM_BLOCK_BYTES = 1 << 28
-#: Instantaneous-phase engines of the JAX package; the port runs 'exact' ('auto' resolves to it).
+#: Instantaneous-phase engines; 'auto' resolves to 'exact' in every family.
 PHASE_MODES = ('auto', 'incremental', 'exact', 'factored')
 #: Frames per chunk of the fractional mean, in position elements.
 FRAC_MEAN_CHUNK_ELEMS = int(2e8)
@@ -197,8 +201,12 @@ class SEDCalculator:
             sweep's transients come on top (a quarter of it per block).
         mass_weighted: weight each atom's data by √m_a (requires ``traj.masses``).
         phase_mode: engine of the instantaneous-phase family (DSF, S(k), ISF,
-            self parts): 'auto' and 'exact' run the exact engine (float64
-            angle per element); 'incremental' and 'factored' are not ported.
+            self parts): 'exact' (float64 angle per element; 'auto' resolves
+            to it in every family), 'factored' (lattice k-chunks that factor
+            as anchors ⊕ deltas take the float64 chain on the base columns
+            only) or 'incremental' (one exact phasor per 32 frames, small
+            float32 phases between).  Off-lattice k, chunks that do not
+            factor and a singular box run 'exact', bit for bit.
         device: 'cuda' (default; raises when CUDA is absent) or 'cpu'.
     """
 
@@ -255,8 +263,6 @@ class SEDCalculator:
         if phase_mode not in PHASE_MODES:
             raise ValueError("phase_mode must be 'auto', 'factored', "
                              "'incremental' or 'exact'.")
-        if phase_mode in ('incremental', 'factored'):
-            raise _not_ported(f"phase_mode={phase_mode!r}", "A10")
         if mass_weighted and traj.masses is None:
             raise ValueError("mass_weighted=True requires Trajectory.masses.")
         self.device = resolve_device(device)
@@ -271,6 +277,8 @@ class SEDCalculator:
         # the device-cache and shard-cache keys.
         self._phase_anchor = 'cartesian'
         self._frac_mean64: Optional[np.ndarray] = None
+        self._phase_box_dev: Optional[torch.Tensor] = None
+        self._grid_plans: Dict[tuple, object] = {}      # the gridded engine's last two plans
         # The lock guards the device cache: worker threads may call calculate()
         # concurrently.
         self._mean_pos64: Optional[np.ndarray] = None
@@ -279,6 +287,9 @@ class SEDCalculator:
         self._cache_lock = threading.Lock()
         #: Bytes of groups over max_device_bytes streamed to the device so far.
         self.streamed_bytes = 0
+        #: Per k-chunk of the 'factored' sweeps so far: (Na, Nb), or None for
+        #: a chunk that did not factor and ran the exact engine.
+        self.factored_chunks: List[Optional[Tuple[int, int]]] = []
 
     # ------------------------------------------------------------------
     # k-space generators (host side)
@@ -960,9 +971,13 @@ class SEDCalculator:
         float16; the returned arrays are float32 either way.  ``cache_dir``
         checkpoints each chunk's planes (see :meth:`calculate`).
 
-        ``engine`` is 'direct' ('auto' resolves to it); ``engine='gridded'``
-        is not ported and raises.  ``k_grid_shape`` is read only by the
-        gridded engine.
+        ``engine`` is 'direct' ('auto' resolves to it) or 'gridded': a
+        uniform grid goes through the NUFFT engine
+        (:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_browse`) with the
+        same reduction fused on the device.  It needs ``k_grid_shape``, sums
+        coherently (one spectrum), takes float32 readback only, no Welch
+        segments and no ``cache_dir``; a group over ``max_device_bytes``
+        streams through it in time superchunks.
 
         Returns:
             (freqs_kept (n_keep,), intensity (n_keep, n_k) float32,
@@ -973,11 +988,16 @@ class SEDCalculator:
         if readback_dtype not in ('float32', 'float16'):
             raise ValueError("readback_dtype must be 'float32' or 'float16', "
                              f"got {readback_dtype!r}")
-        if engine == 'gridded':
-            raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
-        if engine not in ('direct', 'auto'):
-            raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
+        if readback_dtype == 'float16' and engine == 'gridded':
+            raise ValueError("readback_dtype='float16' runs on the direct "
+                             "engine.")
         segments = self._welch_segments(welch_segments, welch_window)
+        if segments > 1 and engine == 'gridded':
+            raise ValueError("welch_segments runs on the direct engine "
+                             "(the NUFFT reduction carries no segment axis).")
+        if cache_dir is not None and engine == 'gridded':
+            raise ValueError("cache_dir checkpointing runs on the direct "
+                             "engine (the NUFFT sweep has no k-chunk axis).")
         freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
         groups, single_spectrum = self._spectrum_groups(
             self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
@@ -986,6 +1006,13 @@ class SEDCalculator:
             raise ValueError("Chiral phase needs a single complex spectrum; "
                              "use coherent summation.")
         comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
+        if engine == 'gridded':
+            intensity, phase = self._gridded_sweep(
+                k_vectors_3d, k_grid_shape, groups, single_spectrum, freq_idx,
+                comp_pair=comp_pair, angle_range_opt=angle_range_opt)
+            return freqs_kept, intensity, phase
+        if engine not in ('direct', 'auto'):
+            raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
 
         num_k = len(k_vectors_3d)
         intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
@@ -1138,8 +1165,13 @@ class SEDCalculator:
 
         ``engine='auto'`` runs the direct engine.  (The JAX package routes
         big uniform grids to its NUFFT engine on TPU measurements; the port
-        keeps that rule out until that engine is ported and measured on the
-        GPU, ROADMAP A12.)  ``engine='gridded'`` is not ported and raises.
+        does not carry that rule over.)  ``engine='gridded'`` takes a uniform
+        grid through the NUFFT engine
+        (:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_browse`) with the
+        same on-device peak reduction: it needs ``k_grid_shape``, sums
+        coherently, and takes no chiral phase, Welch segments or
+        ``cache_dir``; a group over ``max_device_bytes`` streams through it
+        in time superchunks.
 
         Returns:
             (peak_freqs, peak_heights, peak_widths[, peak_phase]): each
@@ -1149,14 +1181,16 @@ class SEDCalculator:
             raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
         if n_peaks < 1:
             raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
-        if engine == 'gridded':
-            raise _not_ported("engine='gridded' (the NUFFT engine)", "A12")
-        if engine not in ('direct', 'auto'):
-            raise ValueError(f"engine must be 'auto', 'direct' or 'gridded', got {engine!r}")
         if width_method not in ('rms', 'lorentzian'):
             raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
                              f"got {width_method!r}")
         segments = self._welch_segments(welch_segments, welch_window)
+        if segments > 1 and engine == 'gridded':
+            raise ValueError("welch_segments runs on the direct engine "
+                             "(the NUFFT reduction carries no segment axis).")
+        if cache_dir is not None and engine == 'gridded':
+            raise ValueError("cache_dir checkpointing runs on the direct "
+                             "engine (the NUFFT sweep has no k-chunk axis).")
         freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
         if freq_idx.size == 0:
             raise ValueError("No frequencies retained; check max_freq.")
@@ -1168,6 +1202,16 @@ class SEDCalculator:
             if not single_spectrum:
                 raise ValueError("chiral peaks need coherent summation.")
             comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis]
+            if engine == 'gridded':
+                raise ValueError("chiral peaks run on the direct engine "
+                                 "(the gridded peaks path carries no phase).")
+        if engine == 'gridded':
+            return self._gridded_sweep(
+                k_vectors_3d, k_grid_shape, groups, single_spectrum, freq_idx,
+                n_peaks=n_peaks, exclusion_bins=exclusion_bins, freqs_kept=freqs_kept,
+                width_method=width_method)
+        if engine not in ('direct', 'auto'):
+            raise ValueError(f"engine must be 'auto', 'direct' or 'gridded', got {engine!r}")
         n_out = 4 if comp_pair is not None else 3
         num_k = len(k_vectors_3d)
         if num_k == 0 or not groups:
@@ -1214,6 +1258,218 @@ class SEDCalculator:
             readback.finish()
             return tuple(out)
         return tuple(_to_host(torch.cat(found, dim=-1)))
+
+    # ------------------------------------------------------------------
+    # Gridded (NUFFT-accelerated) k-grid sweeps
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _detect_grid_axes(k_vectors_3d: np.ndarray, k_grid_shape):
+        """Classify a tensor-product k-grid's columns as (slow, fast, fixed).
+
+        Detection is by which grid axis each component varies along.  A
+        degenerate grid (n1 == 1 or n2 == 1 from ``get_k_grid``) leaves its
+        plane column constant, like the fixed column: roles left open are
+        filled by the cyclic plane convention of ``get_k_grid`` (xy → (0, 1,
+        2), yz → (1, 2, 0), zx → (2, 0, 1)).
+
+        Returns (kx_vals f64, ky_vals f64, k_fixed, (slow, fast, fixed)).
+        """
+        n1, n2 = k_grid_shape
+        if n1 * n2 != len(k_vectors_3d):
+            raise ValueError("k_grid_shape does not match k_vectors_3d")
+        mat = np.asarray(k_vectors_3d, dtype=np.float32).reshape(n1, n2, 3)
+        slow_col = fast_col = None
+        for c in range(3):
+            col = mat[:, :, c]
+            varies_slow = not np.allclose(col, col[:1, :], atol=1e-7)
+            varies_fast = not np.allclose(col, col[:, :1], atol=1e-7)
+            if varies_slow and varies_fast:
+                raise ValueError(
+                    "k_vectors_3d is not a tensor-product grid from get_k_grid")
+            if varies_slow:
+                if slow_col is not None:
+                    raise ValueError(
+                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
+                slow_col = c
+            elif varies_fast:
+                if fast_col is not None:
+                    raise ValueError(
+                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
+                fast_col = c
+        if slow_col is not None and fast_col is not None:
+            fixed_col = 3 - slow_col - fast_col
+        elif fast_col is not None:          # 1 x n2 grid
+            slow_col, fixed_col = (fast_col - 1) % 3, (fast_col + 1) % 3
+        elif slow_col is not None:          # n1 x 1 grid
+            fast_col, fixed_col = (slow_col + 1) % 3, (slow_col + 2) % 3
+        else:                               # 1 x 1 grid
+            slow_col, fast_col, fixed_col = 0, 1, 2
+        return (mat[:, 0, slow_col].astype(np.float64),
+                mat[0, :, fast_col].astype(np.float64),
+                float(mat[0, 0, fixed_col]),
+                (slow_col, fast_col, fixed_col))
+
+    def _group_block_source(self, group_idx: np.ndarray):
+        """Streamed host-side view of one group's SED input data, for the
+        gridded sweep of a group over ``max_device_bytes``:
+        ``read_block(t0, t1, a0, a1)`` applies the transforms of
+        :meth:`_group_device_arrays` (displacement-mode mean subtraction, in
+        float64 against the stored means, and mass weights) per block read."""
+        traj, disp = self.traj, self.use_displacements
+        mean64 = self.mean_positions64[group_idx] if disp else None
+        weights = (np.sqrt(traj.masses[group_idx]).astype(np.float32)
+                   if self.mass_weighted else None)
+        take = self._host_blocks(group_idx)
+
+        class _Source:
+            n_frames = traj.n_frames
+            n_atoms = int(group_idx.size)
+
+            @staticmethod
+            def read_block(t0, t1, a0, a1):
+                if disp:
+                    block = take(traj.positions[t0:t1], a0, a1).astype(np.float64)
+                    block = (block - mean64[a0:a1]).astype(np.float32)
+                else:
+                    block = np.asarray(take(traj.velocities[t0:t1], a0, a1), dtype=np.float32)
+                if weights is not None:
+                    block = block * weights[None, a0:a1, None]
+                return block
+
+        return _Source()
+
+    def _gridded_plan(self, union: np.ndarray, k_vectors_3d, k_grid_shape):
+        """The gridded engine's host plan (:func:`psa_tpu_torch.ops.gridded.plan_kgrid`)
+        of a group on a k-grid.  The plan depends on the mean positions and
+        the grid alone and takes about 0.15 s of NumPy at 10⁵ atoms, so the
+        last two are kept: a browse and a peaks sweep of one grid plan once."""
+        from ..ops import gridded
+        kx_vals, ky_vals, k_fixed, axes = self._detect_grid_axes(
+            np.asarray(k_vectors_3d, dtype=np.float32), k_grid_shape)
+        key = (union.tobytes(), kx_vals.tobytes(), ky_vals.tobytes(), k_fixed, axes,
+               self._phase_anchor)
+        plan = self._grid_plans.pop(key, None)
+        if plan is None:
+            plan = gridded.plan_kgrid(self.mean_positions64[union], kx_vals, ky_vals,
+                                      k_fixed=k_fixed, axes=axes)
+        self._grid_plans[key] = plan                      # most recent last
+        while len(self._grid_plans) > 2:
+            self._grid_plans.pop(next(iter(self._grid_plans)))
+        return plan
+
+    def _gridded_grid_budget(self) -> Optional[int]:
+        """Bytes for the gridded engine's full-time grid accumulators of one
+        ky block: on the card, a quarter of the device memory that is free
+        now (a 200×200 grid's accumulators are 96 MB per ky column at 10⁴
+        frames, so a constant would not do); None (the engine's defaults) on
+        the CPU."""
+        if self.device.type != 'cuda':
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return int(free) // 4
+
+    def _gridded_sweep(self, k_vectors_3d, k_grid_shape, groups: List[np.ndarray],
+                       single_spectrum: bool, freq_idx: np.ndarray, **reduce_kwargs):
+        """:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_browse` on the one
+        (union) group of a coherent sweep: from its device-resident data, or,
+        over ``max_device_bytes``, streamed from the host in time
+        superchunks."""
+        if not single_spectrum:
+            raise ValueError("engine='gridded' supports coherent "
+                             "(single-spectrum) sweeps only.")
+        if k_grid_shape is None:
+            raise ValueError("engine='gridded' needs k_grid_shape.")
+        from ..ops import gridded
+        union = groups[0] if groups else np.array([], dtype=int)
+        plan = self._gridded_plan(union, k_vectors_3d, k_grid_shape)
+        budget = self._gridded_grid_budget()
+        if union.size > 0 and self._oversize(union):
+            data = self._group_block_source(union)
+        elif union.size > 0:
+            data, _, _ = self._group_device_arrays(union)
+        else:
+            data = np.zeros((self.traj.n_frames, 0, 3), dtype=np.float32)
+        stats = {}
+        out = gridded.gridded_kgrid_browse(
+            data, plan, freq_idx, precision=self.precision, grid_budget_bytes=budget,
+            device=self.device, stats=stats, **reduce_kwargs)
+        self.streamed_bytes += stats['bytes_streamed']
+        return out
+
+    def calculate_gridded(self, k_vectors_3d: np.ndarray,
+                          k_grid_shape: Tuple[int, int],
+                          basis_atom_indices=None, basis_atom_types=None,
+                          t_chunk: Optional[int] = None,
+                          cell_chunk: Optional[int] = None,
+                          gy_chunk: Optional[int] = None,
+                          cache_dir: Optional[Union[str, Path]] = None) -> SED:
+        """Coherent SED over a uniform k-grid by the hybrid gridded engine.
+
+        About Gx/12 fewer products than :meth:`calculate` at about 1e-6
+        accuracy (exact phases along the fast grid axis, a Kaiser-Bessel
+        NUFFT along the slow one; :mod:`psa_tpu_torch.ops.gridded`).
+        Restrictions: tensor-product uniformly spaced grids (anything from
+        :meth:`get_k_grid`), coherent summation, one (union) atom group,
+        resident on the device.
+
+        ``cell_chunk`` (packing rows per chunk) bounds the spreading-weight
+        tensor (default 2 GB per chunk), ``gy_chunk`` the ky columns whose
+        full-time grids are held at once, ``t_chunk`` the frames per spread.
+        The time FFT of each ky block runs on the device; the blocks cross
+        to the host through a one-deep pinned readback.  ``cache_dir``
+        checkpoints the result (the engine is one-shot, so the cache is
+        all-or-nothing: a complete cached result is returned without
+        computing), under the JAX package's key.
+        """
+        from ..ops import gridded
+        n_t = self.traj.n_frames
+        k_vectors_3d = np.asarray(k_vectors_3d, dtype=np.float32)
+        n1, n2 = k_grid_shape
+        self._detect_grid_axes(k_vectors_3d, k_grid_shape)       # refuses what is no grid
+        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'coherent')
+        union = (np.unique(np.concatenate(groups)).astype(int)
+                 if len(groups) > 1 else groups[0])
+        freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
+
+        def result(full_sed):
+            return SED(full_sed, freqs, np.array([], dtype=np.float32), k_vectors_3d,
+                       k_grid_shape=tuple(k_grid_shape), is_complex=True, phase=None,
+                       dt_ps=self.dt_ps)
+
+        cache = None
+        if cache_dir is not None:
+            from ..io.shard_cache import ShardedSEDCache, trajectory_fingerprint
+            cache = ShardedSEDCache(Path(cache_dir), workload={
+                'traj': trajectory_fingerprint(self.traj),
+                'k_vectors': np.asarray(k_vectors_3d, dtype=np.float32),
+                'group': union.tolist(),
+                'engine': 'gridded',
+                'use_displacements': self.use_displacements,
+                'mass_weighted': self.mass_weighted,
+                'precision': self.precision,
+                'dt_ps': float(self.dt_ps),
+            })
+            cached = cache.load(0)
+            if cached is not None and cached.shape == (n_t, n1 * n2, 3):
+                logger.info("gridded SED cache %s: complete result reused.", cache.key)
+                return result(cached)
+
+        plan = self._gridded_plan(union, k_vectors_3d, k_grid_shape)
+        # the calculator's device-resident group data: the displacement and
+        # mass transforms already applied, shared with the direct engine
+        if union.size > 0:
+            data, _, _ = self._group_device_arrays(union)
+        else:
+            data = np.zeros((n_t, 0, 3), dtype=np.float32)
+        full_sed = gridded.gridded_kgrid_spectrum(
+            data, plan, t_chunk=t_chunk, cell_chunk=cell_chunk, gy_chunk=gy_chunk,
+            precision=self.precision, time_fft=True,
+            grid_budget_bytes=self._gridded_grid_budget(), device=self.device)
+        if cache is not None:
+            cache.store(0, full_sed)
+        return result(full_sed)
 
     # ------------------------------------------------------------------
     # NPT: a time-dependent cell, phases anchored in fractional space
@@ -1316,14 +1572,66 @@ class SEDCalculator:
         ``max_device_bytes``: the instantaneous-phase paths then stream it."""
         return (1 + with_velocities) * self._group_bytes(group_idx) > self.max_device_bytes
 
+    def _dsf_box(self) -> Optional[torch.Tensor]:
+        """Device (3, 3) float32 cell matrix for the incremental engine's
+        minimum image, or None when the box is singular (degenerate axes)."""
+        if self._phase_box_dev is None:
+            box = np.asarray(self.traj.box_matrix, dtype=np.float64)
+            if abs(np.linalg.det(box)) < 1e-12:
+                return None
+            self._phase_box_dev = self._to_device(box)
+        return self._phase_box_dev
+
+    def _phase_cfg(self, k_vectors_3d) -> Tuple[Optional[torch.Tensor], str]:
+        """(box, mode) of the instantaneous-phase engine on this k set.
+
+        'auto' is 'exact' in every family.  The incremental engine's
+        minimum image shifts phases by whole turns only for box-commensurate
+        k, and the factored engine's anchor ⊕ delta algebra needs lattice k
+        outright: off-lattice k (``commensurate_deviation`` > 1e-3) runs
+        'exact'.  A singular box (no minimum image) turns 'incremental'
+        into 'exact'.  ``box`` is the device cell matrix for 'incremental',
+        else None."""
+        mode = 'exact' if self.phase_mode == 'auto' else self.phase_mode
+        if mode != 'exact' and len(k_vectors_3d) and instantaneous.commensurate_deviation(
+                k_vectors_3d, self.traj.box_matrix) > 1e-3:
+            mode = 'exact'
+        box = self._dsf_box() if mode == 'incremental' else None
+        if mode == 'incremental' and box is None:
+            mode = 'exact'
+        return box, mode
+
+    def _chunk_k_arg(self, k_rows: np.ndarray, k_dev: torch.Tensor, ph_mode: str):
+        """(k_arg, mode, col_idx) of the phase producer on one k-chunk.
+
+        'factored' tries :func:`psa_tpu_torch.ops.instantaneous.factor_k_chunk`
+        on the chunk (each chunk of a lattice line is itself a lattice
+        line): the producer then runs over the Na·Nb product columns and
+        ``col_idx`` (a device index) maps each requested k to its column;
+        the caller selects those columns from the reduced output, never from
+        the phasors.  A chunk that does not factor runs the exact engine on
+        the plain device rows ``k_dev`` with ``col_idx`` None."""
+        if ph_mode == 'factored':
+            out = instantaneous.factor_k_chunk(k_rows, self.traj.box_matrix)
+            if out is not None:
+                fk, col_idx = out
+                self.factored_chunks.append((fk[0].shape[0], fk[1].shape[0]))
+                return (tuple(x.to(self.device) for x in fk), 'factored',
+                        self._to_device(col_idx, np.int64))
+            self.factored_chunks.append(None)
+            ph_mode = 'exact'
+        return k_dev, ph_mode, None
+
     def _dsf_plan(self, num_k: int, group_idx: np.ndarray,
-                  with_velocities: bool) -> Tuple[int, int]:
+                  with_velocities: bool, mode: str = 'exact') -> Tuple[int, int]:
         """(atom_chunk, t_chunk) of the mode stacks' tiles: the phasor
-        transients of a (t_chunk, atom_chunk, num_k) tile, PHASOR_BYTES per
-        element, within a quarter of ``max_device_bytes``; a streamed group's
-        atom chunk is its staged block, and the time tiles fill the budget
-        for that block."""
-        budget = max(1 << 22, int(self.max_device_bytes) // (4 * instantaneous.PHASOR_BYTES))
+        transients of a (t_chunk, atom_chunk, num_k) tile, PHASOR_BYTES[mode]
+        per element, within a quarter of ``max_device_bytes``; a streamed
+        group's atom chunk is its staged block, and the time tiles fill the
+        budget for that block.  ``num_k`` counts the producer's columns (the
+        product columns of a factored chunk)."""
+        budget = max(1 << 22,
+                     int(self.max_device_bytes) // (4 * instantaneous.PHASOR_BYTES[mode]))
         n = int(group_idx.size)
         atom_chunk = max(1, min(n, budget // max(1, num_k)))
         if self._instant_streams(group_idx, with_velocities):
@@ -1418,26 +1726,46 @@ class SEDCalculator:
 
     def _dsf_mode_chunks(self, group_idx: np.ndarray, k_vectors_3d, bounds, todo,
                          density_only: bool = False):
-        """Yield (ci, s, e, acc_re, acc_im) for each k-chunk ``ci`` in
-        ``todo``: the mode stack (n_t, e − s, C) accumulated on the device
-        over every atom block of the group.  Channels [ρ, j_x, j_y, j_z], or
-        [ρ] alone with ``density_only`` (S(k), ISF), which reads no
-        velocities.  Shared by :meth:`calculate_dsf`, :meth:`calculate_sk`
+        """Yield (ci, s, e, acc_re, acc_im, k_unit, col_idx) for each k-chunk
+        ``ci`` in ``todo``: the mode stack (n_t, K, C) accumulated on the
+        device over every atom block of the group.  Channels [ρ, j_x, j_y,
+        j_z], or [ρ] alone with ``density_only`` (S(k), ISF), which reads no
+        velocities.  K = e − s and ``col_idx`` is None, except for a chunk
+        the 'factored' engine took (:meth:`_chunk_k_arg`): then K counts its
+        product columns, ``col_idx`` is the device index of the requested k
+        among them, and ``k_unit`` (the chunk's device unit vectors) is in
+        product order.  Shared by :meth:`calculate_dsf`, :meth:`calculate_sk`
         and :meth:`calculate_isf`."""
         n_t = self.traj.n_frames
-        atom_chunk, t_chunk = self._dsf_plan(bounds[0][1] - bounds[0][0], group_idx,
-                                             not density_only)
-        logger.info("DSF: %d k-points in %d chunks; atom_chunk=%d t_chunk=%d.",
-                    len(k_vectors_3d), len(bounds), atom_chunk, t_chunk)
+        ph_box, ph_mode = self._phase_cfg(k_vectors_3d)
         k_dev = self._to_device(k_vectors_3d)
+        k_unit = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
         n_ch = 1 if density_only else 4
         for ci in todo:
             s, e = bounds[ci]
-            acc = [torch.zeros((n_t, e - s, n_ch), dtype=torch.float32, device=self.device)
+            k_arg, mode, col_idx = self._chunk_k_arg(k_vectors_3d[s:e], k_dev[s:e], ph_mode)
+            n_cols = instantaneous.k_count(k_arg)
+            atom_chunk, t_chunk = self._dsf_plan(n_cols, group_idx, not density_only, mode)
+            logger.info("DSF: k-chunk %d/%d, %d columns (%s); atom_chunk=%d t_chunk=%d.",
+                        ci + 1, len(bounds), n_cols, mode, atom_chunk, t_chunk)
+            ku = k_unit[s:e]
+            if col_idx is not None:
+                ku = torch.zeros((n_cols, 3), dtype=torch.float32,
+                                 device=self.device).index_copy_(0, col_idx, ku)
+            acc = [torch.zeros((n_t, n_cols, n_ch), dtype=torch.float32, device=self.device)
                    for _ in range(2)]
             for pos, vel in self._dsf_blocks(group_idx, atom_chunk, not density_only):
-                instantaneous.accumulate_modes(*acc, pos, vel, k_dev[s:e], t_chunk)
-            yield ci, s, e, acc[0], acc[1]
+                instantaneous.accumulate_modes(*acc, pos, vel, k_arg, t_chunk, ph_box, mode)
+            yield ci, s, e, acc[0], acc[1], ku, col_idx
+
+    @staticmethod
+    def _requested_columns(reduced, col_idx: Optional[torch.Tensor]):
+        """The requested k of each reduced device array (k on the last
+        axis): all columns, or ``col_idx`` of a factored chunk's product
+        columns."""
+        if col_idx is None:
+            return list(reduced)
+        return [r.index_select(-1, col_idx) for r in reduced]
 
     def _instant_sweep(self, k_vectors_3d, k_chunk_size: int, cache, fits, chunks, reduce,
                        store) -> None:
@@ -1500,7 +1828,6 @@ class SEDCalculator:
                                   {'group': group_idx, 'max_freq': max_freq,
                                    'welch': [segments, welch_window]})
         freq_idx_dev = self._to_device(freq_idx, np.int64)
-        k_unit = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
         window = welch_window if segments > 1 else 'rect'
 
         def store(arrays, ci, s, e, cached=False):
@@ -1511,8 +1838,8 @@ class SEDCalculator:
             k_vectors_3d, k_chunk_size, cache,
             lambda c, s, e: c.shape == (3, len(freq_idx), e - s),
             lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo),
-            lambda s, e, re, im: instantaneous.dsf_reduce(re, im, k_unit[s:e], freq_idx_dev,
-                                                          segments, window),
+            lambda s, e, re, im, ku, col_idx: self._requested_columns(
+                instantaneous.dsf_reduce(re, im, ku, freq_idx_dev, segments, window), col_idx),
             store)
         return (freqs_kept,) + tuple(planes)
 
@@ -1541,7 +1868,8 @@ class SEDCalculator:
             k_vectors_3d, k_chunk_size, cache, lambda c, s, e: c.shape == out[..., s:e].shape,
             lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo,
                                                        density_only=True),
-            lambda s, e, re, im: [reduce(re, im)], store)
+            lambda s, e, re, im, _, col_idx: self._requested_columns([reduce(re, im)], col_idx),
+            store)
         return out
 
     def calculate_sk(self, k_vectors_3d: np.ndarray,
@@ -1596,8 +1924,10 @@ class SEDCalculator:
                     basis_atom_types, k_chunk_size: int, cache_dir, rows: int,
                     bytes_per_atom_k: int, kernel, extra: Dict) -> np.ndarray:
         """(rows, n_k) float32 of a per-atom-FFT ("self") observable:
-        ``kernel(pos, k)`` gives the (rows, K) partial of one atom block (the
-        full time axis of its atoms).  The partials are added on the device
+        ``kernel(pos, k_arg, box, mode)`` gives the (rows, K) partial of one
+        atom block (the full time axis of its atoms) under the phase engine
+        ``mode`` (:meth:`_chunk_k_arg`; K counts a factored chunk's product
+        columns, of which the requested ones are selected after the sum).  The partials are added on the device
         in block order, in float32, and each k-chunk is read back once,
         divided by N.  ``bytes_per_atom_k`` is the block's device transient
         per (atom, k); it sizes the blocks within a quarter of
@@ -1610,20 +1940,24 @@ class SEDCalculator:
             return out
         block = min(max(1, k_chunk_size), num_k)
         budget = max(1 << 24, int(self.max_device_bytes) // 4)
-        atom_chunk = int(np.clip(budget // max(1, bytes_per_atom_k * block), 1, group_idx.size))
         cache = self._chunk_cache(cache_dir, observable, k_vectors_3d, block,
                                   dict({'group': group_idx}, **extra))
-        logger.info("%s: %d k-points in chunks of %d; atom_chunk=%d.", observable, num_k,
-                    block, atom_chunk)
         k_dev = self._to_device(k_vectors_3d)
+        ph_box, ph_mode = self._phase_cfg(k_vectors_3d)
 
         def chunks(bounds, todo):
             for ci in todo:
                 s, e = bounds[ci]
-                acc = torch.zeros((rows, e - s), dtype=torch.float32, device=self.device)
+                k_arg, mode, col_idx = self._chunk_k_arg(k_vectors_3d[s:e], k_dev[s:e], ph_mode)
+                n_cols = instantaneous.k_count(k_arg)
+                atom_chunk = int(np.clip(budget // max(1, bytes_per_atom_k * n_cols), 1,
+                                         group_idx.size))
+                logger.info("%s: k-chunk %d/%d, %d columns (%s); atom_chunk=%d.", observable,
+                            ci + 1, len(bounds), n_cols, mode, atom_chunk)
+                acc = torch.zeros((rows, n_cols), dtype=torch.float32, device=self.device)
                 for pos, _ in self._dsf_blocks(group_idx, atom_chunk, False):
-                    acc += kernel(pos, k_dev[s:e])
-                yield ci, s, e, acc
+                    acc += kernel(pos, k_arg, ph_box, mode)
+                yield ci, s, e, self._requested_columns([acc], col_idx)[0]
 
         def store(arrays, ci, s, e, cached=False):
             out[:, s:e] = arrays if cached else arrays[0] / float(group_idx.size)
@@ -1657,7 +1991,8 @@ class SEDCalculator:
         return lags_ps, self._self_sweep(
             'isf_self', k_vectors_3d, basis_atom_indices, basis_atom_types, k_chunk_size,
             cache_dir, n_lags, 32 * fft_len,
-            lambda pos, k: instantaneous.isf_self_block(pos, k, n_lags), {'n_lags': int(n_lags)})
+            lambda pos, k, box, mode: instantaneous.isf_self_block(pos, k, n_lags, box, mode),
+            {'n_lags': int(n_lags)})
 
     def calculate_dsf_self(self, k_vectors_3d: np.ndarray,
                            basis_atom_indices=None, basis_atom_types=None,
@@ -1681,7 +2016,8 @@ class SEDCalculator:
         return freqs_kept, self._self_sweep(
             'dsf_self', k_vectors_3d, basis_atom_indices, basis_atom_types, k_chunk_size,
             cache_dir, len(freq_idx), 32 * n_t,
-            lambda pos, k: instantaneous.dsf_self_block(pos, k, freq_idx_dev),
+            lambda pos, k, box, mode: instantaneous.dsf_self_block(pos, k, freq_idx_dev, box,
+                                                                   mode),
             {'max_freq': max_freq})
 
     # ------------------------------------------------------------------

@@ -39,9 +39,8 @@ def default_config() -> Dict[str, Any]:
             'save_npy_sed_data': True,
             'chiral_mode_enabled': False,
             'mass_weighted': False,
-            # instantaneous-phase engine for the dsf section: 'auto' and
-            # 'exact' (the exact engine); 'factored' and 'incremental' pass
-            # validation but are not ported (the calculator raises)
+            # instantaneous-phase engine for the dsf section: 'exact' ('auto'
+            # resolves to it), 'factored' or 'incremental'
             'phase_mode': 'auto',
         },
         'md_system': {

@@ -34,18 +34,38 @@ def copy_rows(dst: np.ndarray, src: np.ndarray) -> None:
     NumPy releases the GIL while it copies, so a strided multi-GB gather
     (one atom block of an (n_t, N, 3) trajectory) runs on several cores.
     """
-    global _pool
     n, n_threads = dst.shape[0], _threads()
     if n_threads == 1 or n < 2 * n_threads or dst.nbytes < (1 << 24):
         np.copyto(dst, src, casting='unsafe')
         return
+    _pool_map(lambda a, b: np.copyto(dst[a:b], src[a:b], casting='unsafe'), n)
+
+
+def _pool_map(fn, n: int) -> None:
+    """``fn(a, b)`` over ``_threads()`` spans [a, b) of range(n), on the pool."""
+    global _pool
     if _pool is None:
         _pool = ThreadPoolExecutor(max_workers=_threads(), thread_name_prefix='psa-copy')
-    bounds = np.linspace(0, n, n_threads + 1).astype(int)
-    jobs = [_pool.submit(np.copyto, dst[a:b], src[a:b], casting='unsafe')
-            for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    bounds = np.linspace(0, n, _threads() + 1).astype(int)
+    jobs = [_pool.submit(fn, a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
     for job in jobs:
         job.result()
+
+
+def gather_atoms(dst: np.ndarray, src: np.ndarray, cols: np.ndarray) -> None:
+    """``dst[...] = src[:, cols]`` for (n_t, N, 3) ``src`` and (n_t, len(cols), 3)
+    ``dst``, split over threads along the time axis when it is 16 MB or more
+    (NumPy releases the GIL while it gathers)."""
+    def take(a, b):
+        if src.dtype == dst.dtype:
+            np.take(src[a:b], cols, axis=1, out=dst[a:b], mode='clip')
+        else:
+            dst[a:b] = src[a:b][:, cols]
+    n = dst.shape[0]
+    if _threads() == 1 or n < 2 * _threads() or dst.nbytes < (1 << 24):
+        take(0, n)
+    else:
+        _pool_map(take, n)
 
 
 class HostToDevice:

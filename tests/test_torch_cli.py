@@ -219,6 +219,22 @@ FLOWS = {
     'dsf-welch': ({'general': {'phase_mode': 'exact'}, 'sed_calculation': SED_X,
                    'dsf': {'apply': True, 'n_kpoints': 6, 'bz_coverage': 1.0,
                            'observables': ['total'], 'welch_segments': 2}}, ()),
+    # the fast engines: 25 lattice k along x, enough for the factored engine
+    # to factor the chunk (16 or more)
+    'dsf-factored': ({'general': {'phase_mode': 'factored'}, 'sed_calculation': SED_X,
+                      'dsf': {'apply': True, 'n_kpoints': 40, 'bz_coverage': 2.0, 'n_lags': 16,
+                              'observables': ['total', 'longitudinal', 'self', 'sk', 'isf',
+                                              'isf_self']}}, ()),
+    'dsf-incremental': ({'general': {'phase_mode': 'incremental'}, 'sed_calculation': SED_X,
+                         'dsf': {'apply': True, 'n_kpoints': 40, 'bz_coverage': 2.0,
+                                 'n_lags': 16,
+                                 'observables': ['total', 'longitudinal', 'self', 'sk', 'isf',
+                                                 'isf_self']}}, ()),
+    'kgrid-peaks-gridded': ({'sed_calculation': SED_X,
+                             'kgrid': dict(KGRID, n_peaks=2, engine='gridded')}, ()),
+    'kgrid-browse-gridded': ({'sed_calculation': SED_X,
+                              'kgrid': dict(KGRID, mode='browse', engine='gridded', chiral=True,
+                                            chiral_axis='z')}, ()),
     'timecorr': ({'sed_calculation': SED_X,
                   'timecorr': {'apply': True, 'observables': ['msd', 'vacf'], 'n_lags': 20,
                                'per_type': True}}, ()),
@@ -389,18 +405,21 @@ def test_config_validation_errors_exit_1(tmp_path, chain, case):
             manager.load(tmp_path / 'c.json')
 
 
-@pytest.mark.parametrize("config,row", [
-    ({'general': {'phase_mode': 'incremental'}}, 'A10'),
-    ({'general': {'phase_mode': 'factored'}}, 'A10'),
-    ({'kgrid': dict(KGRID, engine='gridded')}, 'A12'),
-    ({'kgrid': dict(KGRID, mode='browse', engine='gridded')}, 'A12'),
-], ids=['incremental', 'factored', 'gridded-peaks', 'gridded-browse'])
-def test_unported_requests_fail_loudly(tmp_path, chain, config, row):
-    """What is not ported ends the run with the library's error, which names
-    the ROADMAP row; nothing is skipped or replaced."""
-    config = dict({'md_system': MD, 'sed_calculation': SED_X}, **config)
-    with pytest.raises(NotImplementedError, match=row):
-        run_port(tmp_path, chain, config)
+def test_the_factored_flow_factors_its_chunk(tmp_path, chain, monkeypatch):
+    """The 'dsf-factored' flow's k path is long enough to factor: the engine
+    runs, it does not fall back."""
+    from psa_tpu_torch.core.calculator import SEDCalculator
+    seen = []
+    real = SEDCalculator._chunk_k_arg
+
+    def spy(self, *args):
+        out = real(self, *args)
+        seen.append(out[1])
+        return out
+    monkeypatch.setattr(SEDCalculator, '_chunk_k_arg', spy)
+    config, flags = FLOWS['dsf-factored']
+    run_port(tmp_path, chain, dict({'md_system': MD}, **config), *flags)
+    assert seen and set(seen) == {'factored'}
 
 
 def test_invalid_json_is_a_config_error(tmp_path, chain):

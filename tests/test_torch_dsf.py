@@ -12,6 +12,7 @@ oracle at 1e-6 of the plane's max (or of 1 where the oracle test of
 ``test_dsf.py`` scales so); the Parseval sums and physics at the bars of
 ``test_dsf.py``.
 """
+import dataclasses
 import logging
 
 import jax.numpy as jnp
@@ -498,12 +499,170 @@ def test_gamma_point_conventions():
 
 def test_phase_mode_validation():
     traj = make_chain_trajectory(n_cells=4, n_frames=8)
-    for mode in ('incremental', 'factored'):
-        with pytest.raises(NotImplementedError, match="A10"):
-            SEDCalculator(traj, nx=4, ny=1, nz=1, phase_mode=mode, device='cpu')
+    for mode in ('incremental', 'factored', 'exact'):
+        assert SEDCalculator(traj, nx=4, ny=1, nz=1, phase_mode=mode,
+                             device='cpu').phase_mode == mode
     with pytest.raises(ValueError, match="phase_mode"):
         SEDCalculator(traj, nx=4, ny=1, nz=1, phase_mode='bogus', device='cpu')
     assert SEDCalculator(traj, nx=4, ny=1, nz=1, device='cpu').phase_mode == 'auto'
+
+
+# ---------------------------------------------------------------------------
+# the 'incremental' engine: one exact phasor per 32 frames, small float32
+# phases between; held to JAX 'incremental' and to the float64 oracles at
+# 1e-6 of each plane's max, on unwrapped and on wrapped coordinates
+# ---------------------------------------------------------------------------
+
+def incremental_case(wrapped, n_frames=80):
+    """The chain (atom 0 oscillates about x = 0) with its k path; ``wrapped``
+    folds the coordinates into the box, so that atom jumps by a box length
+    between frames.  80 frames: two whole anchor windows and a ragged one."""
+    traj, kv = chain_case(n_frames=n_frames)
+    if wrapped:
+        pos = np.mod(traj.positions.astype(np.float64), traj.box_lengths).astype(np.float32)
+        assert np.ptp(pos[:, 0, 0]) > 0.9 * traj.box_lengths[0]
+        traj = dataclasses.replace(traj, positions=pos)
+    return traj, kv
+
+
+@pytest.fixture(scope='module', params=['unwrapped', 'wrapped'])
+def incremental(request):
+    traj, kv = incremental_case(request.param == 'wrapped')
+    ref, port = pair(traj, nx=12, phase_mode='incremental')
+    assert port._phase_cfg(kv)[1] == 'incremental'
+    return traj, kv, ref, port
+
+
+def test_incremental_dsf_matches_jax_and_oracle(incremental):
+    traj, kv, ref, port = incremental
+    freqs, *planes = port.calculate_dsf(kv, k_chunk_size=4)
+    j_freqs, *j_planes = ref.calculate_dsf(kv)
+    np.testing.assert_array_equal(freqs, j_freqs)
+    assert_dsf_close(planes, j_planes)
+    want = [p[positive(traj)] for p in dsf_oracle(traj.positions, traj.velocities, kv)]
+    assert_dsf_close(planes, want)
+
+
+def test_incremental_density_paths_match_jax_and_oracle(incremental):
+    traj, kv, ref, port = incremental
+    n_a, n_t = traj.n_atoms, traj.n_frames
+    ang = np.einsum('tac,kc->tak', traj.positions.astype(np.float64), kv.astype(np.float64))
+    rho = np.exp(1j * ang).sum(axis=1)
+    sk = port.calculate_sk(kv, k_chunk_size=4)
+    assert_close(sk, ref.calculate_sk(kv))
+    assert_close(sk, (np.abs(rho) ** 2).mean(axis=0) / n_a)
+    _, f = port.calculate_isf(kv, n_lags=20)
+    assert_close(f, ref.calculate_isf(kv, n_lags=20)[1])
+    assert_close(f, np.stack([(np.conj(rho[:n_t - tau]) * rho[tau:]).real.mean(axis=0) / n_a
+                              for tau in range(20)]))
+
+
+def test_incremental_self_parts_match_jax_and_oracle(incremental):
+    traj, kv, ref, port = incremental
+    n_t = traj.n_frames
+    ph = np.exp(1j * np.einsum('tac,kc->tak', traj.positions.astype(np.float64),
+                               kv.astype(np.float64)))
+    _, ss = port.calculate_dsf_self(kv, k_chunk_size=4)
+    assert_close(ss, ref.calculate_dsf_self(kv)[1])
+    want = (np.abs(np.fft.fft(ph, axis=0) / n_t) ** 2).mean(axis=1)
+    assert_close(ss, want[positive(traj)])
+    _, fs = port.calculate_isf_self(kv, n_lags=20)
+    assert_close(fs, ref.calculate_isf_self(kv, n_lags=20)[1])
+    assert_close(fs, np.stack([(np.conj(ph[:n_t - tau]) * ph[tau:]).real.mean(axis=(0, 1))
+                               for tau in range(20)]))
+    np.testing.assert_allclose(fs[0], 1.0, rtol=1e-6)
+
+
+def test_incremental_welch_matches_jax(incremental):
+    traj, kv, ref, port = incremental
+    got = port.calculate_dsf(kv, welch_segments=2)[1:]
+    assert_dsf_close(got, ref.calculate_dsf(kv, welch_segments=2)[1:])
+
+
+@pytest.mark.parametrize('wrapped', [False, True])
+def test_incremental_time_tiles_equal_untiled(wrapped, monkeypatch):
+    """Tiles are cut on anchor-window boundaries (a 40-frame request becomes
+    32), so a tiled run meets the anchors of an untiled one: the stacks are
+    the same bit for bit, at the ops and through the calculator."""
+    traj, kv = incremental_case(wrapped)
+    box = t(np.asarray(traj.box_matrix, np.float32))
+    assert tinst.time_tile(40, 'incremental') == 32 and tinst.time_tile(7, 'incremental') == 32
+    assert tinst.time_tile(40, 'exact') == tinst.time_tile(40, 'factored') == 40
+    args = (t(traj.positions), t(traj.velocities), t(kv))
+    whole = tinst.instant_modes(*args, 10_000, box, 'incremental')
+    tiled = tinst.instant_modes(*args, 40, box, 'incremental')
+    for a, b in zip(whole, tiled):
+        assert torch.equal(a, b)
+    d_whole = tinst.density_modes(args[0], args[2], 10_000, box, 'incremental')
+    d_tiled = tinst.density_modes(args[0], args[2], 33, box, 'incremental')
+    for a, b in zip(d_whole, d_tiled):
+        assert torch.equal(a, b)
+    _, port = pair(traj, nx=12, phase_mode='incremental')
+    want = port.calculate_dsf(kv)
+    monkeypatch.setattr(port, '_dsf_plan', lambda *a: (5, 40))
+    for g, w in zip(port.calculate_dsf(kv), want):
+        assert_close(g, w, floor=1e-30)
+
+
+def test_incremental_phasors_match_jax_ops_and_window():
+    """The phasors against the JAX op on wrapped coordinates, with the box
+    (minimum image and the removed images' residual phases) and without
+    (unwrapped), at 2e-6 absolute: both sides carry about |δ|·2⁻²⁴ of their
+    own rounding."""
+    assert tinst._ANCHOR_WINDOW == jinst._ANCHOR_WINDOW == 32
+    for wrapped in (False, True):
+        traj, kv = incremental_case(wrapped, n_frames=70)
+        box = np.asarray(traj.box_matrix, np.float32) if wrapped else None
+        cs = tinst.instant_phasors(t(traj.positions), t(kv), None if box is None else t(box),
+                                   'incremental').numpy()
+        j_c, j_s = jinst._instant_phasors(jnp.asarray(traj.positions), jnp.asarray(kv),
+                                          None if box is None else jnp.asarray(box),
+                                          'incremental')
+        assert cs.shape == (70, traj.n_atoms, 2 * len(kv))
+        c, s = (part for part in tinst.phasor_parts(torch.from_numpy(cs), 'incremental'))
+        assert np.abs(c.numpy() - np.asarray(j_c)).max() <= 2e-6
+        assert np.abs(s.numpy() - np.asarray(j_s)).max() <= 2e-6
+        ang = np.einsum('tac,kc->tak', traj.positions.astype(np.float64), kv.astype(np.float64))
+        assert np.abs(c.numpy() - np.cos(ang)).max() <= 2e-6
+
+
+@pytest.mark.parametrize('mode', ['incremental', 'factored'])
+def test_fast_engines_fall_back_to_exact_bit_for_bit(mode):
+    """Off-lattice k runs 'exact' under either engine, and a singular box
+    turns 'incremental' into 'exact': the outputs are the exact engine's."""
+    traj, kv = chain_case()
+    _, exact = pair(traj, nx=12)
+    _, port = pair(traj, nx=12, phase_mode=mode)
+    off = (kv * 1.013).astype(np.float32)
+    assert port._phase_cfg(off) == (None, 'exact')
+    for a, b in zip(port.calculate_dsf(off), exact.calculate_dsf(off)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(port.calculate_isf_self(off, n_lags=8)[1],
+                                  exact.calculate_isf_self(off, n_lags=8)[1])
+    # a degenerate axis: no calculator is built on such a box, so it is set after
+    port.traj.box_matrix = np.diag([30.0, 10.0, 0.0]).astype(np.float32)
+    assert port._dsf_box() is None
+    assert port._phase_cfg(kv) == (None, 'exact' if mode == 'incremental' else 'factored')
+    np.testing.assert_array_equal(port.calculate_sk(kv), exact.calculate_sk(kv))
+
+
+def test_phasor_bytes_size_the_tiles_per_engine():
+    """Each engine's own byte count sizes its tiles (the exact engine's plan
+    is pinned below, at the working size)."""
+    traj, kv = chain_case()
+    _, port = pair(traj, nx=12, max_device_bytes=int(8e9))
+    group = np.arange(traj.n_atoms)
+    assert set(tinst.PHASOR_BYTES) == {'exact', 'factored', 'incremental'}
+    n_t, n_a = 10_000, 100_000
+    zeros = np.broadcast_to(np.zeros(3, np.float32), (n_t, n_a, 3))
+    box = np.diag([130.0] * 3).astype(np.float32)
+    big = TorchTrajectory(zeros, zeros, np.ones(n_a, np.int32), np.arange(n_t, dtype=np.float32),
+                          box, *make_box_arrays(box), dt_ps=0.01)
+    calc = SEDCalculator(big, nx=24, ny=24, nz=24, max_device_bytes=int(30e9), device='cpu')
+    group = np.arange(n_a)
+    for mode, per in tinst.PHASOR_BYTES.items():
+        atoms, frames = calc._dsf_plan(128, group, True, mode)
+        assert atoms == n_a and frames == int(30e9) // (4 * per) // (n_a * 128)
 
 
 def test_auto_matches_jax_auto():

@@ -3,6 +3,7 @@ config manager and its plotter import with ``jax``, ``psa_tpu``, ``yaml`` and
 ``matplotlib`` all absent (blocked in ``sys.modules`` in a subprocess), and
 the command line then runs a JSON-configured SED with its figures skipped
 and its data written."""
+import ast
 import json
 import subprocess
 import sys
@@ -17,7 +18,8 @@ BLOCK = ("import sys\n"
 MODULES = ['psa_tpu_torch', 'psa_tpu_torch.cli', 'psa_tpu_torch.utils.config_manager',
            'psa_tpu_torch.visualization', 'psa_tpu_torch.visualization.sed_plotter',
            'psa_tpu_torch.visualization.styles', 'psa_tpu_torch.utils.fits',
-           'psa_tpu_torch.ops.timecorr', 'psa_tpu_torch.ops.structure']
+           'psa_tpu_torch.ops.timecorr', 'psa_tpu_torch.ops.structure',
+           'psa_tpu_torch.ops.gridded', 'psa_tpu_torch.ops.instantaneous']
 
 
 def run(code, **kwargs):
@@ -32,6 +34,29 @@ def test_module_imports_with_everything_optional_blocked(module):
                "if sys.modules.get(m) is not None]\n"
                "assert not bad, bad\n")
     assert done.returncode == 0, done.stderr
+
+
+SOURCES = sorted(str(p.relative_to(REPO)) for p in
+                 [*(REPO / 'psa_tpu_torch').rglob('*.py'), REPO / 'chip_smoke.py',
+                  REPO / 'chip_profile.py', REPO / 'chip_kernel_ab.py'])
+
+
+def test_no_source_of_the_port_names_jax_or_the_jax_package():
+    """No module of the port, nor a script that drives it on the card, has
+    an import statement of ``jax``, ``jaxlib`` or ``psa_tpu`` anywhere in
+    it, function bodies included."""
+    assert 'psa_tpu_torch/ops/gridded.py' in SOURCES and 'chip_smoke.py' in SOURCES
+    bad = []
+    for rel in SOURCES:
+        for node in ast.walk(ast.parse((REPO / rel).read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or '']
+            else:
+                continue
+            bad += [(rel, n) for n in names if n.split('.')[0] in ('jax', 'jaxlib', 'psa_tpu')]
+    assert not bad, bad
 
 
 def test_blocked_modules_raise_where_they_are_needed(tmp_path):
