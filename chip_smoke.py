@@ -32,7 +32,7 @@ in a breathing cell against a float64 NPT oracle, a drifting-cell chain and
 ``ised(npt=True)`` (phase 10); the instantaneous-phase family (DSF, S(k),
 ISF and their self parts) at the working size against float64 oracles,
 then the DSF, S(k) and self DSF under each phase engine ('exact',
-'factored', 'incremental'), walls in turns, each against a float64 oracle
+'factored', 'incremental'), one warm call each, each against a float64 oracle
 at the k it evaluates (phase 11c), streamed under the default budget with
 the exact and the factored engine, and its physics at small sizes (phase
 11); the time correlations (``calculate_vacf``, ``calculate_msd``) on the
@@ -43,13 +43,23 @@ atoms x 64 frames) and by ``method='auto'``, cells against brute bin for
 bin and both against a float64 all-pairs count (phase 13); the command line
 (``psa_tpu_torch.cli``) on the 10^4-atom dump with a JSON config holding
 every section, in this process and as ``python -m psa_tpu_torch.cli``, its
-saved SED against the library's bit for bit (phase 14); and the rest of the
-slice (incoherent groups, chiral phase, iSED).
+saved SED against the library's bit for bit (phase 14); an interactive
+session through the GUI's headless controller and exports
+(``psa_tpu_torch.gui.controller``, ``.gui.export``; never the Tk view), every
+compute on a worker thread as the view starts it: a 10^5-atom x 2,000-frame
+trajectory loaded from its ``.npy`` sidecars and the 10^4-atom dump through
+the C parser, k-path SED (reduced, longitudinal, Welch), a click on a peak,
+the full complex spectrum, the 50x50 grid browsed and its peaks by both
+engines, DOS, DSF and liquid curves, the iSED reconstruction and every
+export, the NPT chain's k-path and Miller grid, two computes started at once,
+the kernel against its plain version at every shape the session launched
+(phase 15); and the
+rest of the slice (incoherent groups, chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel
 (launches on the main paths, error, times per tier); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
-any result.  About 5 minutes on an H100 machine.
+any result.  About 6 minutes on an H100 machine.
 """
 import json
 import logging
@@ -57,6 +67,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -98,6 +109,16 @@ TOL_PEAK_FREQ = 1e-6                  # THz: peak frequencies of two engines, ne
 TOL_TWO_ENGINES = 2e-5   # the gridded engine vs the direct one, of max: each is held to TOL_KERNEL
 #                          against the float64 oracle, so to twice that against the other
 PHASE_ENGINES = ('exact', 'factored', 'incremental')
+SESSION_FRAMES, SESSION_MIN_FRAMES = 2_000, 500   # phase 15's trajectory; the least after a cut
+SESSION_WRITE_BUDGET = 30.0           # s to write its sidecars: beyond it frames are cut, not atoms
+SESSION_NK, SESSION_BZ = 250, 4.0     # the view's k-path defaults
+SESSION_MODE = (40, 12.0, 0.2)        # a phonon along x on k-path column 40, THz, Å/ps, in the noise
+SESSION_MAX_FREQ = 10.0               # THz kept by the session's grid browses (the view's field)
+SESSION_DSF_NK = 64                   # k-path points of the DSF and S(k) steps before snapping
+SESSION_ISED_FRAMES = 8
+SESSION_GRID_CHUNK = 2048             # the controller's k_chunk_size for grids
+SESSION_BRIGHT = 0.1   # k-columns whose highest peak reaches this share of the surface's highest
+                       # hold the two grid engines' heights per column, the others of the surface
 TOL_ENGINES = 5e-5   # a fast phase engine's planes vs the exact engine's, of max: the exact engine
 #                      evaluates the float32 k, the factored one the lattice vector it rounds
 
@@ -330,13 +351,17 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
     return launches[-1], out['float32'][2], chunks, (pf, tied)
 
 
-def peaks_agree(calc, k_vecs, got, want, what):
+def peaks_agree(calc, k_vecs, got, want, what, bright_share=0.0):
     """Hold two engines' (or two sweeps') peak triplets together: the
-    frequencies within TOL_PEAK_FREQ and the heights within TOL_TWO_ENGINES of
-    the column's highest, on every k-column but near-ties.  A column whose
+    frequencies within TOL_PEAK_FREQ on every k-column but near-ties, and the
+    heights within TOL_TWO_ENGINES of the column's highest on every column
+    whose highest reaches ``bright_share`` of the surface's highest (0: every
+    column), and of the surface's highest on all.  A column whose
     frequencies differ is refused unless its direct browse planes show two
     candidates within NEAR_TIE of the column's max at some step of the
-    search.  Returns (columns that differ, worst height error)."""
+    search.  Returns (columns that differ, worst height error of the bright
+    columns, (bright columns, worst error of the others as a share of their
+    own highest, worst error as a share of the surface's highest))."""
     differ = np.flatnonzero((np.abs(got[0] - want[0]) > TOL_PEAK_FREQ).any(axis=0))
     if differ.size:
         check(differ.size <= 0.05 * got[0].shape[1],
@@ -346,9 +371,16 @@ def peaks_agree(calc, k_vecs, got, want, what):
         check(bool(tied.all()), f"{what}: k-columns {differ[~tied][:8]} differ in peak frequency "
                                 "and are no near-ties")
     same = np.setdiff1d(np.arange(got[0].shape[1]), differ)
-    h_err = float(np.max(np.abs(got[1][:, same] - want[1][:, same]) / want[1][0, same]))
-    check(h_err <= TOL_TWO_ENGINES, f"{what}: peak heights {h_err:.3e} of the column's highest")
-    return int(differ.size), h_err
+    col_err = np.max(np.abs(got[1][:, same] - want[1][:, same]), axis=0)
+    top = want[1][0, same]
+    bright = top >= bright_share * top.max()
+    h_err = float(np.max(col_err[bright] / top[bright]))
+    dim_err = float(np.max(col_err[~bright] / top[~bright])) if not bright.all() else 0.0
+    surface_err = float(col_err.max() / top.max())
+    check(h_err <= TOL_TWO_ENGINES and surface_err <= TOL_TWO_ENGINES,
+          f"{what}: peak heights {h_err:.3e} of the column's highest on {int(bright.sum())} "
+          f"columns, {surface_err:.3e} of the surface's highest on all")
+    return int(differ.size), h_err, (int(bright.sum()), dim_err, surface_err)
 
 
 def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_sed):
@@ -386,10 +418,12 @@ def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_
     walls = {}
     _, big_k, big_shape = calc.get_k_grid('xy', (-5, 5), (-5, 5), BIG_GRID, BIG_GRID)
     small = None
-    for name, kv, shape in (('50x50', k_vecs, grid_shape),
-                            (f'{BIG_GRID}x{BIG_GRID}', big_k, big_shape)):
+    # in turns; the 200x200 direct sweep (32 chunks) runs once, to keep the script's time
+    for name, kv, shape, turns in (
+            ('50x50', k_vecs, grid_shape, ('direct', 'gridded', 'gridded', 'direct')),
+            (f'{BIG_GRID}x{BIG_GRID}', big_k, big_shape, ('direct', 'gridded', 'gridded'))):
         runs = {'direct': [], 'gridded': []}
-        for engine in ('direct', 'gridded', 'gridded', 'direct'):       # in turns
+        for engine in turns:
             proj.launches = 0
             out, wall, peak = timed((lambda: direct(kv)) if engine == 'direct'
                                     else (lambda: gridded(kv, shape)))
@@ -402,11 +436,12 @@ def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_
         (g1, _, g_peak), (g2, _, _) = runs['gridded']
         check(all(np.array_equal(a, b) for a, b in zip(g1, g2)),
               f"two gridded peaks sweeps of the {name} grid differ")
-        n_differ, h_err = peaks_agree(calc, kv, g1, runs['direct'][0][0], f"peaks {name}")
+        n_differ, h_err, _ = peaks_agree(calc, kv, g1, runs['direct'][0][0], f"peaks {name}")
         walls[name] = {e: [r[1] for r in runs[e]] for e in runs}
         log('gridded', f"kgrid_peaks {name} ({len(kv)} k, n_peaks={N_PEAKS}), walls in turns: "
-                       + "; ".join(f"{e} {w[0]:.3f} and {w[1]:.3f} s ({len(kv) / min(w):.1f} "
-                                   "k-points/s)" for e, w in walls[name].items())
+                       + "; ".join(f"{e} {' and '.join(f'{x:.3f}' for x in w)} s "
+                                   f"({len(kv) / min(w):.1f} k-points/s)"
+                                   for e, w in walls[name].items())
                        + f"; peak device memory direct {runs['direct'][0][2]:.1f} GB, gridded "
                        f"{g_peak:.1f} GB; gridded twice bitwise equal; peak frequencies equal "
                        f"(atol {TOL_PEAK_FREQ}) but on {n_differ} near-tied k-columns, heights "
@@ -448,7 +483,7 @@ def gridded_streamed(dev, proj, host_vel, k_vecs, grid_shape, resident_peaks):
         k_vecs, n_peaks=N_PEAKS, engine='gridded', k_grid_shape=grid_shape))
     check(proj.launches == 0 and scalc.streamed_bytes == host_vel.nbytes,
           f"streamed gridded peaks: launches {proj.launches}, {scalc.streamed_bytes} bytes moved")
-    n_differ, h_err = peaks_agree(scalc, k_vecs, got, resident_peaks, "streamed gridded peaks")
+    n_differ, h_err, _ = peaks_agree(scalc, k_vecs, got, resident_peaks, "streamed gridded peaks")
     log('gridded', f"kgrid_peaks 50x50, engine='gridded', velocities on the host, "
                    f"max_device_bytes={scalc.max_device_bytes:.0e}: {wall:.3f} s wall, "
                    f"{len(k_vecs) / wall:.1f} k-points/s, {scalc.streamed_bytes / 1e9:.1f} GB "
@@ -1147,8 +1182,8 @@ def phase_engines(dev, dcalc, kv, length, pos_dev, vel_dev, cols, oracle32):
     """Phase 11c: ``calculate_dsf``, ``calculate_sk`` (the DSF_K-point path)
     and ``calculate_dsf_self`` (SELF_K consecutive k about the (400)
     reflection: a strided set does not factor) under each phase engine, on
-    the resident positions and velocities, warm, walls in turns (the engines
-    in order, then in reverse).  ``dcalc.phase_mode`` is switched between
+    the resident positions and velocities, warm, one call per engine and
+    surface.  ``dcalc.phase_mode`` is switched between
     runs, so the 24 GB stay resident.  Each engine's columns are held
     against a float64 oracle on the card at the k it evaluates: the float32
     k for 'exact' and 'incremental' (``oracle32``: S, C_L, S(k) on
@@ -1174,7 +1209,7 @@ def phase_engines(dev, dcalc, kv, length, pos_dev, vel_dev, cols, oracle32):
     base = torch.cuda.memory_allocated() / 1e9
     walls = {m: {'dsf': [], 'sk': [], 'dsf_self': []} for m in PHASE_ENGINES}
     peaks, out, chunks = {}, {}, {}
-    for mode in PHASE_ENGINES + PHASE_ENGINES[::-1]:
+    for mode in PHASE_ENGINES:       # one turn (two until the script grew: CUT, to keep its time)
         dcalc.phase_mode = mode
         dcalc.factored_chunks.clear()
         for name, run in (('dsf', lambda: dcalc.calculate_dsf(kv)),
@@ -1211,8 +1246,8 @@ def phase_engines(dev, dcalc, kv, length, pos_dev, vel_dev, cols, oracle32):
             check(errs[mode]['vs exact'] <= TOL_ENGINES,
                   f"{mode} engine vs the exact engine {errs[mode]['vs exact']:.3e} > {TOL_ENGINES}")
     for mode in PHASE_ENGINES:
-        log('engines', f"phase_mode={mode!r}, warm, in turns: "
-                       + "; ".join(f"{n} {w[0]:.3f} and {w[1]:.3f} s, transients "
+        log('engines', f"phase_mode={mode!r}, warm, one turn each (CUT from two): "
+                       + "; ".join(f"{n} {w[0]:.3f} s, transients "
                                    f"{peaks[mode, n]:.2f} GB" for n, w in walls[mode].items())
                        + "; vs f64 oracle columns (of each column's max): "
                        + ", ".join(f"{n} {e:.3e}" for n, e in errs[mode].items())
@@ -1872,6 +1907,617 @@ def command_line(dev, proj):
     return launches, loop
 
 
+def at_once(dev, *jobs):
+    """Every job on a worker thread of its own, as the view runs a compute
+    (``threading.Thread(target=work, daemon=True)``), all released together;
+    joined, results in order, the first exception re-raised here.  A thread
+    must see PyTorch's default stream: a group uploaded by one thread is
+    ordered before the kernels another thread launches on it because both
+    use that stream."""
+    out, errors = [None] * len(jobs), []
+    gate = threading.Barrier(len(jobs))
+
+    def work(i, job):
+        try:
+            if dev.type == 'cuda':
+                check(torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev),
+                      "a worker thread's current stream is not the default stream")
+            gate.wait(timeout=600)
+            out[i] = job()
+        except BaseException as e:      # noqa: BLE001 - re-raised in the main thread
+            errors.append(e)
+    threads = [threading.Thread(target=work, args=(i, job), daemon=True)
+               for i, job in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "a worker thread did not finish in 900 s")
+    if errors:
+        raise errors[0]
+    return out
+
+
+def in_thread(dev, fn):
+    """``fn()`` on one worker thread (:func:`at_once`)."""
+    return at_once(dev, fn)[0]
+
+
+class SessionSteps:
+    """Runs the session's steps on worker threads; per step the wall (a
+    ``profiling.Timer`` section closed after ``profiling.sync``), the
+    projection launches and the peak device memory."""
+
+    def __init__(self, dev, proj):
+        from psa_tpu_torch.utils.profiling import Timer
+        self.dev, self.proj, self.timer = dev, proj, Timer()
+        self.launches, self.peak_gb = {}, {}
+        self.fence = torch.zeros(1, device=dev)
+
+    def run(self, name, fn):
+        from psa_tpu_torch.utils.profiling import sync
+        if self.dev.type == 'cuda':
+            torch.cuda.reset_peak_memory_stats()
+        self.proj.launches = 0
+
+        def timed_step():
+            with self.timer.section(name):
+                out = fn()
+                sync(self.fence)
+            return out
+        out = in_thread(self.dev, timed_step)      # joined: the count is read after the thread
+        self.launches[name] = self.proj.launches
+        if self.dev.type == 'cuda':
+            self.peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
+        return out
+
+    def wall(self, name):
+        return self.timer.sections[name]
+
+
+def npy_header(f, shape):
+    np.lib.format.write_array_header_1_0(f, {'descr': '<f4', 'fortran_order': False,
+                                             'shape': tuple(shape)})
+
+
+def session_sidecars(dev, tmp):
+    """Write the ``.npy`` sidecar set the loader reads for the thermal Si
+    slab at N_ATOMS atoms x SESSION_FRAMES frames: positions = sites + seeded
+    thermal displacements, velocities = seeded N(0, 1) noise plus one phonon
+    along x on column SESSION_MODE[0] of the session's k-path, both made on
+    the card GEN_FRAMES frames at a time and appended to the two files.  Past
+    SESSION_WRITE_BUDGET seconds the writing stops (at a multiple of
+    GEN_FRAMES frames, so the phonon stays on a frequency bin) and the
+    headers are rewritten for the frames there are.  Returns (dump path, frames, cells per side, seconds, q)."""
+    sites, side, a0 = si_sites(N_ATOMS)
+    length = float(np.float32(sites.max() + a0))
+    col, nu, amp = SESSION_MODE
+    q = float(np.linspace(0, SESSION_BZ * 2 * np.pi / SI_A0, SESSION_NK, dtype=np.float32)[col])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sites_dev = torch.from_numpy(sites).to(dev)
+    wave = q * sites_dev[:, 0]
+    stem = Path(tmp) / 'session'
+    host = torch.empty((GEN_FRAMES, N_ATOMS, 3), dtype=torch.float32,
+                       pin_memory=dev.type == 'cuda')
+    t0 = time.perf_counter()
+    files = {part: open(f'{stem}.{part}.npy', 'wb') for part in ('positions', 'velocities')}
+    for f in files.values():
+        npy_header(f, (SESSION_FRAMES, N_ATOMS, 3))
+    head = files['positions'].tell()
+    frames = 0
+    while frames < SESSION_FRAMES:
+        n = min(GEN_FRAMES, SESSION_FRAMES - frames)
+        t = torch.arange(frames, frames + n, device=dev, dtype=torch.float64) * 0.01
+        pos = (sites_dev[None] + THERMAL_U * torch.randn((n, N_ATOMS, 3), generator=gen, device=dev,
+                                                         dtype=torch.float64)).float()
+        vel = torch.randn((n, N_ATOMS, 3), generator=gen, device=dev)
+        vel[:, :, 0] += (amp * torch.cos(wave[None, :] - 2 * np.pi * nu * t[:, None])).float()
+        for part, block in (('positions', pos), ('velocities', vel)):
+            host[:n].copy_(block)
+            files[part].write(memoryview(host[:n].numpy()).cast('B'))
+        frames += n
+        if (time.perf_counter() - t0 > SESSION_WRITE_BUDGET and SESSION_MIN_FRAMES <= frames
+                < SESSION_FRAMES):
+            log('session', f"CUT: {frames} of {SESSION_FRAMES} frames were made and written in "
+                           f"{time.perf_counter() - t0:.1f} s (budget {SESSION_WRITE_BUDGET:.0f} s): "
+                           f"the session runs on {frames} frames, all {N_ATOMS} atoms")
+            break
+    for f in files.values():
+        if frames < SESSION_FRAMES:
+            f.seek(0)
+            npy_header(f, (frames, N_ATOMS, 3))
+            check(f.tell() == head, "the rewritten .npy header changed its length")
+        f.close()
+    np.save(f'{stem}.types.npy', np.ones(N_ATOMS, dtype=np.int32))
+    np.save(f'{stem}.box_matrix.npy', np.diag([length] * 3).astype(np.float32))
+    stem.with_suffix('.dump').touch()          # the file the sidecars belong to
+    return stem.with_suffix('.dump'), frames, side, time.perf_counter() - t0, q
+
+
+def write_sidecars(stem, traj):
+    """The loader's sidecar set of an in-memory trajectory (per-frame cells too)."""
+    for part in ('positions', 'velocities', 'types', 'box_matrix'):
+        np.save(f'{stem}.{part}.npy', getattr(traj, part))
+    if traj.box_matrices is not None:
+        np.save(f'{stem}.box_matrices.npy', traj.box_matrices)
+    Path(f'{stem}.dump').touch()
+    return f'{stem}.dump'
+
+
+def same_arrays(got, want):
+    """Two results (arrays, None, or tuples of them) hold the same bits."""
+    if got is None or want is None:
+        return got is None and want is None
+    if isinstance(got, (tuple, list)):
+        return len(got) == len(want) and all(same_arrays(g, w) for g, w in zip(got, want))
+    return np.array_equal(np.asarray(got), np.asarray(want))
+
+
+def csv_columns(path, skiprows):
+    """(header names, (rows, columns) float64 values) of a CSV the exports wrote."""
+    with open(path, encoding='utf-8') as f:
+        for _ in range(skiprows):
+            f.readline()
+        names = f.readline().rstrip('\n').split(',')
+    return names, np.loadtxt(path, delimiter=',', skiprows=skiprows + 1, ndmin=2,
+                             encoding='utf-8')
+
+
+def session_exports(ctrl, steps, tmp, full_sed, dump):
+    """Every export of the session's states, each CSV parsed back to the
+    arrays of the state it came from (each in its own dtype, exactly)."""
+    from psa_tpu_torch.gui import export
+    out = Path(tmp) / 'exports'
+    kg, pk, dsf, liquid, sed = ctrl.kgrid, ctrl.kgrid_peaks, ctrl.dsf, ctrl.liquid, ctrl.sed_result
+    n_k = kg.intensity.shape[1]
+
+    def back(column, like):
+        """The parsed float64 ``column`` equals ``like`` in ``like``'s own dtype."""
+        like = np.asarray(like)
+        return np.array_equal(column.astype(like.dtype), like.reshape(column.shape))
+
+    path = steps.run('export_kpath_csv', lambda: export.export_kpath_csv(sed, out / 'kpath.csv'))
+    names, data = csv_columns(path, 0)
+    keep = sed.freqs >= 0
+    check(names[0] == 'frequency_THz' and len(names) == 1 + sed.sed.shape[1]
+          and back(data[:, 0], sed.freqs[keep]) and back(data[:, 1:], sed.sed[keep]),
+          "k-path CSV != its state")
+    path = steps.run('export_kgrid_csv', lambda: export.export_kgrid_csv(kg, out / 'kgrid.csv'))
+    names, data = csv_columns(path, 0)
+    check(names == ['frequency_THz', 'k_x', 'k_y', 'intensity']
+          and back(data[:, 0], np.repeat(kg.freqs, n_k))
+          and back(data[:, 1], np.tile(np.repeat(kg.k1_axis, GRID), len(kg.freqs)))
+          and back(data[:, 3], kg.intensity), "k-grid CSV != its state")
+    grid_rows = len(data)
+    path = steps.run('export_peaks_csv', lambda: export.export_peaks_csv(pk, out / 'peaks.csv'))
+    names, data = csv_columns(path, 0)
+    check(names[-1] == 'linewidth_THz_fwhm'
+          and np.array_equal(data[:, 0], np.repeat(np.arange(N_PEAKS), n_k))
+          and all(back(data[:, c], getattr(pk, field))
+                  for c, field in ((3, 'freq_surfaces'), (4, 'intensity_surfaces'),
+                                   (5, 'linewidth_surfaces'))), "peaks CSV != its state")
+    path = steps.run('export_dsf_csv', lambda: export.export_dsf_csv(dsf, out / 'dsf.csv'))
+    names, data = csv_columns(path, 1)
+    with open(path, encoding='utf-8') as f:
+        comment = f.readline()
+    check(comment.startswith(f"# observable={dsf.observable} direction={dsf.direction_text} ")
+          and len(names) == 1 + len(dsf.k_mags), f"DSF CSV head: {comment!r}, {len(names)} columns")
+    check(back(data[:, 0], dsf.freqs) and back(data[:, 1:], dsf.plane), "DSF CSV != its state")
+    path = steps.run('export_liquid_csv',
+                     lambda: export.export_liquid_csv(liquid, out / 'liquid.csv'))
+    names, data = csv_columns(path, 1)
+    check(names[1:] == [lab.replace(' ', '_') for lab in liquid.curve_labels]
+          and back(data[:, 0], liquid.x) and back(data[:, 1:], liquid.curves.T),
+          "liquid CSV != its state")
+    files = steps.run('export_npy_set', lambda: export.export_npy_set(full_sed, out / 'npy' / 'sed'))
+    check(len(files) == 4 and np.array_equal(np.load(files[0]), full_sed.sed)
+          and np.array_equal(np.load(files[1]), full_sed.freqs), ".npy set != the full spectrum")
+    dest = steps.run('export_ised_dump', lambda: export.export_ised_dump(
+        dump, out / 'motion.dump', {'selected_point': ctrl.selected_point}))
+    check(dest.read_bytes() == Path(dump).read_bytes()
+          and 'selected_point' in dest.with_suffix('.info.txt').read_text(), "iSED dump export")
+    return grid_rows
+
+
+def session_kernel_shapes(dev, proj, k_sets, launches):
+    """Kernel vs plain at every (n_t, A, K) the session gave the kernel, as
+    phase 14 does for the command line.  ``k_sets``: (calculator, k as the
+    path hands it over (Miller rows for an NPT step), chunk, times run, NPT
+    step or not); an NPT step is checked as it launches, on the fractional
+    mean positions and k = 2*pi*m.  Those k-sets must account for the
+    ``launches`` the steps counted.  Returns the path_chunks_rel_err entry."""
+    out, expect, seen = [], 0, {}
+    for calc, kv, chunk, times, npt in k_sets:
+        key = (id(calc), np.asarray(kv, np.float64).tobytes(), chunk, npt)
+        if key not in seen:
+            everyone = np.arange(calc.traj.n_atoms)
+            if npt:
+                kv = calc._npt_k_setup(kv)[0]
+                data, hi, lo = calc._fractional(lambda: calc._group_device_arrays(everyone))
+            else:
+                data, hi, lo = calc._group_device_arrays(everyone)
+            k_dev = torch.from_numpy(np.ascontiguousarray(kv, dtype=np.float32)).to(dev)
+            seen[key] = chunk_errors(proj, data, hi, lo, k_dev, chunk)
+            out += seen[key]
+        expect += times * len(seen[key])
+    check(expect == launches,
+          f"the session launched {launches} kernels, its steps' k-sets make {expect}")
+    return {"path": "session", "shapes": sorted({shape for shape, _ in out}),
+            "rel_err": max(err for _, err in out)}
+
+
+def session_npt(dev, proj, steps, tmp):
+    """The NPT part of the session on phase 10b's drifting chain, loaded
+    from sidecars with per-frame cells: the k-path in Miller space, the
+    Miller grid browsed and its peaks, each against the calculator's own
+    call bit for bit; then an NPT grid and a fixed-cell peak surface started
+    at once from two threads, which queue on the controller's lock.  Returns
+    the k-sets of its counted steps for :func:`session_kernel_shapes`."""
+    from psa_tpu_torch.gui.controller import AnalysisController
+    from psa_tpu_torch.utils.helpers import miller_line
+    nu, mode_m, n_frames = 4.0, 7, 128
+    traj = npt_chain(1.0 + 0.10 * np.linspace(0.0, 1.0, n_frames), mode_m=mode_m)
+    ctrl = AnalysisController()
+    in_thread(dev, lambda: ctrl.load_trajectory(write_sidecars(Path(tmp) / 'npt_chain', traj),
+                                                dt=0.01, file_format='lammps', nx=16, ny=1, nz=1))
+    check(ctrl.trajectory.box_matrices is not None and ctrl.calculator.device.type == dev.type,
+          "the NPT chain's per-frame cells were not loaded")
+    calc = ctrl.calculator
+    sed = steps.run('session_npt_sed', lambda: ctrl.compute_npt_sed('x', n_k=8, max_order=8.0))
+    want = calc.calculate_npt_browse(miller_line('x', 8, 8.0), readback_dtype='float32')
+    col = mode_m - 1
+    peak = sed.freqs[np.argmax(sed.sed[:, col])]
+    df = sed.freqs[1] - sed.freqs[0]
+    check(same_arrays((sed.freqs, sed.sed), want[:2]) and abs(peak - nu) <= df + 1e-9,
+          f"NPT k-path: ridden phonon at {peak} THz, want {nu}")
+    grid_args = ('xy', (1.0, 8.0), (0.0, 1.0), 8, 2)
+    kg = steps.run('session_npt_grid', lambda: ctrl.compute_kgrid_sed(*grid_args, npt=True))
+    pk = steps.run('session_npt_peaks', lambda: ctrl.compute_kgrid_peaks(*grid_args, npt=True))
+    _, m_rows, _ = calc.get_k_grid(*grid_args)
+    want_b = calc.calculate_npt_browse(m_rows.astype(np.float64), k_chunk_size=SESSION_GRID_CHUNK,
+                                       readback_dtype='float32')
+    want_p = calc.calculate_npt_peaks(m_rows.astype(np.float64), n_peaks=1,
+                                      k_chunk_size=SESSION_GRID_CHUNK, engine='direct')
+    check(kg.labels == pk.labels == ('m_x', 'm_y') and same_arrays(kg.intensity, want_b[1])
+          and same_arrays(pk.freq_surfaces.ravel(), want_p[0].ravel())
+          and same_arrays(pk.intensity_surfaces.ravel(), want_p[1].ravel()),
+          "the controller's NPT grid differs from the calculator's")
+    for name in ('session_npt_sed', 'session_npt_grid', 'session_npt_peaks'):
+        check(steps.launches[name] == 1, f"{name} launched {steps.launches[name]} kernels")
+
+    fixed_args = ('xy', (-1, 1), (-1, 1), 6, 5)
+    alone = steps.run('session_npt_fixed_peaks',
+                      lambda: ctrl.compute_kgrid_peaks(*fixed_args, n_peaks=2))
+    rounds = 3
+    both = steps.run('session_npt_at_once', lambda: [at_once(
+        dev, lambda: ctrl.compute_kgrid_sed(*grid_args, npt=True),
+        lambda: ctrl.compute_kgrid_peaks(*fixed_args, n_peaks=2)) for _ in range(rounds)])
+    for got_npt, got_fixed in both:
+        check(same_arrays(got_npt.intensity, kg.intensity)
+              and same_arrays((got_fixed.freq_surfaces, got_fixed.intensity_surfaces,
+                               got_fixed.linewidth_surfaces),
+                              (alone.freq_surfaces, alone.intensity_surfaces,
+                               alone.linewidth_surfaces)),
+              "two computes started at once differ from the lone runs")
+    check(calc._phase_anchor == 'cartesian', "the NPT anchor was left set")
+    check(steps.launches['session_npt_fixed_peaks'] == 1
+          and steps.launches['session_npt_at_once'] == 2 * rounds,
+          f"the chain's fixed-cell peaks and rounds launched "
+          f"{ {n: c for n, c in steps.launches.items() if 'npt_' in n} }")
+    log('session', f"NPT chain through the controller: ridden phonon at {peak:.3f} THz (want {nu}); "
+                   f"k-path, Miller grid and its peaks == the calculator's calls bit for bit, 1 "
+                   f"launch each; {rounds} rounds of an NPT grid and a fixed-cell peak surface "
+                   "started at once from two threads (2 launches a round): both equal their lone "
+                   "runs bit for bit")
+    return [(calc, miller_line('x', 8, 8.0), K_CHUNK, 1, True),
+            (calc, m_rows.astype(np.float64), SESSION_GRID_CHUNK, 2 + rounds, True),
+            (calc, calc.get_k_grid(*fixed_args)[1], SESSION_GRID_CHUNK, 1 + rounds, False)]
+
+
+def session(dev, proj):
+    """Phase 15: an interactive session through the GUI's headless
+    controller and exports, every compute on a worker thread.  Returns
+    ({session_* step: launches}, the path_chunks_rel_err entry)."""
+    from psa_tpu_torch.gui.controller import AnalysisController
+    from psa_tpu_torch.io import native
+    from psa_tpu_torch.ops.instantaneous import commensurate_kpath
+    from psa_tpu_torch.utils import debug
+    steps = SessionSteps(dev, proj)
+    col, nu, _ = SESSION_MODE
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- load ----------------------------------------------------------------
+        path, n_t, side, t_write, q = session_sidecars(dev, tmp)
+        gb = 12.0 * n_t * N_ATOMS / 1e9
+        ctrl = AnalysisController()                      # no device named: the card
+        check(ctrl.has_cache(str(path)), "the sidecar set is not seen as a cache")
+        traj = steps.run('load', lambda: ctrl.load_trajectory(
+            str(path), dt=0.01, file_format='lammps', nx=side, ny=side, nz=side))
+        calc = ctrl.calculator
+        check(traj.positions.shape == (n_t, N_ATOMS, 3) and calc.device.type == dev.type,
+              f"loaded {traj.positions.shape} on {calc.device}")
+        log('session', f"sidecars of {N_ATOMS} atoms x {n_t} frames ({gb:.1f} GB per array) made on "
+                       f"the card and written in {t_write:.2f} s; load_trajectory (worker thread) "
+                       f"{steps.wall('load'):.2f} s")
+        small = AnalysisController()
+        dump_side = write_dump(Path(tmp) / 'si.dump', SEED)
+        parsed = native.bulk_parses
+        steps.run('load_dump', lambda: small.load_trajectory(
+            str(Path(tmp) / 'si.dump'), dt=0.01, file_format='lammps',
+            nx=dump_side, ny=dump_side, nz=dump_side))
+        check(native.bulk_parses - parsed == DUMP_FRAMES and small.has_cache(str(Path(tmp) / 'si.dump'))
+              and small.trajectory.positions.shape == (DUMP_FRAMES, DUMP_ATOMS, 3),
+              "the text dump did not go through the C parser")
+        small_sed = steps.run('session_dump_kpath', lambda: small.compute_kpath_sed(
+            'x', n_k=32, bz_coverage=1.0, lattice_param=SI_A0))
+        check(steps.launches['session_dump_kpath'] == 1 and bool(np.isfinite(small_sed.sed).all()),
+              "k-path SED of the parsed dump")
+        log('session', f"text dump {DUMP_ATOMS} atoms x {DUMP_FRAMES} frames through load_trajectory "
+                       f"(C parser, sidecars written): {steps.wall('load_dump'):.2f} s; its k-path "
+                       f"SED {steps.wall('session_dump_kpath'):.3f} s")
+        del small_sed
+
+        # -- k-path, click, full spectrum ------------------------------------------
+        kpath = dict(n_k=SESSION_NK, bz_coverage=SESSION_BZ, lattice_param=SI_A0)
+        k_mags, k_vecs = calc.get_k_path('x', SESSION_BZ, SESSION_NK, SI_A0)
+        check(float(k_mags[col]) == q, "the phonon is not on the k-path")
+        sed = steps.run('session_kpath_first', lambda: ctrl.compute_kpath_sed('x', **kpath))
+        again = steps.run('session_kpath', lambda: ctrl.compute_kpath_sed('x', **kpath))
+        want = calc.calculate_kgrid_browse(k_vecs, readback_dtype='float32')
+        check(same_arrays((sed.freqs, sed.sed), want[:2]) and same_arrays(sed.sed, again.sed)
+              and not sed.is_complex, "the reduced k-path planes != calculate_kgrid_browse's")
+        lt = steps.run('session_kpath_lt', lambda: ctrl.compute_kpath_sed(
+            'x', polarization='longitudinal', **kpath))
+        want_lt = calc.calculate_lt(k_vecs)
+        row = int(np.argmax(sed.sed[:, col]))
+        lt_share = float(lt.sed[row, col] / sed.sed[row, col])
+        check(same_arrays(lt.sed, want_lt[1]) and lt_share > 0.99,
+              f"the longitudinal planes != calculate_lt's, or hold {lt_share} of the x phonon")
+        welch = steps.run('session_kpath_welch', lambda: ctrl.compute_kpath_sed(
+            'x', welch_segments=4, **kpath))
+        want_w = calc.calculate_welch(k_mags, k_vecs, segments=4, window='hann')
+        check(same_arrays(welch.sed, want_w.sed) and welch.sed.shape[0] == n_t // 4,
+              "the Welch planes != calculate_welch's")
+        ctrl.compute_kpath_sed('x', **kpath)             # back to the reduced display
+        f_peak = float(sed.freqs[np.argmax(sed.sed[:, col])])
+        check(abs(f_peak - nu) < 1e-4, f"column {col} peaks at {f_peak} THz, the phonon is at {nu}")
+        click = (q + 0.3 * float(k_mags[1]), nu + 0.3 * float(sed.freqs[1]))    # a near miss
+        picked = ctrl.select_nearest(*click)
+        check(picked == (float(sed.k_points[col]), f_peak) == ctrl.selected_point,
+              f"the click at {click} snapped to {picked}")
+        full = steps.run('session_full_kpath', ctrl.full_kpath_sed)
+        check(full.is_complex and full.sed.shape == (n_t, SESSION_NK, 3)
+              and ctrl.sed_result is not full, "full_kpath_sed")
+        cols = np.array([1, col, SESSION_NK // 2, SESSION_NK - 1])
+        data_dev = calc._group_device_arrays(np.arange(N_ATOMS))[0]
+        oracle = f64_oracle(data_dev, torch.from_numpy(calc.mean_positions64).to(dev),
+                            torch.from_numpy(k_vecs[cols].astype(np.float64)).to(dev))
+        got = torch.from_numpy(np.ascontiguousarray(full.sed[:, cols, :])).to(dev)
+        oracle_err = rel(got.to(torch.complex128), oracle)
+        keep = full.freqs >= 0
+        reduced_err = float(np.abs(sed.sed[:, cols] - (oracle.abs() ** 2).sum(dim=-1).cpu().numpy()[keep]
+                                   ).max() / sed.sed[:, cols].max())
+        check(oracle_err <= TOL_KERNEL and reduced_err <= TOL_KERNEL,
+              f"k-path vs f64 oracle: spectrum {oracle_err:.3e}, reduced planes {reduced_err:.3e}")
+        del oracle, got, data_dev
+        log('session', f"k-path 'x', {SESSION_NK} k, bz {SESSION_BZ}: first (host mean, "
+                       f"{gb:.1f} GB upload) {steps.wall('session_kpath_first'):.3f} s, warm "
+                       f"{steps.wall('session_kpath'):.3f} s, longitudinal "
+                       f"{steps.wall('session_kpath_lt'):.3f} s ({lt_share:.6f} of the phonon's "
+                       f"peak), Welch x4 "
+                       f"{steps.wall('session_kpath_welch'):.3f} s, full complex "
+                       f"{steps.wall('session_full_kpath'):.3f} s; planes == the calculator's calls "
+                       f"bit for bit; 4 k-columns vs f64 oracle {oracle_err:.3e} (spectrum), "
+                       f"{reduced_err:.3e} (reduced planes) (tol {TOL_KERNEL}); click near "
+                       f"({q:.4f}, {nu}) snapped to {picked}, the injected phonon")
+
+        # -- the 50x50 grid: browse and peaks, both engines -------------------------
+        grid_args = ('xy', (-5, 5), (-5, 5), GRID, GRID)
+        _, grid_k, shape = calc.get_k_grid(*grid_args)
+        planes = {}
+        for name, engine, dtype in (('session_kgrid_direct', 'direct', 'float32'),
+                                    ('session_kgrid_direct_f16', 'direct', 'float16'),
+                                    ('session_kgrid_gridded', 'gridded', 'float32')):
+            ctrl.readback_dtype = dtype
+            planes[name] = steps.run(name, lambda: ctrl.compute_kgrid_sed(
+                *grid_args, max_freq=SESSION_MAX_FREQ, engine=engine)).intensity
+        ctrl.readback_dtype = 'float32'
+        want = calc.calculate_kgrid_browse(grid_k, max_freq=SESSION_MAX_FREQ, engine='direct',
+                                           k_chunk_size=SESSION_GRID_CHUNK, k_grid_shape=shape)
+        exact = planes['session_kgrid_direct']
+        floor = F16_REL_FLOOR * exact.max()
+        bright = exact >= floor
+        f16_rel = float(np.max(np.abs(planes['session_kgrid_direct_f16'][bright] - exact[bright])
+                               / exact[bright]))
+        engines_gap = float(np.abs(planes['session_kgrid_gridded'] - exact).max() / exact.max())
+        check(same_arrays(exact, want[1]) and f16_rel <= F16_REL_EPS and engines_gap <= TOL_TWO_ENGINES,
+              f"grid browse: float16 {f16_rel:.3e}, gridded vs direct {engines_gap:.3e}")
+        peaks = {}
+        for name, engine in (('session_peaks_direct', 'direct'), ('session_peaks_gridded', 'gridded')):
+            peaks[name] = steps.run(name, lambda: ctrl.compute_kgrid_peaks(
+                *grid_args, n_peaks=N_PEAKS, engine=engine, width_method='lorentzian'))
+            want = calc.calculate_kgrid_peaks(
+                grid_k, n_peaks=N_PEAKS, k_chunk_size=SESSION_GRID_CHUNK, engine=engine,
+                k_grid_shape=shape if engine != 'direct' else None, width_method='lorentzian')
+            pk = peaks[name]
+            check(same_arrays([x.reshape(N_PEAKS, -1) for x in (
+                pk.freq_surfaces, pk.intensity_surfaces, pk.linewidth_surfaces)], want),
+                f"the controller's {engine} peaks != calculate_kgrid_peaks's")
+        as_triplet = {n: (p.freq_surfaces.reshape(N_PEAKS, -1), p.intensity_surfaces.reshape(N_PEAKS, -1))
+                      for n, p in peaks.items()}
+        n_differ, h_err, (n_bright, dim_err, surface_err) = peaks_agree(
+            calc, grid_k, as_triplet['session_peaks_gridded'], as_triplet['session_peaks_direct'],
+            "session peaks", bright_share=SESSION_BRIGHT)
+        ctrl.compute_kgrid_sed(*grid_args, max_freq=SESSION_MAX_FREQ, engine='direct')
+        log('session', f"{GRID}x{GRID} grid, max_freq {SESSION_MAX_FREQ} THz: browse direct "
+                       f"{steps.wall('session_kgrid_direct'):.3f} s, float16 "
+                       f"{steps.wall('session_kgrid_direct_f16'):.3f} s (per-pixel rel err "
+                       f"{f16_rel:.3e}), gridded {steps.wall('session_kgrid_gridded'):.3f} s (planes "
+                       f"{engines_gap:.3e} from direct); peaks (n_peaks={N_PEAKS}, lorentzian) direct "
+                       f"{steps.wall('session_peaks_direct'):.3f} s, gridded "
+                       f"{steps.wall('session_peaks_gridded'):.3f} s ({n_differ} near-tied columns "
+                       f"differ; heights within {h_err:.3e} of the column's highest on the "
+                       f"{n_bright} columns that reach {SESSION_BRIGHT} of the surface's highest, "
+                       f"within {surface_err:.3e} of the surface's highest on all (tol "
+                       f"{TOL_TWO_ENGINES}); on the dim columns the gridded engine is off by up to "
+                       f"{dim_err:.3e} of the column's own highest: the strong mode's NUFFT error); "
+                       "each == the calculator's call bit for bit")
+
+        # -- DOS, DSF, liquid curves -------------------------------------------------
+        freqs, dos = steps.run('session_dos', lambda: ctrl.compute_dos(max_freq=20.0))
+        check(same_arrays((freqs, dos), calc.calculate_dos(max_freq=20.0))
+              and abs(float(freqs[np.argmax(dos[0])]) - nu) < 1e-4,
+              "the DOS differs from calculate_dos's, or does not peak on the phonon")
+        dsf_path = dict(n_k=SESSION_DSF_NK, bz_coverage=SESSION_BZ, lattice_param=SI_A0)
+        snapped = commensurate_kpath(calc.get_k_path('x', SESSION_BZ, SESSION_DSF_NK, SI_A0)[1],
+                                     traj.box_matrix)
+        direct = None
+        for observable in ('total', 'longitudinal', 'transverse', 'self'):
+            k, f, plane = steps.run(f'session_dsf_{observable}', lambda: ctrl.compute_kpath_dsf(
+                'x', max_freq=20.0, observable=observable, **dsf_path))
+            check(plane.shape == (len(f), len(snapped)) and bool(np.isfinite(plane).all())
+                  and ctrl.sed_result is not None, f"DSF {observable}")
+            if observable == 'self':
+                want = calc.calculate_dsf_self(snapped, max_freq=20.0)[1]
+            else:
+                direct = direct or calc.calculate_dsf(snapped, max_freq=20.0)
+                want = direct[{'total': 1, 'longitudinal': 2, 'transverse': 3}[observable]]
+            check(same_arrays(plane, want), f"the DSF view's {observable} plane != the calculator's")
+        curves = {}
+        v0_err = 5 * 3 * np.sqrt(2.0 / (3.0 * n_t * N_ATOMS)) + 1e-3      # of <|v|^2> = 3 + A^2/2
+        for kind in ('sk', 'rdf', 'msd', 'vacf', 'isf_self'):
+            x, c, _, _ = steps.run(f'session_liquid_{kind}', lambda: ctrl.compute_liquid_curve(
+                kind, direction_text='x', **dsf_path))
+            check(c.shape[1] == len(x) and bool(np.isfinite(c).all()), f"liquid curve {kind}")
+            curves[kind] = c
+            if kind == 'rdf':
+                rdf_r = x
+        log('session', "liquid curves: " + ", ".join(
+            f"{k} {steps.wall(f'session_liquid_{k}'):.3f} s" for k in curves)
+            + f" (g(r): the controller passes no r_max, so it spans half the box, "
+              f"{float(rdf_r[-1]):.1f} Å, where the linked cells prune nothing)")
+        check(same_arrays(curves['sk'][0], calc.calculate_sk(snapped)), "S(k) != calculate_sk's")
+        check(same_arrays(curves['msd'], calc.calculate_msd()[1]), "MSD != calculate_msd's")
+        g, bin_width = curves['rdf'][0], float(rdf_r[1] - rdf_r[0])
+        shell = float(rdf_r[np.argmax(np.where(rdf_r < 3.0, g, 0.0))])
+        check(float(g[rdf_r < 2.0 - bin_width].max()) < 0.01 * float(g.max())
+              and abs(shell - SI_A0 * np.sqrt(3) / 4) <= bin_width,
+              f"g(r): first peak at {shell} Å, bins of {bin_width} Å")
+        check(abs(float(curves['vacf'][0, 0]) - (3.0 + SESSION_MODE[2] ** 2 / 2)) <= v0_err
+              and np.allclose(curves['isf_self'][:, 0], 1.0, rtol=1e-5),
+              f"VACF(0) {curves['vacf'][0, 0]}, F_s(k, 0) {curves['isf_self'][:, 0]}")
+        log('session', f"DOS {steps.wall('session_dos'):.3f} s (peak on the phonon); DSF view, "
+                       f"{len(snapped)} commensurate k: "
+                       + ", ".join(f"{o} {steps.wall(f'session_dsf_{o}'):.3f} s"
+                                   for o in ('total', 'longitudinal', 'transverse', 'self'))
+                       + f"; VACF(0) = {curves['vacf'][0, 0]:.4f}; DOS, DSF planes, S(k) and MSD == "
+                       "the calculator's calls bit for bit, g(r) starts with the first Si shell")
+
+        # -- iSED at the clicked mode, exports, clean-up ----------------------------------
+        dump = steps.run('session_ised', lambda: ctrl.reconstruct_ised(
+            'x', char_len=SI_A0, n_k=SESSION_NK, bz_coverage=SESSION_BZ,
+            n_frames=SESSION_ISED_FRAMES))
+        pos, types, _ = steps.run('session_ised_motion', ctrl.load_ised_motion)
+        move = pos.astype(np.float64) - pos.astype(np.float64).mean(axis=0)
+        sites_x = calc.mean_positions64[:, 0]
+        wave_share = float(np.abs((move[0, :, 0] * np.exp(-1j * q * sites_x)).sum())
+                           / (N_ATOMS * np.sqrt((move[0, :, 0] ** 2).mean())))
+        along_x = float((move[..., 0] ** 2).sum() / (move ** 2).sum())
+        check(pos.shape == (SESSION_ISED_FRAMES, N_ATOMS, 3) and len(types) == N_ATOMS
+              and along_x > 0.99 and wave_share > 0.6,
+              f"iSED motion {pos.shape}: {along_x:.4f} along x, plane-wave share {wave_share:.3f}")
+        grid_rows = session_exports(ctrl, steps, tmp, full, dump)
+        held = [Path(t.name) for t in ctrl.temp_dirs]
+        ctrl.cleanup()
+        check(held and not any(p.exists() for p in held) and ctrl.temp_dirs == [],
+              "cleanup left a temporary directory")
+        log('session', f"iSED at the click: {steps.wall('session_ised'):.2f} s, dump of "
+                       f"{SESSION_ISED_FRAMES} frames x {N_ATOMS} atoms re-read in "
+                       f"{steps.wall('session_ised_motion'):.2f} s, {along_x:.4f} of the motion along "
+                       f"x, {wave_share:.3f} of a plane wave's overlap with exp(iqx) (0.707 when "
+                       "pure); exports: "
+                       + ", ".join(f"{n[7:]} {steps.wall(n):.2f} s" for n in steps.timer.sections
+                                   if n.startswith('export_'))
+                       + f" (k-grid CSV {grid_rows} rows); every CSV parsed back to its state's "
+                       "arrays exactly; cleanup removed the temporary directory")
+
+        # -- two computes at once on the big controller -----------------------------------
+        alone_k, alone_p = ctrl.compute_kpath_sed('x', **kpath).sed, peaks['session_peaks_direct']
+        got_k, got_p = steps.run('session_at_once', lambda: at_once(
+            dev, lambda: ctrl.compute_kpath_sed('x', **kpath),
+            lambda: ctrl.compute_kgrid_peaks(*grid_args, n_peaks=N_PEAKS, engine='direct',
+                                             width_method='lorentzian')))
+        check(same_arrays(got_k.sed, alone_k)
+              and same_arrays((got_p.freq_surfaces, got_p.intensity_surfaces,
+                               got_p.linewidth_surfaces),
+                              (alone_p.freq_surfaces, alone_p.intensity_surfaces,
+                               alone_p.linewidth_surfaces)),
+              "two computes started at once on the big controller differ from the lone runs")
+        log('session', "a k-path SED and a direct peak surface started at once from two threads "
+                       "on the big controller: both equal their lone runs bit for bit")
+
+        # -- the NPT chain ----------------------------------------------------------------------
+        npt_sets = session_npt(dev, proj, steps, tmp)
+
+        # -- the kernel at the session's shapes, the launches ----------------------------------
+        check(SESSION_NK <= K_CHUNK, "the k-path must fit one k-chunk of every surface")
+        grid_chunks = -(-len(grid_k) // SESSION_GRID_CHUNK)
+        direct_steps = {'session_kpath_first': 1, 'session_kpath': 1, 'session_kpath_lt': 1,
+                        'session_kpath_welch': 1, 'session_full_kpath': 1, 'session_ised': 1,
+                        'session_kgrid_direct': grid_chunks, 'session_kgrid_direct_f16': grid_chunks,
+                        'session_peaks_direct': grid_chunks, 'session_at_once': 1 + grid_chunks}
+        none = [n for n in steps.launches if n.startswith(('session_dsf', 'session_liquid'))] + [
+            'session_kgrid_gridded', 'session_peaks_gridded', 'session_dos']
+        for name, want_n in direct_steps.items():
+            check(steps.launches[name] == want_n,
+                  f"{name} launched {steps.launches[name]} kernels, want {want_n}")
+        check(all(steps.launches[n] == 0 for n in none),
+              f"a DSF, liquid, gridded or DOS step launched the projection kernel: "
+              f"{ {n: steps.launches[n] for n in none} }")
+        counted = sum(steps.launches.values())          # every step of the phase, exports and loads too
+        dump_k = small.calculator.get_k_path('x', 1.0, 32, SI_A0)[1]
+        loop = session_kernel_shapes(
+            dev, proj, [(calc, k_vecs, SESSION_NK, 7, False),
+                        (calc, grid_k, SESSION_GRID_CHUNK, 4, False),
+                        (small.calculator, dump_k, K_CHUNK, 1, False)] + npt_sets, counted)
+        log('session', f"kernel vs plain at every shape the session launched {loop['shapes']}: rel "
+                       f"err {loop['rel_err']:.3e} (tol {TOL_KERNEL}); those k-sets make all "
+                       f"{counted} launches of the phase's steps: "
+                       + ", ".join(f"{n[8:]} {c}" for n, c in steps.launches.items() if c)
+                       + f"; 0 on {len(none)} DSF, liquid, gridded and DOS steps")
+        peak_gb = max(steps.peak_gb.values()) if steps.peak_gb else 0.0
+        top = max(steps.peak_gb, key=steps.peak_gb.get) if steps.peak_gb else '-'
+        ctrl.calculator.clear_device_cache()
+        del ctrl, calc, traj, small, npt_sets
+
+    # -- debug mode ---------------------------------------------------------------------------
+    from psa_tpu_torch import SEDCalculator
+    from psa_tpu_torch.models import make_chain_trajectory
+    chain = make_chain_trajectory(n_cells=16, n_frames=64, dt_ps=0.05)
+    dcalc = SEDCalculator(chain, nx=16, ny=1, nz=1, device=dev)
+    k_mags, k_path = dcalc.get_k_path('x', bz_coverage=0.5, n_k=9)
+    plain = dcalc.calculate(k_mags, k_path).sed
+    with debug.debug_numerics():
+        checked = dcalc.calculate(k_mags, k_path).sed
+    chain.velocities[5, 3, 0] = np.nan
+    dcalc.clear_device_cache()
+    raised = None
+    with debug.debug_numerics():
+        try:
+            dcalc.calculate(k_mags, k_path)
+        except FloatingPointError as e:
+            raised = str(e)
+    check(np.array_equal(plain, checked) and not debug.active and raised is not None
+          and 'sed_projection' in raised, f"debug_numerics: raised {raised!r}")
+    check('tkinter' not in sys.modules and 'matplotlib' not in sys.modules,
+          "the session imported tkinter or matplotlib")
+    log('session', f"debug_numerics: a clean calculate passes with the same bits; a NaN velocity "
+                   f"raises FloatingPointError ({raised}); neither tkinter nor matplotlib imported; "
+                   f"peak device memory over the session's steps {peak_gb:.1f} GB (in {top})")
+    log('session', "walls by step:\n" + steps.timer.report())
+    launches = {n: c for n, c in steps.launches.items() if n.startswith('session_')}
+    return launches, loop
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA GPU")
@@ -2080,6 +2726,11 @@ def main():
     cli_launches, cli_loop = command_line(dev, proj)
     log('cli', f"command-line phase took {time.perf_counter() - t0:.2f} s")
 
+    # -- 15. an interactive session through the headless controller ----------
+    t0 = time.perf_counter()
+    session_launches, session_loop = session(dev, proj)
+    log('session', f"session phase took {time.perf_counter() - t0:.2f} s")
+
     # -- 6. the rest of the slice -----------------------------------------
     crystal = make_random_crystal_trajectory(n_cells_xyz=(6, 6, 6), basis=2, n_frames=256,
                                              seed=SEED, n_types=2)
@@ -2155,14 +2806,15 @@ def main():
                               "calculate_fast": tier_info['fast']['launches'],
                               "npt_peaks": npt_peaks_launches, "npt": npt_launches,
                               "npt_chain": npt_chain_launches, "cli": cli_launches,
-                              **gridded_launches,
+                              **gridded_launches, **session_launches,
                               # one count over the whole phase: every engine, resident and streamed
                               "dsf_exact_factored_incremental": dsf_info['launches']},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
-            for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop]}]}), flush=True)
+            for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

@@ -24,6 +24,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 from pathlib import Path
@@ -35,6 +36,7 @@ from .core.sed import SED
 from .io.loader import TrajectoryLoader
 from .utils.config_manager import ConfigManager
 from .utils.helpers import direction_label
+from .utils.profiling import trace
 from .visualization import SEDPlotter, have_matplotlib
 
 logger = logging.getLogger(__name__)
@@ -600,14 +602,9 @@ def main(argv=None) -> None:
                              phase_mode=gen_cfg.get('phase_mode', 'auto'),
                              device=args.device)
 
-        profiler = None
+        profiling = contextlib.ExitStack()
         if args.profile:
-            import torch
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if calc.device.type == 'cuda':
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            profiler = torch.profiler.profile(activities=activities)
-            profiler.start()
+            profiling.enter_context(trace(out_dir / 'profile'))
 
         eff_lat_param = md_cfg.get('lattice_parameter')
         if eff_lat_param is None or eff_lat_param <= 1e-6:
@@ -796,12 +793,7 @@ def main(argv=None) -> None:
                 plot_dir_ised=out_dir if figures else None,
                 plot_max_freq=plot_cfg.get('max_freq_2d'))
 
-        if profiler is not None:
-            profiler.stop()
-            profile_dir = out_dir / 'profile'
-            profile_dir.mkdir(parents=True, exist_ok=True)
-            profiler.export_chrome_trace(str(profile_dir / 'trace.json'))
-            logger.info("Profiler trace written to %s", profile_dir)
+        profiling.close()
 
         logger.info("PSA processing completed.")
 

@@ -51,6 +51,7 @@ import torch
 
 from ..ops import instantaneous, spectral
 from ..ops.sed_projection import sed_projection
+from ..utils import debug
 from ..utils.helpers import DirectionSpec, miller_line, parse_direction
 from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows
 from .sed import SED
@@ -69,7 +70,10 @@ FRAC_MEAN_CHUNK_ELEMS = int(2e8)
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """Copy a result tensor to a host NumPy array (waits for the device)."""
-    return t.cpu().numpy()
+    host = t.cpu().numpy()
+    if debug.active:
+        debug.check_arrays(debug.caller(), (host,))
+    return host
 
 
 def _not_ported(what: str, row: str) -> NotImplementedError:
@@ -173,13 +177,20 @@ def peaks_np(intensity: np.ndarray, freqs_kept: np.ndarray, n_peaks: int = 1,
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """``torch.device`` for ``device``; raises for CUDA when no card is present."""
+    """``torch.device`` for ``device``; raises for CUDA when no card is present.
+
+    A bare 'cuda' is pinned to the calling thread's current card: PyTorch's
+    current device is per thread, and a calculator built on one thread is
+    used from others (the GUI's workers), which must land on the same card.
+    """
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f"device={str(device)!r} requested but CUDA is not "
                            "available; pass device='cpu' explicitly to run on the host")
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
     return dev
 
 

@@ -18,30 +18,14 @@ from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 
 from ..core.trajectory import Trajectory, make_box_arrays
+from ..utils.profiling import progress_iter
 from . import lammps as lammps_io
 
 logger = logging.getLogger(__name__)
-
-
-def _progress_iter(iterable, total: Optional[int] = None, desc: str = "", callback=None):
-    """``callback(done, total)`` after each item when given; else a tqdm bar
-    when tqdm is importable; else the iterable unchanged."""
-    if callback is not None:
-        def gen():
-            for i, item in enumerate(iterable):
-                yield item
-                callback(i + 1, total)
-        return gen()
-    try:
-        from tqdm import tqdm
-    except ImportError:
-        return iterable
-    return tqdm(iterable, total=total, desc=desc, leave=False)
 
 
 _VALID_FORMATS = ('auto', 'lammps', 'vasp_outcar', 'extxyz', 'h5md')
@@ -190,9 +174,8 @@ class TrajectoryLoader:
         pos_all = np.zeros((n_frames, n_atoms, 3), dtype=np.float32)
         vel_all = np.zeros((n_frames, n_atoms, 3), dtype=np.float32)
         h_matrix = np.array(frame0.cell.matrix, dtype=np.float32)[:3, :3]
-        for i in _progress_iter(range(n_frames), total=n_frames,
-                               desc=f"OVITO {self.filepath.name}",
-                               callback=self.progress):
+        for i in progress_iter(range(n_frames), total=n_frames,
+                               desc=f"OVITO {self.filepath.name}", callback=self.progress):
             data = pipeline.compute(i)
             pos_all[i] = np.array(data.particles.positions, dtype=np.float32)
             if has_vel:

@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ..utils import debug
 
 #: Launches of the CUDA kernel in this process, every tier (the plain version counts nothing).
 launches = 0
@@ -188,8 +189,11 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     elif accumulate:
         raise ValueError("accumulate=True needs out=")
     if device.type == 'cpu':
-        return sed_projection_plain(data, mp_hi, mp_lo, k_vectors, out=out,
-                                    accumulate=accumulate, precision=precision)
+        out = sed_projection_plain(data, mp_hi, mp_lo, k_vectors, out=out,
+                                   accumulate=accumulate, precision=precision)
+        if debug.active:
+            debug.check_tensors('sed_projection', out)
+        return out
     if device.type != 'cuda':
         raise ValueError(f"sed_projection runs on cpu or cuda, got {device}")
     tensors = (data, mp_hi, mp_lo, k_vectors)
@@ -213,4 +217,6 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"sed_projection kernel launch failed: CUDA error {err}")
     launches += 1
+    if debug.active:
+        debug.check_tensors('sed_projection', (out_re, out_im))
     return out_re, out_im

@@ -1,0 +1,164 @@
+"""Profiling and observability utilities.
+
+Carried over from :mod:`psa_tpu.utils.profiling` with the same names and
+arguments:
+
+  * :func:`progress_iter` — progress reporting for slow host-side loops;
+  * :class:`Timer` / :func:`timed` — wall-clock blocks, fenced on the device
+    by :func:`sync` (``torch.cuda.synchronize`` on each CUDA device that
+    holds a tensor of the tree; CPU tensors and NumPy arrays need nothing);
+  * :func:`trace` — context manager around ``torch.profiler`` writing a
+    chrome trace, ``trace.json``, into a directory (``chrome://tracing`` or
+    Perfetto open it; the command line's ``--profile`` goes through it);
+  * :func:`throughput_report` — normalizes a run into k-points/sec,
+    spectra/sec and effective TFLOP/s (the same FLOP model: arithmetic).
+
+``torch`` is imported inside the functions that need it, so a loader or a
+view that only wants :func:`progress_iter` imports nothing heavy.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import math
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+logger = logging.getLogger(__name__)
+
+
+def progress_iter(iterable, total: Optional[int] = None, desc: str = "",
+                  callback=None):
+    """Progress-reporting wrapper for slow host-side loops.
+
+    ``callback(done, total)`` when given (GUI/status-bar integration);
+    otherwise a tqdm bar when tqdm is importable (the reference's behavior
+    on OVITO frame loads, reference loader.py:313); otherwise the iterable
+    unchanged.  Multi-minute ingest loops (per-frame OVITO compute,
+    streaming mean-position passes) should always run through this.
+    """
+    if callback is not None:
+        def gen():
+            for i, item in enumerate(iterable):
+                yield item
+                callback(i + 1, total)
+        return gen()
+    try:
+        from tqdm import tqdm
+    except ImportError:
+        return iterable
+    return tqdm(iterable, total=total, desc=desc, leave=False)
+
+
+def _cuda_devices(tree: Any, found: set) -> set:
+    """CUDA devices of the tensors in a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple, set)):
+        for leaf in tree:
+            _cuda_devices(leaf, found)
+    elif getattr(getattr(tree, 'device', None), 'type', None) == 'cuda':
+        found.add(tree.device)
+    return found
+
+
+def sync(tree: Any) -> None:
+    """Hard device synchronization on a tree of tensors.
+
+    ``tree`` is a tensor or any nesting of dicts, lists and tuples of them;
+    every CUDA device that holds one is drained with
+    ``torch.cuda.synchronize``.  A CPU tensor, a NumPy array or ``None``
+    needs nothing: the host already has it.
+    """
+    devices = _cuda_devices(tree, set())
+    if devices:
+        import torch
+        for device in devices:
+            torch.cuda.synchronize(device)
+
+
+@dataclass
+class Timer:
+    """Accumulating named wall-clock timer.
+
+    Usage:
+        t = Timer()
+        with t.section('projection'):
+            out = kernel(...)
+            sync(out)
+        print(t.report())
+    """
+    sections: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.sections[name] = self.sections.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        total = sum(self.sections.values())
+        lines = [f"{'section':<24}{'time (s)':>10}{'calls':>8}{'share':>8}"]
+        for name, t in sorted(self.sections.items(), key=lambda kv: -kv[1]):
+            share = 100.0 * t / total if total else 0.0
+            lines.append(f"{name:<24}{t:>10.3f}{self.counts[name]:>8}{share:>7.1f}%")
+        lines.append(f"{'TOTAL':<24}{total:>10.3f}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def timed(name: str, sync_tree: Any = None):
+    """Log the wall time of a block, optionally fencing on a device tree."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        if sync_tree is not None:
+            sync(sync_tree)
+        logger.info("%s: %.3f s", name, time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Write a ``torch.profiler`` chrome trace of the enclosed block to
+    ``<log_dir>/trace.json`` (host activity, and the device's when CUDA is
+    present)."""
+    import torch
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    try:
+        yield
+    finally:
+        profiler.stop()
+        log_dir = Path(log_dir)
+        log_dir.mkdir(parents=True, exist_ok=True)
+        profiler.export_chrome_trace(str(log_dir / 'trace.json'))
+        logger.info("Profiler trace written to %s", log_dir)
+
+
+def throughput_report(n_k: int, seconds: float, n_atoms: int, n_t: int,
+                      n_pol: int = 3) -> Dict[str, float]:
+    """Normalize a SED run into throughput metrics.
+
+    FLOP model (SURVEY.md §3.5): the projection is 2 real matmuls fused into
+    one — 2·(n_t·n_pol)·N·(2K) MACs = 8·n_t·n_pol·N·K flops — plus
+    n_pol·K FFTs of length n_t (5·n_t·log2(n_t) each).
+    """
+    proj_flops = 8.0 * n_t * n_pol * n_atoms * n_k
+    fft_flops = n_pol * n_k * 5.0 * n_t * math.log2(max(n_t, 2))
+    return {
+        'k_points_per_sec': n_k / seconds if seconds > 0 else float('inf'),
+        'spectra_per_sec': (n_k * n_pol) / seconds if seconds > 0 else float('inf'),
+        'effective_tflops': (proj_flops + fft_flops) / seconds / 1e12 if seconds > 0 else 0.0,
+        'seconds': seconds,
+    }

@@ -20,6 +20,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import debug
+
 _pool: Optional[ThreadPoolExecutor] = None
 
 
@@ -139,8 +141,9 @@ class DeviceToHost:
 
     def push(self, tensors: Sequence[torch.Tensor],
              sink: Callable[[List[np.ndarray]], None]) -> None:
+        where = debug.caller() if debug.active else None
         if self.device.type != 'cuda':
-            sink([t.numpy() for t in tensors])
+            self._hand_over([t.numpy() for t in tensors], sink, where)
             return
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
@@ -151,7 +154,7 @@ class DeviceToHost:
             for h, t in zip(hosts, tensors):
                 h.copy_(t, non_blocking=True)
             done.record(self._stream)
-        previous, self._pending = self._pending, (done, hosts, list(tensors), sink)
+        previous, self._pending = self._pending, (done, hosts, list(tensors), sink, where)
         self._drain(previous)
 
     def finish(self) -> None:
@@ -159,9 +162,17 @@ class DeviceToHost:
         self._drain(previous)
 
     @staticmethod
-    def _drain(entry) -> None:
+    def _hand_over(arrays: List[np.ndarray], sink, where: Optional[str]) -> None:
+        """Give ``sink`` the host arrays; under :mod:`debug`'s mode (``where``
+        names the sweep that pushed them), checked first."""
+        if where is not None:
+            debug.check_arrays(where, arrays)
+        sink(arrays)
+
+    @classmethod
+    def _drain(cls, entry) -> None:
         if entry is None:
             return
-        done, hosts, _sources, sink = entry    # the sources stay alive until copied
+        done, hosts, _sources, sink, where = entry    # the sources stay alive until copied
         done.synchronize()
-        sink([h.numpy() for h in hosts])
+        cls._hand_over([h.numpy() for h in hosts], sink, where)
