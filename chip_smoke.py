@@ -53,13 +53,21 @@ the full complex spectrum, the 50x50 grid browsed and its peaks by both
 engines, DOS, DSF and liquid curves, the iSED reconstruction and every
 export, the NPT chain's k-path and Miller grid, two computes started at once,
 the kernel against its plain version at every shape the session launched
-(phase 15); and the
+(phase 15); the mesh sweeps of ``psa_tpu_torch.parallel`` on the one card
+(phase 16): ``calculate_kgrid_peaks_sharded`` and
+``calculate_kgrid_browse_sharded`` on a virtual (2, 2, 2) mesh of ``cuda:0``
+in a one-rank NCCL group, from a BlockSource over the host velocities,
+resident and in superchunks, against the one-device sweeps, and
+``sharded_sed_spectrum`` against the f64 oracle; the gridded engine's ky
+stripes; the instantaneous-phase family, MSD/VACF and g(r) over the mesh at
+2,000 frames; two processes on the card over gloo, each reading only its
+windows; ``python -m psa_tpu_torch.pod_sweep`` and its resumed rerun; and the
 rest of the slice (incoherent groups, chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel
 (launches on the main paths, error, times per tier); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
-any result.  About 6 minutes on an H100 machine.
+any result.  About 7 minutes on an H100 machine.
 """
 import json
 import logging
@@ -121,6 +129,14 @@ SESSION_BRIGHT = 0.1   # k-columns whose highest peak reaches this share of the 
                        # hold the two grid engines' heights per column, the others of the surface
 TOL_ENGINES = 5e-5   # a fast phase engine's planes vs the exact engine's, of max: the exact engine
 #                      evaluates the float32 k, the factored one the lattice vector it rounds
+MESH_SHAPE = (2, 2, 2)                # phase 16's virtual (t, a, k) mesh: 8 positions of MESH_DEVICE
+MESH_DEVICE = 'cuda:0'
+MESH_SUPERCHUNK = 2_500               # frames: 4 windows of 3 GB each, two superchunks in flight
+MESH_STRIPES = 4                      # positions of the gridded engine's ky stripes
+MESH_DEPTH = 2_000                    # frames of phase 16c (CUT from N_T)
+TOL_MESH_PLANES = 1e-5                # a mesh sweep's planes vs the one-device sweep's, of max
+RANK_ATOMS, RANK_FRAMES = 10_000, 2_000   # phase 16d's two-process trajectory
+RANK_SUPERCHUNK, RANK_LAGS = 1_000, 64
 
 
 def log(phase, msg):
@@ -1722,6 +1738,280 @@ def rdf_small(dev):
                f"{np.abs(g[5:] - 1).max():.3f} of 1")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh sweeps (psa_tpu_torch.parallel) on the one card
+# ---------------------------------------------------------------------------
+
+def nccl_group():
+    """A one-rank NCCL process group on this process's card, so that the
+    virtual mesh's collectives go through NCCL."""
+    import torch.distributed as dist
+    from psa_tpu_torch.parallel.smoke import free_port
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:{free_port()}',
+                            world_size=1, rank=0)
+    return dist.group.WORLD
+
+
+def mesh_counted(proj, launches, walls, name, fn):
+    """``fn()`` with its projection launches and wall kept under ``name``."""
+    proj.launches = 0
+    out, walls[name], _ = timed(fn)
+    launches[name] = proj.launches
+    return out
+
+
+def kernel_at_mesh_shapes(proj, data, mean64, kv, shapes):
+    """Kernel vs plain on host ``data`` at the (frames, atoms, k) shapes a
+    mesh's positions give the kernel: [((n_t, A, K), rel err), ...]."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    dev = torch.device(MESH_DEVICE)
+    out = []
+    for n_t, n_a, n_k in shapes:
+        hi, lo = (torch.from_numpy(np.ascontiguousarray(x[:n_a])).to(dev)
+                  for x in split_f64(mean64))
+        block = torch.from_numpy(np.ascontiguousarray(data[:n_t, :n_a], np.float32)).to(dev)
+        k_dev = torch.from_numpy(np.ascontiguousarray(kv[:n_k], np.float32)).to(dev)
+        err_abs, scale = pair_err(proj.sed_projection(block, hi, lo, k_dev),
+                                  proj.sed_projection_plain(block, hi, lo, k_dev))
+        out.append(((n_t, n_a, n_k), err_abs / scale))
+        del block
+    torch.cuda.empty_cache()
+    worst = max(e for _, e in out)
+    check(worst <= TOL_KERNEL, f"kernel vs plain at the mesh's shapes {out} > {TOL_KERNEL}")
+    return out
+
+
+def mesh_grid(dev, proj, calc, host_vel, k_vecs, grid_shape, oracle, cols):
+    """Phase 16a/b, on the working size (10^5 Si atoms x 10^4 steps, the
+    50x50 grid, parity): ``calculate_kgrid_peaks_sharded`` and
+    ``calculate_kgrid_browse_sharded`` on a virtual (2, 2, 2) mesh of
+    ``cuda:0`` inside a one-rank NCCL group, from a BlockSource over the host
+    velocities, resident (one superchunk: 12 GB of windows on the card) and
+    in superchunks of MESH_SUPERCHUNK frames, against the one-device sweeps
+    of the resident calculator; ``sharded_sed_spectrum`` of the 4 oracle
+    k-columns against the f64 oracle; the kernel against its plain version
+    at the positions' shapes; then the gridded engine's ky stripes over 4
+    positions against the one-device gridded peaks.  Returns (the group, the
+    launches per path, the kernel checks)."""
+    from psa_tpu_torch.parallel import ArrayBlockSource, make_mesh, sharded_sed_spectrum
+    group = nccl_group()
+    mesh = make_mesh(shape=MESH_SHAPE, devices=[MESH_DEVICE] * 8, group=group)
+    src = ArrayBlockSource(host_vel)
+    n_k = len(k_vecs)
+    positions = int(np.prod(MESH_SHAPE))
+    launches, walls = {}, {}
+    single_peaks, t_sp, _ = timed(lambda: calc.calculate_kgrid_peaks(
+        k_vecs, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK_GRID))
+    (freqs, single_planes, _), t_sb, _ = timed(lambda: calc.calculate_kgrid_browse(
+        k_vecs, k_chunk_size=K_CHUNK_GRID))
+    for sc, tag in ((None, 'resident'), (MESH_SUPERCHUNK, 'superchunks')):
+        n_sc = N_T // (sc or N_T)
+        peaks = mesh_counted(proj, launches, walls, f'mesh_kgrid_peaks_{tag}',
+                             lambda: calc.calculate_kgrid_peaks_sharded(
+                                 mesh, k_vecs, n_peaks=N_PEAKS, data=src, t_superchunk=sc))
+        f_m, planes, _ = mesh_counted(proj, launches, walls, f'mesh_kgrid_browse_{tag}',
+                                      lambda: calc.calculate_kgrid_browse_sharded(
+                                          mesh, k_vecs, data=src, t_superchunk=sc))
+        for name in (f'mesh_kgrid_peaks_{tag}', f'mesh_kgrid_browse_{tag}'):
+            check(launches[name] == n_sc * positions,
+                  f"{name} launched the kernel {launches[name]} times, want {n_sc * positions}")
+        n_differ, h_err, _ = peaks_agree(calc, k_vecs, peaks, single_peaks, f"mesh peaks {tag}")
+        plane_err = float(np.abs(planes - single_planes).max() / single_planes.max())
+        check(np.array_equal(f_m, freqs) and plane_err <= TOL_MESH_PLANES,
+              f"mesh browse {tag} vs one device {plane_err:.3e} > {TOL_MESH_PLANES}")
+        log('mesh', f"(a) {tag}: kgrid_peaks_sharded {walls[f'mesh_kgrid_peaks_{tag}']:.3f} s, "
+                    f"kgrid_browse_sharded {walls[f'mesh_kgrid_browse_{tag}']:.3f} s wall "
+                    f"(one device: peaks {t_sp:.3f} s, browse {t_sb:.3f} s, velocities resident); "
+                    f"{n_sc} superchunk(s) x {positions} positions = {launches[f'mesh_kgrid_peaks_{tag}']} "
+                    f"launches each; peak frequencies equal the one device's (atol {TOL_PEAK_FREQ}) "
+                    f"but on {n_differ} near-tied k-columns, heights within {h_err:.3e} of the "
+                    f"column's highest (tol {TOL_TWO_ENGINES}); planes {plane_err:.3e} of max "
+                    f"(tol {TOL_MESH_PLANES})")
+    re_im = mesh_counted(proj, launches, walls, 'mesh_sed_spectrum',
+                         lambda: sharded_sed_spectrum(mesh, src, calc.mean_positions64,
+                                                      k_vecs[cols]))
+    got = torch.from_numpy(re_im[0] + 1j * re_im[1]).to(oracle.device)
+    spec_err = rel(got, oracle)
+    check(spec_err <= TOL_KERNEL, f"sharded_sed_spectrum vs f64 oracle {spec_err:.3e}")
+    shapes = kernel_at_mesh_shapes(
+        proj, host_vel, calc.mean_positions64, k_vecs,
+        [(N_T // MESH_SHAPE[0], N_ATOMS // MESH_SHAPE[1], n_k // MESH_SHAPE[2]),
+         (MESH_SUPERCHUNK // MESH_SHAPE[0], N_ATOMS // MESH_SHAPE[1], n_k // MESH_SHAPE[2]),
+         (N_T // MESH_SHAPE[0], N_ATOMS // MESH_SHAPE[1], len(cols) // MESH_SHAPE[2])])
+    log('mesh', f"(a) sharded_sed_spectrum of the 4 oracle k-columns over the (2, 2, 2) mesh: "
+                f"{walls['mesh_sed_spectrum']:.3f} s, launches {launches['mesh_sed_spectrum']}, "
+                f"vs f64 oracle {spec_err:.3e} of max (tol {TOL_KERNEL}); kernel vs plain at the "
+                f"positions' shapes: " + ", ".join(f"{s}: {e:.3e}" for s, e in shapes))
+
+    stripes = make_mesh(shape=(1, 1, MESH_STRIPES), devices=[MESH_DEVICE] * MESH_STRIPES)
+    single_g, t_g, _ = timed(lambda: calc.calculate_kgrid_peaks(
+        k_vecs, n_peaks=N_PEAKS, engine='gridded', k_grid_shape=grid_shape))
+    got_g = mesh_counted(proj, launches, walls, 'mesh_kgrid_peaks_gridded',
+                         lambda: calc.calculate_kgrid_peaks_sharded(
+                             stripes, k_vecs, n_peaks=N_PEAKS, engine='gridded',
+                             k_grid_shape=grid_shape))
+    check(launches['mesh_kgrid_peaks_gridded'] == 0, "the gridded stripes launched the kernel")
+    n_differ, h_err, _ = peaks_agree(calc, k_vecs, got_g, single_g, "gridded stripes")
+    log('mesh', f"(b) gridded ky stripes over {MESH_STRIPES} positions of cuda:0, 50x50: "
+                f"{walls['mesh_kgrid_peaks_gridded']:.3f} s (one device {t_g:.3f} s); peak "
+                f"frequencies equal the one-device gridded engine's but on {n_differ} near-tied "
+                f"k-columns, heights within {h_err:.3e} of the column's highest; 0 launches")
+    return group, launches, shapes
+
+
+def mesh_rest(dev, proj, group, thermal, side, k_vecs):
+    """Phase 16c/d/e.  (c) On the phase-11 trajectory cut to MESH_DEPTH
+    frames (CUT from 10^4), over the virtual (2, 2, 2) mesh in the NCCL
+    group, 'exact': the DSF, S(k) and ISF on the DSF_K-point path, the self
+    parts on SELF_K of them, MSD/VACF and the brute g(r) (r < RDF_R_MAX)
+    against the one-device calls.  (d) Two processes on the one card over
+    gloo (``psa_tpu_torch.parallel.smoke``), each owning half of a (2, 2, 2)
+    mesh and reading its windows of a RANK_ATOMS x RANK_FRAMES ``.npy``
+    memmap: equal results on both ranks and to this process's mesh, each
+    rank reading half of every pass.  (e) ``python -m
+    psa_tpu_torch.pod_sweep --peaks 3 --from-dump`` on the 10^4-atom dump over
+    8 positions, then its resumed rerun.  Returns (launches per path,
+    kernel checks)."""
+    import dataclasses
+    import torch.distributed as dist
+    from psa_tpu_torch import SEDCalculator, TrajectoryLoader, pod_sweep
+    from psa_tpu_torch.ops.instantaneous import nearest_commensurate
+    from psa_tpu_torch.parallel import ArrayBlockSource, make_mesh, smoke
+    from psa_tpu_torch.parallel.sharded import _shards
+    mesh = make_mesh(shape=MESH_SHAPE, devices=[MESH_DEVICE] * 8, group=group)
+    launches, walls = {}, {}
+
+    # (c) the instantaneous-phase family and the k-independent observables
+    cut = dataclasses.replace(thermal, positions=thermal.positions[:MESH_DEPTH],
+                              velocities=thermal.velocities[:MESH_DEPTH],
+                              timesteps=thermal.timesteps[:MESH_DEPTH])
+    dcalc = SEDCalculator(cut, nx=side, ny=side, nz=side, max_device_bytes=DSF_BUDGET,
+                          phase_mode='exact', device=dev)
+    length = float(cut.box_matrix[0, 0])
+    kv = nearest_commensurate(np.outer(np.arange(DSF_K) * (2 * np.pi / length), [1.0, 0.0, 0.0]),
+                              cut.box_lengths)
+    self_kv = kv[::DSF_K // SELF_K]
+    rdf_kw = dict(r_max=RDF_R_MAX, n_bins=RDF_BINS, max_frames=RDF_BRUTE_FRAMES)
+    errs, one_walls = {}, {}
+    for name, single, sharded in (
+            ('dsf', lambda: dcalc.calculate_dsf(kv)[1:],
+             lambda: dcalc.calculate_dsf_sharded(mesh, kv)[1:]),
+            ('sk', lambda: (dcalc.calculate_sk(kv),), lambda: (dcalc.calculate_sk_sharded(mesh, kv),)),
+            ('isf', lambda: dcalc.calculate_isf(kv)[1:], lambda: dcalc.calculate_isf_sharded(mesh, kv)[1:]),
+            ('dsf_self', lambda: dcalc.calculate_dsf_self(self_kv)[1:],
+             lambda: dcalc.calculate_dsf_self_sharded(mesh, self_kv)[1:]),
+            ('isf_self', lambda: dcalc.calculate_isf_self(self_kv)[1:],
+             lambda: dcalc.calculate_isf_self_sharded(mesh, self_kv)[1:]),
+            ('msd', lambda: dcalc.calculate_msd()[1:], lambda: dcalc.calculate_msd_sharded(mesh)[1:]),
+            ('vacf', lambda: dcalc.calculate_vacf()[1:], lambda: dcalc.calculate_vacf_sharded(mesh)[1:]),
+            ('rdf', lambda: dcalc.calculate_rdf(method='brute', **rdf_kw)[1:],
+             lambda: dcalc.calculate_rdf(mesh=mesh, **rdf_kw)[1:])):
+        want, one_walls[name], _ = timed(single)
+        got = mesh_counted(proj, launches, walls, f'mesh_{name}', sharded)
+        errs[name] = max(float(np.abs(g - w).max() / np.abs(w).max()) for g, w in zip(got, want))
+        check(all(np.isfinite(g).all() for g in got) and launches[f'mesh_{name}'] == 0,
+              f"mesh {name}: non-finite values or {launches[f'mesh_{name}']} kernel launches")
+        check(errs[name] <= (0.0 if name == 'rdf' else TOL_MESH_PLANES),
+              f"mesh {name} vs one device {errs[name]:.3e}")
+    dcalc.clear_device_cache()
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log('mesh', f"(c) {N_ATOMS} atoms x {MESH_DEPTH} frames (CUT from {N_T}), 'exact', {DSF_K} k "
+                f"({SELF_K} for the self parts), over the (2, 2, 2) mesh vs one device, of max: "
+                + ", ".join(f"{n} {errs[n]:.3e} ({walls[f'mesh_{n}']:.2f} s; one device "
+                            f"{one_walls[n]:.2f} s)" for n in errs)
+                + f" (tol {TOL_MESH_PLANES}; g(r) counts equal); no projection launches")
+
+    # (d) two processes on the one card over gloo
+    rng = np.random.default_rng(SEED + 5)
+    sites, rside, a0 = si_sites(RANK_ATOMS)
+    rlen = float(np.float32(rside * a0))
+    pos = (sites[None] + THERMAL_U * rng.standard_normal((RANK_FRAMES, RANK_ATOMS, 3))).astype(np.float32)
+    vel = rng.standard_normal((RANK_FRAMES, RANK_ATOMS, 3)).astype(np.float32)
+    freqs = np.fft.fftfreq(RANK_FRAMES, 0.01)
+    keep = freqs >= 0
+    inputs = dict(k_sed=k_vecs, freq_idx=np.flatnonzero(keep), freqs_kept=freqs[keep].astype(np.float32),
+                  k_dsf=nearest_commensurate(np.outer(np.arange(DSF_K) * (2 * np.pi / rlen),
+                                                      [1.0, 0.0, 0.0]), np.full(3, rlen)),
+                  mean64=pos.astype(np.float64).mean(axis=0), n_peaks=N_PEAKS, n_lags=RANK_LAGS,
+                  t_superchunk=RANK_SUPERCHUNK, mesh_shape=MESH_SHAPE, atom_chunk=RANK_ATOMS)
+    with tempfile.TemporaryDirectory() as tmp:
+        smoke.write_inputs(Path(tmp), pos, vel, **inputs)
+        t0 = time.perf_counter()
+        ranks = smoke.launch(Path(tmp), world=2, device=torch.device(MESH_DEVICE).type,
+                             backend='gloo', positions=4, timeout=300)
+        t_ranks = time.perf_counter() - t0
+    one = mesh_counted(proj, launches, walls, 'mesh_one_process', lambda: smoke.run_sweeps(
+        make_mesh(shape=MESH_SHAPE, devices=[MESH_DEVICE] * 8), ArrayBlockSource(pos),
+        ArrayBlockSource(vel), inputs))
+    launches['mesh_two_ranks'] = int(sum(int(r['launches']) for r in ranks))
+    check(all(int(r['launches']) > 0 for r in ranks), "a rank launched no projection kernel")
+    for key in smoke.RESULTS:
+        check(np.array_equal(ranks[0][key], ranks[1][key]), f"the two ranks' {key} differ")
+    check(bool(np.all(np.abs(ranks[0]['peak_freqs'] - one['peak_freqs']) <= TOL_PEAK_FREQ)),
+          "two-rank peak frequencies differ from one process's")
+    rank_errs = {k: float(np.abs(ranks[0][k] - one[k]).max() / np.abs(one[k]).max())
+                 for k in smoke.RESULTS[1:]}
+    check(max(rank_errs.values()) <= TOL_MESH_PLANES, f"two ranks vs one process {rank_errs}")
+    elements = RANK_FRAMES * RANK_ATOMS
+    reads = {k: [int(r[k]) for r in ranks] for k in ('vel_elements', 'pos_elements')}
+    for k, n in (('vel_elements', 3), ('pos_elements', 5)):
+        check(sum(reads[k]) == n * elements and max(reads[k]) <= n * elements // 2,
+              f"{k} read per rank {reads[k]} of {n} passes over {elements}")
+    log('mesh', f"(d) two processes on cuda:0 over gloo, {RANK_ATOMS} atoms x {RANK_FRAMES} frames "
+                f"from .npy memmaps, a (2, 2, 2) mesh of 4 positions each: {t_ranks:.2f} s "
+                f"(interpreters included); launches {[int(r['launches']) for r in ranks]}; "
+                f"ranks equal bit for bit; vs one process (of max): "
+                + ", ".join(f"{k} {e:.3e}" for k, e in rank_errs.items())
+                + f"; trajectory elements read per rank {reads} (each <= half of every pass)")
+
+    # (e) the pod sweep on the 10^4-atom dump, then its resumed rerun
+    with tempfile.TemporaryDirectory() as tmp:
+        dump, out = Path(tmp) / 'si.dump', Path(tmp) / 'pod'
+        dside = write_dump(dump, SEED)
+        args = ['--trajectory', str(dump), '--dt', '0.01', '--nx', str(dside), '--ny', str(dside),
+                '--nz', str(dside), '--grid', str(GRID), '--k-chunk', str(K_CHUNK),
+                '--peaks', str(N_PEAKS), '--from-dump', '--positions', '8', '--out', str(out),
+                '--device', torch.device(MESH_DEVICE).type]
+        first = mesh_counted(proj, launches, walls, 'pod_sweep', lambda: pod_sweep.main(args))
+        pod = dict(np.load(out / 'kgrid_peaks.npz'))
+        t0 = time.perf_counter()
+        rerun = subprocess.run([sys.executable, '-m', 'psa_tpu_torch.pod_sweep'] + args,
+                               capture_output=True, text=True, timeout=300,
+                               cwd=str(Path(__file__).resolve().parent))
+        t_rerun = time.perf_counter() - t0
+        check(rerun.returncode == 0, f"pod_sweep rerun failed: {rerun.stderr[-2000:]}")
+        n_k = len(k_vecs)
+        check(f"0/{n_k} k-points computed" in rerun.stdout + rerun.stderr,
+              "the rerun did not resume every chunk from its cache")
+        again = dict(np.load(out / 'kgrid_peaks.npz'))
+        check(all(np.array_equal(pod[k], again[k]) for k in pod), "the resumed rerun's files differ")
+        traj = TrajectoryLoader(str(dump), dt=0.01, unwrap=False).load()
+        dcalc = SEDCalculator(traj, nx=dside, ny=dside, nz=dside, device=dev)
+        want = dcalc.calculate_kgrid_peaks(pod['k_vectors'], n_peaks=N_PEAKS)
+        got = (pod['peak_freqs'], pod['peak_heights'], pod['peak_widths'])
+        n_differ, h_err, _ = peaks_agree(dcalc, pod['k_vectors'], got, want, "pod sweep")
+        shapes = kernel_at_mesh_shapes(
+            proj, traj.velocities, dcalc.mean_positions64, pod['k_vectors'],
+            [(DUMP_FRAMES, DUMP_ATOMS, -(-K_CHUNK // 8)),
+             (RANK_SUPERCHUNK // MESH_SHAPE[0], RANK_ATOMS // MESH_SHAPE[1], n_k // MESH_SHAPE[2])])
+    mesh_t, mesh_a, mesh_k = first['mesh'].values()
+    want = mesh_t * mesh_a * sum(sum(hi > lo for lo, hi in _shards(min(K_CHUNK, n_k - s), mesh_k))
+                                 for s in range(0, n_k, K_CHUNK))
+    check(first['computed'] == n_k and launches['pod_sweep'] == want,
+          f"pod sweep computed {first['computed']} k with {launches['pod_sweep']} launches, "
+          f"want {want}")
+    log('mesh', f"(e) python -m psa_tpu_torch.pod_sweep --peaks {N_PEAKS} --from-dump over 8 "
+                f"positions of cuda:0, mesh {first['mesh']}: {walls['pod_sweep']:.2f} s in this "
+                f"process, {launches['pod_sweep']} launches; peaks vs calculate_kgrid_peaks on the "
+                f"loaded dump equal but on {n_differ} near-tied k-columns, heights within "
+                f"{h_err:.3e}; resumed rerun as a command {t_rerun:.2f} s, 0/{n_k} k computed, "
+                f"files equal; kernel vs plain at the two-rank and pod shapes: "
+                + ", ".join(f"{s}: {e:.3e}" for s, e in shapes))
+    return launches, shapes
+
+
 class SectionClock(logging.Handler):
     """Seconds the command line spent up to each of its log lines."""
 
@@ -2688,6 +2978,12 @@ def main():
     gridded_launches["kgrid_peaks_gridded_streamed"] = gridded_streamed(
         dev, proj, host_vel, k_vecs, grid_shape, gridded_peaks)
     log('gridded', f"streamed gridded phase took {time.perf_counter() - t0:.2f} s")
+
+    # -- 16a/b. the mesh sweeps on the working size -----------------------------
+    t0 = time.perf_counter()
+    mesh_group, mesh_launches, mesh_shapes = mesh_grid(dev, proj, calc, host_vel, k_vecs,
+                                                       grid_shape, oracle, cols)
+    log('mesh', f"mesh phase (a, b) took {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     rerun_launches = resume(calc, proj, k_vecs)
     log('resume', f"resume phase took {time.perf_counter() - t0:.2f} s")
@@ -2721,6 +3017,13 @@ def main():
     rdf_working_size(dev, proj, thermal, side)
     rdf_small(dev)
     log('rdf', f"g(r) phase took {time.perf_counter() - t0:.2f} s")
+
+    # -- 16c/d/e. the mesh's other sweeps, two processes, the pod sweep ---------
+    t0 = time.perf_counter()
+    rest_launches, rest_shapes = mesh_rest(dev, proj, mesh_group, thermal, side, k_vecs)
+    mesh_launches.update(rest_launches)
+    mesh_shapes += rest_shapes
+    log('mesh', f"mesh phase (c, d, e) took {time.perf_counter() - t0:.2f} s")
     del host_pos, host_vel, thermal
     t0 = time.perf_counter()
     cli_launches, cli_loop = command_line(dev, proj)
@@ -2806,14 +3109,15 @@ def main():
                               "calculate_fast": tier_info['fast']['launches'],
                               "npt_peaks": npt_peaks_launches, "npt": npt_launches,
                               "npt_chain": npt_chain_launches, "cli": cli_launches,
-                              **gridded_launches, **session_launches,
+                              **gridded_launches, **session_launches, **mesh_launches,
                               # one count over the whole phase: every engine, resident and streamed
                               "dsf_exact_factored_incremental": dsf_info['launches']},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
-            for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]}]}),
+            for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]
+        + [{"path": "mesh", "shapes": [shape], "rel_err": err} for shape, err in mesh_shapes]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

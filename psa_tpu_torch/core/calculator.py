@@ -35,8 +35,10 @@ and ``calculate_kgrid_peaks``; the 'factored' and 'incremental' phase engines
 serve the instantaneous-phase family (``phase_mode``).  Neither is what
 'auto' picks.
 
-Not ported here (raises ``NotImplementedError``; see ROADMAP.md): device
-meshes (``mesh=``).  The JAX class's other public methods are absent.
+Device meshes: the ``*_sharded`` methods and every ``mesh=`` argument run
+the sweeps over a (t, a, k) mesh of :mod:`psa_tpu_torch.parallel` (several
+cards, positions repeated on one card, or ranks of a process group), every
+shard's projection through the same kernel.
 """
 from __future__ import annotations
 
@@ -74,10 +76,6 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     if debug.active:
         debug.check_arrays(debug.caller(), (host,))
     return host
-
-
-def _not_ported(what: str, row: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported (ROADMAP {row})")
 
 
 class _Projections:
@@ -1321,16 +1319,18 @@ class SEDCalculator:
                 float(mat[0, 0, fixed_col]),
                 (slow_col, fast_col, fixed_col))
 
-    def _group_block_source(self, group_idx: np.ndarray):
+    def _group_block_source(self, group_idx: np.ndarray, raw: Optional[str] = None):
         """Streamed host-side view of one group's SED input data, for the
         gridded sweep of a group over ``max_device_bytes``:
         ``read_block(t0, t1, a0, a1)`` applies the transforms of
         :meth:`_group_device_arrays` (displacement-mode mean subtraction, in
-        float64 against the stored means, and mass weights) per block read."""
-        traj, disp = self.traj, self.use_displacements
+        float64 against the stored means, and mass weights) per block read.
+        ``raw`` ('positions' or 'velocities') reads that array untransformed."""
+        traj, disp = self.traj, self.use_displacements and raw is None
         mean64 = self.mean_positions64[group_idx] if disp else None
         weights = (np.sqrt(traj.masses[group_idx]).astype(np.float32)
-                   if self.mass_weighted else None)
+                   if self.mass_weighted and raw is None else None)
+        plain = traj.positions if raw == 'positions' else traj.velocities
         take = self._host_blocks(group_idx)
 
         class _Source:
@@ -1343,7 +1343,7 @@ class SEDCalculator:
                     block = take(traj.positions[t0:t1], a0, a1).astype(np.float64)
                     block = (block - mean64[a0:a1]).astype(np.float32)
                 else:
-                    block = np.asarray(take(traj.velocities[t0:t1], a0, a1), dtype=np.float32)
+                    block = np.asarray(take(plain[t0:t1], a0, a1), dtype=np.float32)
                 if weights is not None:
                     block = block * weights[None, a0:a1, None]
                 return block
@@ -1546,32 +1546,32 @@ class SEDCalculator:
     def calculate_npt_browse(self, k_miller: np.ndarray, mesh=None, **browse_kwargs):
         """Device-reduced browse planes for a time-dependent (NPT) cell: the
         fractional anchor of :meth:`calculate_npt` on
-        :meth:`calculate_kgrid_browse` (``browse_kwargs`` pass through).
-        ``mesh`` is not ported and raises.
+        :meth:`calculate_kgrid_browse`, or with ``mesh`` on
+        :meth:`calculate_kgrid_browse_sharded` (``browse_kwargs`` pass through).
 
         Returns:
             (freqs_kept, intensity (n_keep, n_k) float32, phase or None,
              k_cart (n_k, 3) mean-cell Cartesian images).
         """
-        if mesh is not None:
-            raise _not_ported("mesh= (the multi-device sweep)", "A13")
         k_eff, k_cart, _ = self._npt_k_setup(k_miller)
         freqs, inten, phase = self._fractional(
-            lambda: self.calculate_kgrid_browse(k_eff, **browse_kwargs))
+            lambda: self.calculate_kgrid_browse(k_eff, **browse_kwargs) if mesh is None
+            else self.calculate_kgrid_browse_sharded(mesh, k_eff, **browse_kwargs))
         return freqs, inten, phase, k_cart
 
     def calculate_npt_peaks(self, k_miller: np.ndarray, mesh=None, **peaks_kwargs):
         """On-device peaks for a time-dependent (NPT) cell: the fractional
-        anchor of :meth:`calculate_npt` on :meth:`calculate_kgrid_peaks`
-        (``peaks_kwargs`` pass through).  ``mesh`` is not ported and raises.
+        anchor of :meth:`calculate_npt` on :meth:`calculate_kgrid_peaks`, or
+        with ``mesh`` on :meth:`calculate_kgrid_peaks_sharded`
+        (``peaks_kwargs`` pass through).
 
         Returns the peaks result plus ``k_cart``:
         (freq_surfaces, intensity_surfaces, width_surfaces[, phase], k_cart).
         """
-        if mesh is not None:
-            raise _not_ported("mesh= (the multi-device sweep)", "A13")
         k_eff, k_cart, _ = self._npt_k_setup(k_miller)
-        out = self._fractional(lambda: self.calculate_kgrid_peaks(k_eff, **peaks_kwargs))
+        out = self._fractional(
+            lambda: self.calculate_kgrid_peaks(k_eff, **peaks_kwargs) if mesh is None
+            else self.calculate_kgrid_peaks_sharded(mesh, k_eff, **peaks_kwargs))
         return tuple(out) + (k_cart,)
 
     # ------------------------------------------------------------------
@@ -1593,7 +1593,8 @@ class SEDCalculator:
             self._phase_box_dev = self._to_device(box)
         return self._phase_box_dev
 
-    def _phase_cfg(self, k_vectors_3d) -> Tuple[Optional[torch.Tensor], str]:
+    def _phase_cfg(self, k_vectors_3d, mesh: bool = False
+                   ) -> Tuple[Optional[torch.Tensor], str]:
         """(box, mode) of the instantaneous-phase engine on this k set.
 
         'auto' is 'exact' in every family.  The incremental engine's
@@ -1601,9 +1602,11 @@ class SEDCalculator:
         k, and the factored engine's anchor ⊕ delta algebra needs lattice k
         outright: off-lattice k (``commensurate_deviation`` > 1e-3) runs
         'exact'.  A singular box (no minimum image) turns 'incremental'
-        into 'exact'.  ``box`` is the device cell matrix for 'incremental',
-        else None."""
+        into 'exact', and so does a ``mesh`` 'factored'.  ``box`` is the
+        device cell matrix for 'incremental', else None."""
         mode = 'exact' if self.phase_mode == 'auto' else self.phase_mode
+        if mode == 'factored' and mesh:
+            mode = 'exact'
         if mode != 'exact' and len(k_vectors_3d) and instantaneous.commensurate_deviation(
                 k_vectors_3d, self.traj.box_matrix) > 1e-3:
             mode = 'exact'
@@ -2207,11 +2210,15 @@ class SEDCalculator:
             max_frames: frames sampled (evenly strided).
             atom_block: A-side tile edge; with ``max_device_bytes`` it bounds
                 the (t, A, B) distance tiles.
-            mesh: not ported (raises).
+            mesh: optional (t, a, k) device mesh: the A atoms shard over all
+                its positions, B goes whole to each device, and the integer
+                counts are summed (:func:`psa_tpu_torch.parallel.rdf_sweep_step`);
+                per-position tiles keep the one-device sizes.
             method: 'brute' | 'cells' | 'auto'.  'auto' (default) builds the
                 cell grid, measures the actual bucket occupancy, and takes
                 the cell path only when its padded pair count is at most
-                half the brute sweep's.  The choice taken is recorded on
+                half the brute sweep's (one device only: a mesh always runs
+                the brute sweep).  The choice taken is recorded on
                 ``self._last_rdf_method``.
             cell_block: cells per device tile on the 'cells' path.
 
@@ -2247,13 +2254,11 @@ class SEDCalculator:
         if method == 'cells' and mesh is not None:
             raise ValueError("method='cells' is single-device; drop mesh= "
                              "(the mesh path shards the brute sweep)")
-        if mesh is not None:
-            raise _not_ported("mesh= (the multi-device sweep)", "A13")
         self._last_rdf_method = None   # set at the start of whichever path runs
         # host seconds the cells path spends on occupancy and bucketing
         self._last_rdf_host_seconds = 0.0
         counts = None
-        if method != 'brute':
+        if method != 'brute' and mesh is None:
             counts = self._rdf_counts_cells(
                 group_a, group_b, same, frames, h, float(r_max), n_bins,
                 cell_block, force=(method == 'cells'))
@@ -2261,7 +2266,7 @@ class SEDCalculator:
             self._last_rdf_method = 'brute'
             counts = self._rdf_counts_brute(
                 group_a, group_b, same, frames, stride, h, float(r_max),
-                n_bins, atom_block)
+                n_bins, atom_block, mesh)
 
         shell_vol = 4.0 / 3.0 * np.pi * (edges[1:] ** 3 - edges[:-1] ** 3)
         # equal-global-id pairs are dropped, so subtract |A ∩ B| (= N for
@@ -2280,8 +2285,9 @@ class SEDCalculator:
         return max(1 << 22, int(self.max_device_bytes) // structure.PAIR_BYTES)
 
     def _rdf_counts_brute(self, group_a, group_b, same, frames, stride, h,
-                          r_max, n_bins, atom_block) -> np.ndarray:
-        """Pair counts (float64) by the full A×B tile sweep."""
+                          r_max, n_bins, atom_block, mesh=None) -> np.ndarray:
+        """Pair counts (float64) by the full A×B tile sweep, on this
+        calculator's device or over ``mesh``."""
         from ..ops import structure
         # ragged tiles need no padding, so the clamp only bounds memory
         atom_block = max(1, min(atom_block, max(group_a.size, group_b.size)))
@@ -2294,6 +2300,16 @@ class SEDCalculator:
         logger.info("RDF: %d frames (stride %d), %dx%d atoms, tiles %dx%d, t_chunk=%d.",
                     len(frames), stride, group_a.size, group_b.size, atom_block, b_block,
                     t_chunk)
+        if mesh is not None:
+            from ..parallel.sharded import rdf_sweep_step
+            step = rdf_sweep_step(mesh, n_bins, atom_block, b_block)
+            total = np.zeros(n_bins, dtype=np.float64)
+            for f0 in range(0, len(frames), t_chunk):
+                pos_t = self.traj.positions[frames[f0:f0 + t_chunk]]
+                pa = pos_t[:, group_a, :]
+                total += step(pa, group_a, pa if same else pos_t[:, group_b, :], group_b,
+                              h, h_inv, r_max)
+            return total
         ida = self._to_device(group_a, np.int64)
         idb = ida if same else self._to_device(group_b, np.int64)
         counts = torch.zeros(n_bins, dtype=torch.int64, device=self.device)
@@ -2476,8 +2492,8 @@ class SEDCalculator:
         :mod:`psa_tpu_torch.ops.transport` for conventions and units.  Modes
         whose linewidth is at or below ``resolution_factor``/(n_t·dt) are
         skipped (``KappaResult.n_modes_used``).  ``volume_a3`` defaults to
-        det(box_matrix); ``width_method`` is pinned to 'lorentzian';
-        ``mesh`` is not ported and raises.
+        det(box_matrix); ``width_method`` is pinned to 'lorentzian'; with
+        ``mesh`` the peaks come from :meth:`calculate_kgrid_peaks_sharded`.
 
         Returns:
             (result, band_freqs, v_x, v_y): a
@@ -2485,8 +2501,6 @@ class SEDCalculator:
             band-sorted (n_bands, gx, gy) frequency sheets and velocity fields.
         """
         from ..ops import dispersion, transport
-        if mesh is not None:
-            raise _not_ported("mesh= (the multi-device sweep)", "A13")
         if peaks_kwargs.get('chiral'):
             raise ValueError("thermal conductivity reads intensity peaks; "
                              "drop chiral=True.")
@@ -2495,9 +2509,10 @@ class SEDCalculator:
                              "width_method='lorentzian'.")
         kx_vals, ky_vals, _, _ = self._detect_grid_axes(
             np.asarray(k_vectors_3d, dtype=np.float32), k_grid_shape)
-        pf, ph, pw = self.calculate_kgrid_peaks(
-            k_vectors_3d, n_peaks=n_bands, k_grid_shape=tuple(k_grid_shape),
-            width_method='lorentzian', **peaks_kwargs)
+        peaks = (self.calculate_kgrid_peaks if mesh is None
+                 else functools.partial(self.calculate_kgrid_peaks_sharded, mesh))
+        pf, ph, pw = peaks(k_vectors_3d, n_peaks=n_bands, k_grid_shape=tuple(k_grid_shape),
+                           width_method='lorentzian', **peaks_kwargs)
         gx, gy = int(k_grid_shape[0]), int(k_grid_shape[1])
         pf = pf.reshape(n_bands, gx, gy)
         ph = ph.reshape(n_bands, gx, gy)
@@ -2514,52 +2529,402 @@ class SEDCalculator:
                                          mode_weights=mode_weights)
         return result, pf, vx, vy
 
-    @staticmethod
-    def _detect_grid_axes(k_vectors_3d: np.ndarray, k_grid_shape):
-        """Classify a tensor-product k-grid's columns as (slow, fast, fixed).
+    # ------------------------------------------------------------------
+    # Device meshes: the sweeps over a (t, a, k) mesh, full group semantics
+    # ------------------------------------------------------------------
 
-        Detection is by which grid axis each component varies along.  A
-        degenerate grid (n1==1 or n2==1) leaves its plane column constant,
-        indistinguishable by value from the fixed column, so unassigned roles
-        follow get_k_grid's cyclic plane convention (xy->(0,1,2),
-        yz->(1,2,0), zx->(2,0,1)).
+    def _group_weights(self, atom_groups: List[np.ndarray], summation_mode: str):
+        """Group index lists → per-atom weight vectors for the mesh sweeps.
 
-        Returns (kx_vals f64, ky_vals f64, k_fixed, (slow, fast, fixed)).
+        Returns (weights or None, single_spectrum): None is the unweighted
+        all-atoms sweep; a weight counts an atom once per occurrence in its
+        group (as the one-device gather does) and carries √mass when the
+        calculator is mass-weighted.
         """
-        n1, n2 = k_grid_shape
-        if n1 * n2 != len(k_vectors_3d):
-            raise ValueError("k_grid_shape does not match k_vectors_3d")
-        mat = np.asarray(k_vectors_3d, dtype=np.float32).reshape(n1, n2, 3)
-        slow_col = fast_col = None
-        for c in range(3):
-            col = mat[:, :, c]
-            varies_slow = not np.allclose(col, col[:1, :], atol=1e-7)
-            varies_fast = not np.allclose(col, col[:, :1], atol=1e-7)
-            if varies_slow and varies_fast:
-                raise ValueError(
-                    "k_vectors_3d is not a tensor-product grid from get_k_grid")
-            if varies_slow:
-                if slow_col is not None:
-                    raise ValueError(
-                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
-                slow_col = c
-            elif varies_fast:
-                if fast_col is not None:
-                    raise ValueError(
-                        "k_vectors_3d is not a tensor-product grid from get_k_grid")
-                fast_col = c
-        if slow_col is not None and fast_col is not None:
-            fixed_col = 3 - slow_col - fast_col
-        elif fast_col is not None:          # 1 x n2 grid
-            slow_col, fixed_col = (fast_col - 1) % 3, (fast_col + 1) % 3
-        elif slow_col is not None:          # n1 x 1 grid
-            fast_col, fixed_col = (slow_col + 1) % 3, (slow_col + 2) % 3
-        else:                               # 1 x 1 grid
-            slow_col, fast_col, fixed_col = 0, 1, 2
-        return (mat[:, 0, slow_col].astype(np.float64),
-                mat[0, :, fast_col].astype(np.float64),
-                float(mat[0, 0, fixed_col]),
-                (slow_col, fast_col, fixed_col))
+        n_atoms = self.traj.n_atoms
+        single = summation_mode == 'coherent' or len(atom_groups) <= 1
+        if single:
+            groups = [np.unique(np.concatenate(atom_groups)).astype(int)
+                      if len(atom_groups) > 1 else
+                      (atom_groups[0] if atom_groups else np.array([], dtype=int))]
+        else:
+            groups = atom_groups
+        if (len(groups) == 1 and groups[0].size == n_atoms and not self.mass_weighted
+                and np.array_equal(np.sort(groups[0]), np.arange(n_atoms))):
+            return None, single
+        weights = []
+        for g in groups:
+            w = np.bincount(g, minlength=n_atoms).astype(np.float32)
+            if self.mass_weighted:
+                w *= np.sqrt(self.traj.masses).astype(np.float32)
+            weights.append(w)
+        return weights, single
+
+    def _membership(self, group_idx: np.ndarray) -> Optional[np.ndarray]:
+        """0/1 weights of the instantaneous-phase mesh sweeps; None for all atoms."""
+        if group_idx.size == self.traj.n_atoms and np.array_equal(
+                group_idx, np.arange(self.traj.n_atoms)):
+            return None
+        w = np.zeros(self.traj.n_atoms, dtype=np.float32)
+        w[group_idx] = 1.0
+        return w
+
+    def _mesh_phase(self, k_vectors_3d):
+        """(host cell or None, mode) of the mesh's instantaneous-phase sweeps:
+        :meth:`_phase_cfg` with 'factored' run as 'exact' (its product
+        columns are a one-device chunk mechanism, as in the JAX package)."""
+        _, mode = self._phase_cfg(k_vectors_3d, mesh=True)
+        return (self.traj.box_matrix if mode == 'incremental' else None), mode
+
+    def _sharded_data(self, data):
+        """(data, subtract_mean) of the mesh's SED: the velocities, or in
+        displacement mode the positions with the mean subtracted on the
+        devices; a given ``data`` is taken as the calculator's mode says."""
+        if data is not None:
+            return data, self.use_displacements
+        if self.use_displacements:
+            return self.traj.positions, True
+        return self.traj.velocities, False
+
+    def _gridded_sharded_setup(self, atom_groups, single, k_vectors_3d, k_grid_shape, data):
+        """Checks, plan and data of ``engine='gridded'`` on a mesh: the
+        group's resident device data, its streamed host view when it is over
+        ``max_device_bytes``, or a user source that already holds SED-ready
+        data (velocities, or mean-subtracted, mass-weighted displacements)."""
+        if not single:
+            raise ValueError("engine='gridded' supports coherent "
+                             "(single-spectrum) sweeps only.")
+        if k_grid_shape is None:
+            raise ValueError("engine='gridded' needs k_grid_shape.")
+        if data is not None and not hasattr(data, 'read_block'):
+            raise ValueError("engine='gridded' takes the trajectory's group data or a "
+                             "BlockSource; array overrides run on the direct engine.")
+        union = (np.unique(np.concatenate(atom_groups)).astype(int)
+                 if len(atom_groups) > 1 else atom_groups[0])
+        plan = self._gridded_plan(union, k_vectors_3d, k_grid_shape)
+        if data is not None:
+            if data.n_atoms != union.size:
+                raise ValueError(f"engine='gridded' BlockSource has {data.n_atoms} atoms "
+                                 f"but the group selects {union.size}")
+            if data.n_frames != self.traj.n_frames:
+                raise ValueError(f"engine='gridded' BlockSource has {data.n_frames} frames "
+                                 f"but the trajectory has {self.traj.n_frames}")
+            if self.use_displacements or self.mass_weighted:
+                raise ValueError("engine='gridded' consumes a BlockSource as-is; "
+                                 "displacement mode / mass weighting are not applied "
+                                 "on this path: stream pre-transformed data or use "
+                                 "engine='direct'")
+            return plan, data
+        if union.size and self._oversize(union):
+            return plan, self._group_block_source(union)
+        return plan, self._group_device_arrays(union)[0]
+
+    def _gridded_sharded(self, mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data,
+                         freq_idx, **kwargs):
+        """:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_sharded` over the
+        devices of the mesh's positions, one process's."""
+        from ..ops import gridded
+        if mesh.world > 1:
+            raise ValueError("engine='gridded' runs its ky stripes in one process; "
+                             "use engine='direct' on a mesh of several processes")
+        plan, payload = self._gridded_sharded_setup(atom_groups, single, k_vectors_3d,
+                                                    k_grid_shape, data)
+        stats = {}
+        out = gridded.gridded_kgrid_sharded(
+            payload, plan, freq_idx, [d for *_, d in mesh.local_positions()],
+            precision=self.precision, grid_budget_bytes=self._gridded_grid_budget(),
+            stats=stats, **kwargs)
+        self.streamed_bytes += stats['bytes_streamed']
+        return out
+
+    def calculate_kgrid_browse_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                                       basis_atom_indices=None, basis_atom_types=None,
+                                       summation_mode: str = 'coherent',
+                                       max_freq: Optional[float] = None,
+                                       chiral: bool = False, chiral_axis: str = 'z',
+                                       angle_range_opt: str = 'C',
+                                       t_superchunk: Optional[int] = None,
+                                       data=None, engine: str = 'direct',
+                                       k_grid_shape: Optional[Tuple[int, int]] = None,
+                                       welch_segments: Optional[int] = None,
+                                       welch_window: str = 'hann'):
+        """:meth:`calculate_kgrid_browse` over a (t, a, k) device mesh
+        (:func:`psa_tpu_torch.parallel.sharded_sed_spectrum`).
+
+        The group semantics of the one-device path: the coherent union or
+        incoherent groups (their intensities summed in the mesh while the
+        data streams once), displacement mode, mass weighting, the chiral
+        phase, Welch segments; only the filtered float32 planes leave the
+        devices.  Every shard's projection is the kernel's.
+
+        Args:
+            mesh: from :func:`psa_tpu_torch.parallel.make_mesh`.
+            t_superchunk: frames per superchunk streamed through the mesh.
+            data: optional (n_t, n_atoms, 3) array-like or BlockSource in
+                place of the trajectory's velocities (positions in
+                displacement mode).
+            engine: 'direct' or 'gridded': the NUFFT engine with ky stripes
+                over the mesh's devices (coherent, uniform grids, needs
+                ``k_grid_shape``; a group over ``max_device_bytes``, or a
+                SED-ready BlockSource given as ``data``, streams in
+                superchunks, one pass feeding every stripe).
+
+        Returns:
+            (freqs_kept, intensity (n_keep, n_k) float32, phase or None).
+        """
+        from ..parallel.sharded import sharded_sed_spectrum
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
+                             f"got {summation_mode}")
+        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                summation_mode)
+        weights, single = self._group_weights(atom_groups, summation_mode)
+        if chiral and not single:
+            raise ValueError("Chiral phase needs a single complex spectrum; "
+                             "use coherent summation.")
+        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
+        segments = self._welch_segments(welch_segments, welch_window)
+        if segments > 1 and engine == 'gridded':
+            raise ValueError("welch_segments runs on the direct engine "
+                             "(the NUFFT reduction carries no segment axis).")
+        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
+        if engine == 'gridded':
+            intensity, phase = self._gridded_sharded(
+                mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data, freq_idx,
+                comp_pair=comp_pair, angle_range_opt=angle_range_opt,
+                t_superchunk=t_superchunk)
+            return freqs_kept, intensity, phase
+        if engine != 'direct':
+            raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
+        src, subtract = self._sharded_data(data)
+        out = sharded_sed_spectrum(
+            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            want_intensity=True, t_superchunk=t_superchunk, freq_indices=freq_idx,
+            atom_weights=weights, subtract_mean=subtract, comp_pair=comp_pair,
+            angle_range_opt=angle_range_opt, welch_segments=segments,
+            welch_window=welch_window if segments > 1 else 'rect')
+        if comp_pair is not None:
+            return (freqs_kept,) + tuple(out)
+        return freqs_kept, out, None
+
+    def calculate_kgrid_peaks_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                                      basis_atom_indices=None, basis_atom_types=None,
+                                      summation_mode: str = 'coherent',
+                                      max_freq: Optional[float] = None,
+                                      n_peaks: int = 1, exclusion_bins: int = 4,
+                                      chiral: bool = False, chiral_axis: str = 'z',
+                                      angle_range_opt: str = 'C',
+                                      width_method: str = 'rms',
+                                      t_superchunk: Optional[int] = None,
+                                      data=None, engine: str = 'direct',
+                                      k_grid_shape: Optional[Tuple[int, int]] = None,
+                                      welch_segments: Optional[int] = None,
+                                      welch_window: str = 'hann'):
+        """:meth:`calculate_kgrid_peaks` over a device mesh: the peak triplet
+        per k (the phase at each peak appended with ``chiral``), found on the
+        stripes' devices.  ``engine='gridded'`` runs the NUFFT engine's ky
+        stripes over the mesh's devices (coherent, no chiral phase).  See
+        :meth:`calculate_kgrid_browse_sharded` for the other arguments."""
+        from ..parallel.sharded import sharded_sed_spectrum
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
+                             f"got {summation_mode}")
+        if n_peaks < 1:
+            raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
+        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                summation_mode)
+        weights, single = self._group_weights(atom_groups, summation_mode)
+        if chiral and not single:
+            raise ValueError("chiral peaks need coherent summation.")
+        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
+        segments = self._welch_segments(welch_segments, welch_window)
+        if segments > 1 and engine == 'gridded':
+            raise ValueError("welch_segments runs on the direct engine "
+                             "(the NUFFT reduction carries no segment axis).")
+        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
+        if freq_idx.size == 0:
+            raise ValueError("No frequencies retained; check max_freq.")
+        if engine == 'gridded':
+            if chiral:
+                raise ValueError("chiral peaks run on the direct engine "
+                                 "(the gridded peaks path carries no phase).")
+            return self._gridded_sharded(
+                mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data, freq_idx,
+                freqs_kept=freqs_kept, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                width_method=width_method, t_superchunk=t_superchunk)
+        if engine != 'direct':
+            raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
+        src, subtract = self._sharded_data(data)
+        return sharded_sed_spectrum(
+            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            t_superchunk=t_superchunk, freq_indices=freq_idx, n_peaks=n_peaks,
+            peak_freqs_thz=freqs_kept, exclusion_bins=exclusion_bins, atom_weights=weights,
+            subtract_mean=subtract, comp_pair=comp_pair, angle_range_opt=angle_range_opt,
+            width_method=width_method, welch_segments=segments,
+            welch_window=welch_window if segments > 1 else 'rect')
+
+    def calculate_lt_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                             basis_atom_indices=None, basis_atom_types=None,
+                             summation_mode: str = 'coherent',
+                             max_freq: Optional[float] = None,
+                             t_superchunk: Optional[int] = None, data=None):
+        """:meth:`calculate_lt` over a (t, a, k) device mesh: the split runs
+        on each stripe's device; incoherent groups sum their (I_L, I_T)
+        pairs in the mesh while the data streams once.  Arguments as in
+        :meth:`calculate_kgrid_browse_sharded`.
+
+        Returns:
+            (freqs_kept, I_L (n_keep, n_k) float32, I_T (n_keep, n_k) float32).
+        """
+        from ..parallel.sharded import sharded_sed_spectrum
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
+                             f"got {summation_mode}")
+        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                summation_mode)
+        weights, _ = self._group_weights(atom_groups, summation_mode)
+        freqs_kept, freq_idx = self._kept_freqs(max_freq)
+        src, subtract = self._sharded_data(data)
+        i_l, i_t = sharded_sed_spectrum(
+            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            t_superchunk=t_superchunk, freq_indices=freq_idx, atom_weights=weights,
+            subtract_mean=subtract, lt=True)
+        return freqs_kept, i_l, i_t
+
+    def calculate_dsf_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                              basis_atom_indices=None, basis_atom_types=None,
+                              max_freq: Optional[float] = None,
+                              t_superchunk: Optional[int] = None,
+                              welch_segments: Optional[int] = None,
+                              welch_window: str = 'hann'):
+        """:meth:`calculate_dsf` over a (t, a, k) device mesh
+        (:func:`psa_tpu_torch.parallel.sharded_dsf`): positions and
+        velocities stream in lockstep superchunks, only the three filtered
+        planes leave the devices.  'factored' runs as 'exact' on a mesh.
+
+        Returns:
+            (freqs_kept, S, C_L, C_T), as :meth:`calculate_dsf`.
+        """
+        from ..parallel.sharded import sharded_dsf
+        self._dsf_commensurate_warn(k_vectors_3d)
+        segments = self._welch_segments(welch_segments, welch_window)
+        freqs_kept, freq_idx = self._dsf_freqs(max_freq, segments)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        box, mode = self._mesh_phase(k_vectors_3d)
+        s, c_l, c_t = sharded_dsf(
+            mesh, self.traj.positions, self.traj.velocities, k_vectors_3d,
+            freq_indices=freq_idx, precision=self.precision, t_superchunk=t_superchunk,
+            atom_weights=self._membership(group_idx), box=box, phase_mode=mode,
+            welch_segments=segments, welch_window=welch_window if segments > 1 else 'rect')
+        return freqs_kept, s, c_l, c_t
+
+    def calculate_dsf_self_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                                   basis_atom_indices=None, basis_atom_types=None,
+                                   max_freq: Optional[float] = None,
+                                   atom_chunk: Optional[int] = None):
+        """:meth:`calculate_dsf_self` over a (t, a, k) device mesh: atoms
+        over the combined (t, a) positions, the whole time axis on each,
+        streamed in chunks of ``atom_chunk``.  Returns (freqs_kept, S_s)."""
+        from ..parallel.sharded import sharded_dsf_self
+        self._dsf_commensurate_warn(k_vectors_3d)
+        freqs_kept, freq_idx = self._dsf_freqs(max_freq)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        if len(k_vectors_3d) == 0 or group_idx.size == 0:
+            return freqs_kept, np.zeros((len(freq_idx), len(k_vectors_3d)), dtype=np.float32)
+        box, mode = self._mesh_phase(k_vectors_3d)
+        return freqs_kept, sharded_dsf_self(
+            mesh, self.traj.positions, k_vectors_3d, freq_indices=freq_idx,
+            atom_weights=self._membership(group_idx), atom_chunk=atom_chunk, box=box,
+            phase_mode=mode)
+
+    def calculate_sk_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                             basis_atom_indices=None, basis_atom_types=None,
+                             t_superchunk: Optional[int] = None) -> np.ndarray:
+        """:meth:`calculate_sk` over a (t, a, k) device mesh: only positions
+        stream and only the density channel accumulates.  Returns (n_k,)."""
+        from ..parallel.sharded import sharded_sk
+        self._dsf_commensurate_warn(k_vectors_3d)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        if len(k_vectors_3d) == 0 or group_idx.size == 0:
+            return np.zeros(len(k_vectors_3d), dtype=np.float32)
+        box, mode = self._mesh_phase(k_vectors_3d)
+        return sharded_sk(mesh, self.traj.positions, k_vectors_3d, precision=self.precision,
+                          t_superchunk=t_superchunk, atom_weights=self._membership(group_idx),
+                          box=box, phase_mode=mode)
+
+    def calculate_isf_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                              basis_atom_indices=None, basis_atom_types=None,
+                              n_lags: Optional[int] = None,
+                              t_superchunk: Optional[int] = None):
+        """:meth:`calculate_isf` over a (t, a, k) device mesh: the density
+        stacks of :meth:`calculate_sk_sharded`, each stripe's linear FFT
+        autocorrelation as the reduction.  Returns (lags_ps, F (n_lags, n_k))."""
+        from ..parallel.sharded import sharded_isf
+        self._dsf_commensurate_warn(k_vectors_3d)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        if len(k_vectors_3d) == 0 or group_idx.size == 0:
+            return lags_ps, np.zeros((n_lags, len(k_vectors_3d)), dtype=np.float32)
+        box, mode = self._mesh_phase(k_vectors_3d)
+        return lags_ps, sharded_isf(
+            mesh, self.traj.positions, k_vectors_3d, n_lags, precision=self.precision,
+            t_superchunk=t_superchunk, atom_weights=self._membership(group_idx), box=box,
+            phase_mode=mode)
+
+    def calculate_isf_self_sharded(self, mesh, k_vectors_3d: np.ndarray,
+                                   basis_atom_indices=None, basis_atom_types=None,
+                                   n_lags: Optional[int] = None,
+                                   atom_chunk: Optional[int] = None):
+        """:meth:`calculate_isf_self` over a (t, a, k) device mesh: the
+        sharding of :meth:`calculate_dsf_self_sharded` with the
+        autocorrelation.  Returns (lags_ps, F_s (n_lags, n_k))."""
+        from ..parallel.sharded import sharded_isf_self
+        self._dsf_commensurate_warn(k_vectors_3d)
+        group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        if len(k_vectors_3d) == 0 or group_idx.size == 0:
+            return lags_ps, np.zeros((n_lags, len(k_vectors_3d)), dtype=np.float32)
+        box, mode = self._mesh_phase(k_vectors_3d)
+        return lags_ps, sharded_isf_self(
+            mesh, self.traj.positions, k_vectors_3d, n_lags,
+            atom_weights=self._membership(group_idx), atom_chunk=atom_chunk, box=box,
+            phase_mode=mode)
+
+    def _timecorr_sharded(self, mesh, kind: str, basis_atom_indices, basis_atom_types,
+                          n_lags: Optional[int], atom_chunk: Optional[int]):
+        """MSD/VACF over a mesh, one row per incoherent group: each group's
+        columns are read through a host view (no copy of the trajectory)."""
+        from ..parallel.sharded import sharded_timecorr
+        n_lags = self._isf_lags(n_lags)
+        lags_ps = np.arange(n_lags, dtype=np.float32) * float(self.dt_ps)
+        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'incoherent')
+        out = np.zeros((len(groups), n_lags), dtype=np.float32)
+        raw = 'positions' if kind == 'msd' else 'velocities'
+        for gi, group in enumerate(groups):
+            group = np.asarray(group, dtype=int)
+            if group.size:
+                out[gi] = sharded_timecorr(mesh, self._group_block_source(group, raw=raw),
+                                           kind, n_lags, atom_chunk=atom_chunk)
+        return lags_ps, out
+
+    def calculate_msd_sharded(self, mesh, basis_atom_indices=None, basis_atom_types=None,
+                              n_lags: Optional[int] = None,
+                              atom_chunk: Optional[int] = None):
+        """:meth:`calculate_msd` over a (t, a, k) device mesh: atoms over
+        all the positions (the observable has no k), one sum over them per
+        atom chunk.  Same (lags_ps, (n_groups, n_lags)) result."""
+        return self._timecorr_sharded(mesh, 'msd', basis_atom_indices, basis_atom_types,
+                                      n_lags, atom_chunk)
+
+    def calculate_vacf_sharded(self, mesh, basis_atom_indices=None, basis_atom_types=None,
+                               n_lags: Optional[int] = None,
+                               atom_chunk: Optional[int] = None):
+        """:meth:`calculate_vacf` over a (t, a, k) device mesh (see
+        :meth:`calculate_msd_sharded`)."""
+        return self._timecorr_sharded(mesh, 'vacf', basis_atom_indices, basis_atom_types,
+                                      n_lags, atom_chunk)
 
     # ------------------------------------------------------------------
     # Chiral phase

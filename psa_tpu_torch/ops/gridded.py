@@ -38,19 +38,23 @@ which needs them only on a TPU: the one-dispatch ``lax.scan`` form of the
 time-chunk loop, the (re, im) float32 pair convention, buffer donation, the
 padding of every row chunk to one compiled shape, and the host-allocator
 arena of ``psa_tpu/utils/host_alloc.py`` (pinned staging buffers are
-allocated once per sweep here).  The ky-stripe sweep over several devices
-(``gridded_kgrid_sharded``) is not ported.
+allocated once per sweep here).
+
+:func:`gridded_kgrid_sharded` splits the ky axis into stripes over a list of
+devices (a mesh's positions): every device holds the trajectory, or streams
+it, and computes its own stripe; no collective.
 """
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..utils.transfer import DeviceToHost, HostToDevice, gather_atoms
+from ..parallel.sharded import ArrayBlockSource  # noqa: F401 — the streamed sweep's source
+from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows, gather_atoms
 from . import spectral
 
 logger = logging.getLogger(__name__)
@@ -263,19 +267,6 @@ def cells_per_chunk(plan: GridPlan, weight_bytes: int = DEFAULT_WEIGHT_BYTES) ->
     return max(1, min(plan.n_rows, weight_bytes // max(per_row, 1)))
 
 
-class ArrayBlockSource:
-    """A host (n_t, N, 3) array as a streamed source: ``n_frames``,
-    ``n_atoms`` and ``read_block(t0, t1, a0, a1)``, the protocol the
-    streamed sweep reads (a group too large for the device)."""
-
-    def __init__(self, data: np.ndarray):
-        self._data = data
-        self.n_frames, self.n_atoms = int(data.shape[0]), int(data.shape[1])
-
-    def read_block(self, t0: int, t1: int, a0: int, a1: int) -> np.ndarray:
-        return self._data[t0:t1, a0:a1]
-
-
 def _chunk_slot_ranges(plan: GridPlan, row_starts, row_chunk: int):
     """Per row-chunk [s0, s1) ranges into the sorted atom order.
 
@@ -455,40 +446,56 @@ def _spread_gy_block(data: torch.Tensor, plan: GridPlan, packed_tabs, row_starts
     return grid
 
 
-def _spread_gy_block_streamed(src, plan: GridPlan, packed_tabs, row_starts, chunk_cols,
-                              ky: torch.Tensor, n_t: int, t_superchunk: int, t_chunk: int,
-                              weight_cache_bytes: int, device) -> Tuple[torch.Tensor, int]:
+def _spread_gy_blocks_streamed(src, plan: GridPlan, targets, row_starts, chunk_cols,
+                               n_t: int, t_superchunk: int, t_chunk: int,
+                               weight_cache_bytes: int) -> Tuple[list, int]:
     """Streamed form of :func:`_spread_gy_block` for a group too large for
-    the device: the source is read once, in superchunks of ``t_superchunk``
-    frames; of each, every row-chunk's compact atom slab crosses through
-    pinned staging on a side stream (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`:
-    the host gathers slab i+1 while the device spreads slab i).  The device
-    holds two slabs and the grid, never the trajectory.  The row-chunks'
-    weights are kept across superchunks when they all fit
-    ``weight_cache_bytes`` (they do not depend on time), else rebuilt.
-    Returns (grid, bytes moved to the device)."""
-    gyc = len(ky)
-    grid = torch.zeros((3, plan.n_cells, n_t, gyc), dtype=torch.complex64, device=device)
-    w_bytes = plan.n_rows * plan.bucket_size * plan.w * gyc * 8
-    keep = w_bytes <= weight_cache_bytes
-    cache: Dict[int, torch.Tensor] = {}
+    the device, feeding several ky blocks from one pass: ``targets`` is a
+    list of (ky, tabs) pairs, each ky block on its own device (``ky``'s)
+    with that device's packed tables.  The source is read once, in
+    superchunks of ``t_superchunk`` frames; of each, every row-chunk's
+    compact atom slab is gathered on the host once and crosses through
+    pinned staging on a side stream to each device that takes it
+    (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`: the host gathers
+    slab i+1 while the device spreads slab i).  A device holds two slabs and
+    its grids, never the trajectory.  A target's row-chunk weights are kept
+    across superchunks when they all fit ``weight_cache_bytes`` (they do not
+    depend on time), else rebuilt.  Returns (grids, bytes moved to the
+    devices)."""
+    grids = [torch.zeros((3, plan.n_cells, n_t, len(ky)), dtype=torch.complex64,
+                         device=ky.device) for ky, _ in targets]
+    keep = [plan.n_rows * plan.bucket_size * plan.w * len(ky) * 8 <= weight_cache_bytes
+            for ky, _ in targets]
+    caches: List[Dict[int, torch.Tensor]] = [{} for _ in targets]
     a_max = max(max((c.size for c in chunk_cols.values()), default=1), 1)
-    stager = HostToDevice(device, min(t_superchunk, n_t) * a_max * 3)
+    stagers: Dict[torch.device, HostToDevice] = {}
+    for ky, _ in targets:
+        if ky.device not in stagers:
+            stagers[ky.device] = HostToDevice(ky.device, min(t_superchunk, n_t) * a_max * 3)
     for ts0 in range(0, n_t, t_superchunk):
         ts1 = min(ts0 + t_superchunk, n_t)
         slab = src.read_block(ts0, ts1, 0, src.n_atoms)                # (ts, N, 3) host
         for r0 in row_starts:
-            cols = chunk_cols[r0]
-            data = stager.put(lambda dst: gather_atoms(dst, slab, cols),
-                              (ts1 - ts0, cols.size, 3))
-            weights = cache.get(r0)
-            if weights is None:
-                weights = _device_weights(packed_tabs[r0], ky)
-                if keep:
-                    cache[r0] = weights
-            _spread_chunk(grid, data, packed_tabs[r0], weights, plan, t_chunk, grid_t0=ts0)
-            del weights
-    return grid, stager.bytes_moved
+            cols, shape = chunk_cols[r0], (ts1 - ts0, chunk_cols[r0].size, 3)
+            gathered, data = [], {}
+            for dev, stager in stagers.items():
+                def fill(dst):
+                    if gathered:                    # gathered once, copied to the others
+                        copy_rows(dst, gathered[0])
+                    else:
+                        gather_atoms(dst, slab, cols)
+                        gathered.append(dst)
+                data[dev] = stager.put(fill, shape)
+            for j, (ky, tabs) in enumerate(targets):
+                weights = caches[j].get(r0)
+                if weights is None:
+                    weights = _device_weights(tabs[r0], ky)
+                    if keep[j]:
+                        caches[j][r0] = weights
+                _spread_chunk(grids[j], data[ky.device], tabs[r0], weights, plan, t_chunk,
+                              grid_t0=ts0)
+                del weights
+    return grids, sum(st.bytes_moved for st in stagers.values())
 
 
 def _streamed_budgets(plan: GridPlan, src, t_superchunk, data_budget_bytes, cell_chunk):
@@ -587,22 +594,51 @@ class _Sweep:
                                                self.n_t, self.t_superchunk)
         self.deconv = torch.from_numpy(plan.deconv_re).to(self.device)
 
-    def blocks(self):
+    def block_bounds(self, g_lo: int = 0, g_hi: Optional[int] = None):
+        """(g0, g1) of the ky blocks of columns [g_lo, g_hi)."""
+        g_hi = self.plan.gy if g_hi is None else g_hi
+        return [(g0, min(g0 + self.gy_chunk, g_hi)) for g0 in range(g_lo, g_hi, self.gy_chunk)]
+
+    def ky(self, g0: int, g1: int) -> torch.Tensor:
+        return torch.from_numpy(self.plan.ky_vals[g0:g1].astype(np.float32)).to(self.device)
+
+    def blocks(self, g_lo: int = 0, g_hi: Optional[int] = None):
         """Yield (g0, g1, grid): the (3, C, n_t, g1 − g0) complex64 grid of
-        each ky block."""
-        plan = self.plan
-        for g0 in range(0, plan.gy, self.gy_chunk):
-            g1 = min(g0 + self.gy_chunk, plan.gy)
-            ky = torch.from_numpy(plan.ky_vals[g0:g1].astype(np.float32)).to(self.device)
+        each ky block of columns [g_lo, g_hi)."""
+        for g0, g1 in self.block_bounds(g_lo, g_hi):
+            ky = self.ky(g0, g1)
             if self.streamed:
-                grid, moved = _spread_gy_block_streamed(
-                    self.src, plan, self.tabs, self.row_starts, self.chunk_cols, ky, self.n_t,
-                    self.t_superchunk, self.t_chunk, self.weight_cache_bytes, self.device)
+                (grid,), moved = _spread_gy_blocks_streamed(
+                    self.src, self.plan, [(ky, self.tabs)], self.row_starts, self.chunk_cols,
+                    self.n_t, self.t_superchunk, self.t_chunk, self.weight_cache_bytes)
                 self.bytes_streamed += moved
             else:
-                grid = _spread_gy_block(self.data, plan, self.tabs, self.row_starts, ky,
+                grid = _spread_gy_block(self.data, self.plan, self.tabs, self.row_starts, ky,
                                         self.n_t, self.t_chunk)
             yield g0, g1, grid
+
+    def reduce(self, grid: torch.Tensor, freq_dev: torch.Tensor, comp_pair,
+               angle_range_opt: str, n_peaks: Optional[int], fkept_dev, exclusion_bins: int,
+               width_method: str) -> torch.Tensor:
+        """One ky block's grid → (n_out, lead, gx·gyc) float32 on the device:
+        the intensity (and chiral phase) at the kept rows, or its peaks."""
+        gx, n_t = self.plan.gx, self.n_t
+        inten, kept = None, {}
+        for pol in range(3):
+            spec = _fft_take(_finish_grid(grid[pol], self.deconv, gx).reshape(n_t, -1),
+                             freq_dev)                                  # (n_f, gx·gyc)
+            part = spec.real ** 2 + spec.imag ** 2
+            inten = part if inten is None else inten + part
+            if comp_pair is not None and pol in comp_pair:
+                kept[pol] = spec
+        if n_peaks is not None:
+            return torch.stack(spectral.peak_reduce(
+                inten, fkept_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                width_method=width_method))
+        if comp_pair is not None:
+            return torch.stack([inten, spectral.chiral_phase(
+                kept[comp_pair[0]], kept[comp_pair[1]], angle_range_opt=angle_range_opt)])
+        return inten[None]
 
 
 def gridded_kgrid_browse(data, plan: GridPlan, freq_idx: np.ndarray,
@@ -684,29 +720,13 @@ def gridded_kgrid_browse(data, plan: GridPlan, freq_idx: np.ndarray,
     if not sweep.empty:                       # an empty atom set gives zero spectra
         dev = sweep.device
         freq_dev = torch.from_numpy(np.asarray(freq_idx, dtype=np.int64)).to(dev)
-        if n_peaks is not None:
-            fkept_dev = torch.from_numpy(np.asarray(freqs_kept, np.float32)).to(dev)
+        fkept_dev = (torch.from_numpy(np.asarray(freqs_kept, np.float32)).to(dev)
+                     if n_peaks is not None else None)
         readback = DeviceToHost(dev)
         for g0, g1, grid in sweep.blocks():
-            gyc = g1 - g0
-            inten, kept = None, {}
-            for pol in range(3):
-                spec = _fft_take(_finish_grid(grid[pol], sweep.deconv, gx).reshape(n_t, -1),
-                                 freq_dev)                                  # (n_f, gx·gyc)
-                part = spec.real ** 2 + spec.imag ** 2
-                inten = part if inten is None else inten + part
-                if comp_pair is not None and pol in comp_pair:
-                    kept[pol] = spec
+            out = sweep.reduce(grid, freq_dev, comp_pair, angle_range_opt, n_peaks, fkept_dev,
+                               exclusion_bins, width_method)
             del grid
-            if n_peaks is not None:
-                out = torch.stack(spectral.peak_reduce(
-                    inten, fkept_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
-                    width_method=width_method))
-            elif comp_pair is not None:
-                out = torch.stack([inten, spectral.chiral_phase(
-                    kept[comp_pair[0]], kept[comp_pair[1]], angle_range_opt=angle_range_opt)])
-            else:
-                out = inten[None]
 
             def sink(arrays, g0=g0, g1=g1):
                 full[:, :, :, g0:g1] = arrays[0].reshape(n_out, lead, gx, g1 - g0)
@@ -758,3 +778,121 @@ def gridded_kgrid_spectrum(data, plan: GridPlan,
         del grid
     readback.finish()
     return out.reshape(n_t, gx * gy, 3)
+
+
+def _replicate_per_device(data, plan: GridPlan, devs, *sweep_args) -> Dict[torch.device, _Sweep]:
+    """One :class:`_Sweep` per distinct device of ``devs``: a resident
+    ``data`` and the packed tables are sent to each device once, however many
+    stripes it runs (a streamed source stays on the host)."""
+    if not hasattr(data, 'read_block') and not isinstance(data, torch.Tensor):
+        data = torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32))
+    sweeps: Dict[torch.device, _Sweep] = {}
+    for d in devs:
+        if d not in sweeps:
+            sweeps[d] = _Sweep(data if hasattr(data, 'read_block') else data.to(d), plan, d,
+                               *sweep_args)
+    return sweeps
+
+
+def gridded_kgrid_sharded(data, plan: GridPlan, freq_idx: np.ndarray, devices,
+                          freqs_kept: Optional[np.ndarray] = None,
+                          n_peaks: Optional[int] = None,
+                          exclusion_bins: int = 4,
+                          width_method: str = 'rms',
+                          comp_pair: Optional[Tuple[int, int]] = None,
+                          angle_range_opt: str = 'C',
+                          precision: str = 'parity',
+                          t_chunk: Optional[int] = None,
+                          cell_chunk: Optional[int] = None,
+                          gy_chunk: Optional[int] = None,
+                          t_superchunk: Optional[int] = None,
+                          data_budget_bytes: int = 2 << 30,
+                          grid_budget_bytes: Optional[int] = None,
+                          weight_cache_bytes: int = 4 << 30,
+                          stats: Optional[dict] = None):
+    """Multi-device NUFFT k-grid sweep: ky stripes over ``devices``.
+
+    The plan is separable along the fast (ky) axis, so the devices split
+    the ky columns into ``min(len(devices), Gy)`` contiguous stripes and
+    each runs the whole spread → x-FFT → time FFT → reduction of
+    :func:`gridded_kgrid_browse` on its own; no collective, only the reduced
+    outputs come back, once every stripe's work is enqueued.  Devices may
+    repeat (a virtual mesh on one card); the data and the packed tables are
+    sent once to each distinct device.
+
+    ``data`` is a tensor or host array (every device holds it whole), or a
+    source with ``read_block`` for a group too large for a device (streamed
+    mode: in rounds of one ky block per device, one pass over the source
+    feeds every device's block, each row-chunk's slab gathered on the host
+    once).  The other arguments as in :func:`gridded_kgrid_browse`.
+
+    Returns:
+        (intensity (n_keep, Gx·Gy) float32, phase or None), or with
+        ``n_peaks`` (peak_freq, peak_height, peak_width), each
+        (n_peaks, Gx·Gy) float32.
+    """
+    spectral.check_precision(precision)
+    if n_peaks is not None:
+        if comp_pair is not None:
+            raise ValueError("peaks mode is exclusive with comp_pair")
+        if freqs_kept is None:
+            raise ValueError("peaks mode needs freqs_kept")
+    gx, gy = plan.gx, plan.gy
+    devs = [torch.device(d) for d in devices][:max(1, min(len(devices), gy))]
+    streamed = hasattr(data, 'read_block')
+    sweeps = _replicate_per_device(data, plan, devs, t_chunk, cell_chunk, gy_chunk, t_superchunk,
+                                   data_budget_bytes, grid_budget_bytes, weight_cache_bytes)
+    n_f = int(len(freq_idx))
+    lead = n_peaks if n_peaks is not None else n_f
+    n_out = 3 if n_peaks is not None else (2 if comp_pair is not None else 1)
+    full = np.zeros((n_out, lead, gx, gy), dtype=np.float32)
+    first = sweeps[devs[0]]
+    if not first.empty:
+        stripes = [round(i * gy / len(devs)) for i in range(len(devs) + 1)]
+        per_dev = [sweeps[d].block_bounds(stripes[i], stripes[i + 1])
+                   for i, d in enumerate(devs)]
+        consts = {d: (torch.from_numpy(np.asarray(freq_idx, dtype=np.int64)).to(d),
+                      None if n_peaks is None else
+                      torch.from_numpy(np.asarray(freqs_kept, np.float32)).to(d))
+                  for d in sweeps}
+        parts = []
+
+        def finish(d, g0, g1, grid):
+            parts.append((g0, g1, sweeps[d].reduce(
+                grid, consts[d][0], comp_pair, angle_range_opt, n_peaks, consts[d][1],
+                exclusion_bins, width_method)))
+
+        for rnd in range(max(len(b) for b in per_dev)):
+            todo = [(d, *blocks[rnd]) for d, blocks in zip(devs, per_dev) if rnd < len(blocks)]
+            if streamed:
+                targets = [(sweeps[d].ky(g0, g1), sweeps[d].tabs) for d, g0, g1 in todo]
+                grids, moved = _spread_gy_blocks_streamed(
+                    first.src, plan, targets, first.row_starts, first.chunk_cols, first.n_t,
+                    first.t_superchunk, first.t_chunk, weight_cache_bytes)
+                first.bytes_streamed += moved
+                for (d, g0, g1), grid in zip(todo, grids):
+                    finish(d, g0, g1, grid)
+                del grids
+            else:
+                for d, g0, g1 in todo:
+                    sw = sweeps[d]
+                    finish(d, g0, g1, _spread_gy_block(sw.data, plan, sw.tabs, sw.row_starts,
+                                                       sw.ky(g0, g1), sw.n_t, sw.t_chunk))
+        for g0, g1, out in parts:                    # read back once all is enqueued
+            full[:, :, :, g0:g1] = out.cpu().numpy().reshape(n_out, lead, gx, g1 - g0)
+    if stats is not None:
+        stats['bytes_streamed'] = first.bytes_streamed
+    full = full.reshape(n_out, lead, gx * gy)
+    if n_peaks is not None:
+        return tuple(full)
+    return full[0], (full[1] if comp_pair is not None else None)
+
+
+def gridded_kgrid_peaks_sharded(data, plan: GridPlan, freq_idx: np.ndarray,
+                                freqs_kept: np.ndarray, devices,
+                                n_peaks: int = 1, exclusion_bins: int = 4,
+                                width_method: str = 'rms', **kwargs):
+    """Peaks mode of :func:`gridded_kgrid_sharded`."""
+    return gridded_kgrid_sharded(data, plan, freq_idx, devices, freqs_kept=freqs_kept,
+                                 n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                                 width_method=width_method, **kwargs)

@@ -511,7 +511,8 @@ def time_tile(t_chunk: int, phase_mode: str) -> int:
 
 def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tensor,
                      vel: Optional[torch.Tensor], k_vectors, t_chunk: int,
-                     box: Optional[torch.Tensor] = None, phase_mode: str = 'exact') -> None:
+                     box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
+                     weights: Optional[torch.Tensor] = None) -> None:
     """acc += the mode stack of one atom block, in place.
 
     ``acc_re``/``acc_im`` are (n_t, K, C) float32: C = 4 channels
@@ -524,7 +525,9 @@ def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tens
     same product, so its ρ is the DSF's density channel bit for bit.  (The
     four-row product is also the accurate one: on the H100 cuBLAS's
     one-row kernel summed the 10⁵ aligned phasors of a Bragg column to
-    8.6e-6 of S(k), the four-row one to 8.5e-8.)
+    8.6e-6 of S(k), the four-row one to 8.5e-8.)  ``weights``, an optional
+    (A,) per-atom weight (the mesh sweeps' membership), multiplies each
+    atom's row of the contraction.
     """
     n_t, n_a, _ = pos.shape
     n_ch = acc_re.shape[2]
@@ -536,6 +539,8 @@ def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tens
         w[:, 0] = 1.0
         if vel is not None:
             w[:, 1:] = vel[t0:t1].transpose(1, 2)
+        if weights is not None:
+            w *= weights[None, None, :]
         f = torch.bmm(w, cs)[:, :n_ch]                                # (tc, C, 2K)
         del cs
         f_re, f_im = phasor_parts(f, phase_mode)
@@ -634,25 +639,34 @@ def isf_reduce(f_re: torch.Tensor, f_im: torch.Tensor, n_lags: int) -> torch.Ten
     return _lagged_autocorr(torch.complex(f_re[..., 0], f_im[..., 0]), n_lags).float()
 
 
+def _atom_sum(x: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """Σ over the atom axis (dim 1) of (rows, A, K), each atom weighted."""
+    if weights is None:
+        return x.sum(dim=1)
+    return torch.einsum('rak,a->rk', x, weights.to(x.dtype))
+
+
 def isf_self_block(pos: torch.Tensor, k_vectors, n_lags: int,
-                   box: Optional[torch.Tensor] = None, phase_mode: str = 'exact'
-                   ) -> torch.Tensor:
+                   box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
+                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self ISF of one atom block: Σ_a Re ⟨e^{i k·(r_a(t'+τ) − r_a(t'))}⟩_{t'},
     (n_lags, K) float32, still missing the caller's 1/N (F_s(k,0) = 1).
     ``pos`` is (n_t, A, 3) with the full time axis; ``box``/``phase_mode``
-    as in :func:`instant_phasors`."""
+    as in :func:`instant_phasors`; ``weights`` an optional (A,) per-atom
+    weight of the sum."""
     sig = complex_phasors(instant_phasors(pos, k_vectors, box, phase_mode), phase_mode)
-    return _lagged_autocorr(sig, n_lags).sum(dim=1).float()
+    return _atom_sum(_lagged_autocorr(sig, n_lags), weights).float()
 
 
 def dsf_self_block(pos: torch.Tensor, k_vectors, freq_idx: torch.Tensor,
-                   box: Optional[torch.Tensor] = None, phase_mode: str = 'exact'
-                   ) -> torch.Tensor:
+                   box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
+                   weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Self intensity of one atom block: Σ_a |FFT_t e^{i k·r_a}|² / n_t² at
     the kept rows, (n_keep, K) float32, still missing the caller's 1/N.
     ``pos`` is (n_t, A, 3) with the full time axis; ``box``/``phase_mode``
-    as in :func:`instant_phasors`."""
+    as in :func:`instant_phasors`; ``weights`` an optional (A,) per-atom
+    weight of the sum."""
     n_t = pos.shape[0]
     sig = complex_phasors(instant_phasors(pos, k_vectors, box, phase_mode), phase_mode)
     spec = (torch.fft.fft(sig, dim=0) / n_t).index_select(0, freq_idx)
-    return (spec.real ** 2 + spec.imag ** 2).sum(dim=1).float()
+    return _atom_sum(spec.real ** 2 + spec.imag ** 2, weights).float()

@@ -537,38 +537,54 @@ def test_zero_atom_trajectory_gives_zero_planes(surface):
 
 @pytest.mark.parametrize('call', ['browse_gridded', 'peaks_gridded', 'browse_cache',
                                   'peaks_cache', 'browse_oversize', 'peaks_oversize',
-                                  'lt_oversize', 'welch_oversize', 'kappa_mesh'])
+                                  'lt_oversize', 'welch_oversize'])
 def test_unported_surfaces_raise(calcs, kv, tmp_path, call):
-    """Device meshes still raise.  The shard cache, groups over
-    max_device_bytes and the gridded engine are ported: those cases hold the
-    port to the JAX package on the same call instead (planes within
-    PLANE_TOL of max and peak bins exact; through the gridded engine, whose
-    window is good to 1e-6, planes within 1e-5 and peak frequencies within
-    1e-6 THz)."""
+    """Surfaces once not ported (the shard cache, groups over
+    max_device_bytes, the gridded engine), held to the JAX package on the
+    same call: planes within PLANE_TOL of max and peak bins exact; through
+    the gridded engine, whose window is good to 1e-6, planes within 1e-5 and
+    peak frequencies within 1e-6 THz."""
     ref, port = calcs
     surface, what = call.split('_')
     kw = {'gridded': dict(engine='gridded', k_grid_shape=(5, 4)),
-          'cache': dict(cache_dir=tmp_path), 'mesh': dict(mesh=object())}.get(what, {})
+          'cache': dict(cache_dir=tmp_path)}.get(what, {})
     if what == 'oversize':
         ref = JaxCalculator(ref.traj, nx=3, ny=2, nz=2, max_device_bytes=1000)
         port = from_reference_calculator(ref, device='cpu')
     run = {'browse': lambda c: c.calculate_kgrid_browse(kv, k_chunk_size=7, **kw)[1],
            'peaks': lambda c: c.calculate_kgrid_peaks(kv, n_peaks=2, k_chunk_size=7, **kw),
            'lt': lambda c: np.stack(c.calculate_lt(kv, k_chunk_size=7)[1:]),
-           'welch': lambda c: c.calculate_welch(np.zeros(len(kv)), kv, 2).sed,
-           'kappa': lambda c: c.calculate_thermal_conductivity(kv, (5, 4), **kw)}[surface]
-    if what in ('cache', 'oversize', 'gridded'):
-        got, want = run(port), run(ref)
-        plane_tol = 1e-5 if what == 'gridded' else PLANE_TOL
-        if surface == 'peaks' and what == 'gridded':
-            np.testing.assert_allclose(got[0], want[0], atol=1e-6)
-            assert of_max(got[1], want[1]) < plane_tol
-        elif surface == 'peaks':
-            np.testing.assert_array_equal(got[0], want[0])
-            assert of_max(got[1], want[1]) < plane_tol
-        else:
-            assert of_max(got, want) < plane_tol
-        assert (what == 'oversize') == (port.streamed_bytes > 0)
-        return
-    with pytest.raises(NotImplementedError, match='ROADMAP A13'):
-        run(port)
+           'welch': lambda c: c.calculate_welch(np.zeros(len(kv)), kv, 2).sed}[surface]
+    got, want = run(port), run(ref)
+    plane_tol = 1e-5 if what == 'gridded' else PLANE_TOL
+    if surface == 'peaks' and what == 'gridded':
+        np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+        assert of_max(got[1], want[1]) < plane_tol
+    elif surface == 'peaks':
+        np.testing.assert_array_equal(got[0], want[0])
+        assert of_max(got[1], want[1]) < plane_tol
+    else:
+        assert of_max(got, want) < plane_tol
+    assert (what == 'oversize') == (port.streamed_bytes > 0)
+
+
+@pytest.mark.parametrize('shape', [(1, 1, 8), (2, 2, 2)])
+def test_thermal_conductivity_mesh_matches_jax_mesh_and_one_device(calcs, kv, shape):
+    """``calculate_thermal_conductivity(mesh=...)``: the peaks over the
+    mesh (the port on ['cpu'] * 8, JAX on its eight virtual devices), then
+    the same host band sort, gradients and κ sum: κ within 1e-5 relative,
+    band frequencies within 1e-6 THz of the port's one-device sweep and of
+    the JAX mesh."""
+    from psa_tpu.parallel import make_mesh as jax_mesh
+    from psa_tpu_torch.parallel import make_mesh
+    ref, port = calcs
+    got = port.calculate_thermal_conductivity(
+        kv, (5, 4), n_bands=2, mesh=make_mesh(shape=shape, devices=['cpu'] * 8))
+    for want in (port.calculate_thermal_conductivity(kv, (5, 4), n_bands=2),
+                 ref.calculate_thermal_conductivity(kv, (5, 4), n_bands=2,
+                                                    mesh=jax_mesh(shape=shape))):
+        np.testing.assert_allclose(got[1], want[1], atol=1e-6)
+        k_got = [got[0].kappa_xx, got[0].kappa_yy, got[0].kappa_xy]
+        k_want = [want[0].kappa_xx, want[0].kappa_yy, want[0].kappa_xy]
+        np.testing.assert_allclose(k_got, k_want, rtol=1e-5, atol=1e-5 * np.abs(k_want).max())
+        assert got[0].n_modes_used == want[0].n_modes_used

@@ -22,7 +22,8 @@ MODULES = ['psa_tpu_torch', 'psa_tpu_torch.cli', 'psa_tpu_torch.utils.config_man
            'psa_tpu_torch.visualization', 'psa_tpu_torch.visualization.sed_plotter',
            'psa_tpu_torch.visualization.styles', 'psa_tpu_torch.utils.fits',
            'psa_tpu_torch.ops.timecorr', 'psa_tpu_torch.ops.structure',
-           'psa_tpu_torch.ops.gridded', 'psa_tpu_torch.ops.instantaneous']
+           'psa_tpu_torch.ops.gridded', 'psa_tpu_torch.ops.instantaneous',
+           'psa_tpu_torch.parallel', 'psa_tpu_torch.parallel.smoke', 'psa_tpu_torch.pod_sweep']
 
 
 HEADLESS = ('jax', 'jaxlib', 'psa_tpu', 'tkinter', 'matplotlib', 'pandas', 'imageio')
@@ -132,6 +133,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     an import statement of ``jax``, ``jaxlib`` or ``psa_tpu`` anywhere in
     it, function bodies included."""
     assert 'psa_tpu_torch/ops/gridded.py' in SOURCES and 'chip_smoke.py' in SOURCES
+    assert {'psa_tpu_torch/parallel/sharded.py', 'psa_tpu_torch/parallel/distributed.py',
+            'psa_tpu_torch/parallel/smoke.py', 'psa_tpu_torch/pod_sweep.py'} <= set(SOURCES)
     bad = []
     for rel in SOURCES:
         for node in ast.walk(ast.parse((REPO / rel).read_text())):

@@ -74,12 +74,32 @@ def test_rejects_displacement_mode_and_bad_miller():
         port.calculate_npt(np.ones((3, 2)))
 
 
-@pytest.mark.parametrize('call', ['calculate_npt_browse', 'calculate_npt_peaks'])
-def test_mesh_raises_naming_the_row(call):
-    _, port = pair(_npt_traj(np.ones(16), n_frames=16))
-    with pytest.raises(NotImplementedError, match="A13"):
-        getattr(port, call)(miller(2), mesh=object())
+@pytest.mark.parametrize('call,kw', [('calculate_npt_browse', dict(chiral=True)),
+                                     ('calculate_npt_peaks', dict(n_peaks=2))],
+                         ids=['browse', 'peaks'])
+def test_mesh_matches_jax_mesh_and_one_device(breathing, call, kw):
+    """``mesh=`` (the fractional anchor over a (2, 2, 2) mesh, superchunks
+    of 24 frames) against the JAX package's mesh on its eight virtual
+    devices and the port's one-device sweep: planes within 1e-6 of max,
+    peak frequencies within 1e-6 THz, heights rtol 1e-4, phases 1e-4 rad."""
+    from psa_tpu.parallel import make_mesh as jax_mesh
+    from psa_tpu_torch.parallel import make_mesh
+    ref, port = pair(breathing)
+    m = miller(8)
+    got = getattr(port, call)(m, mesh=make_mesh(shape=(2, 2, 2), devices=['cpu'] * 8),
+                              t_superchunk=24, **kw)
     assert port._phase_anchor == 'cartesian'
+    for want in (getattr(port, call)(m, **kw),
+                 getattr(ref, call)(m, mesh=jax_mesh(shape=(2, 2, 2)), t_superchunk=24, **kw)):
+        np.testing.assert_array_equal(got[-1], want[-1])                  # k_cart
+        if call == 'calculate_npt_peaks':
+            np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+            np.testing.assert_allclose(got[1], want[1], rtol=1e-4)
+        else:
+            np.testing.assert_allclose(got[0], want[0].astype(np.float32), atol=0)
+            assert of_max(got[1], want[1]) < TOL
+            bright = want[1] >= 1e-6 * want[1].max()
+            assert np.abs(got[2] - want[2])[bright].max() < 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -285,14 +285,33 @@ def test_cells_records_its_host_time():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    ({'mesh': object()}, NotImplementedError, 'A13'),
     ({'mesh': object(), 'method': 'cells'}, ValueError, 'single-device'),
     ({'method': 'grid'}, ValueError, "method must be"),
-], ids=['mesh', 'cells-with-mesh', 'bad-method'])
+], ids=['cells-with-mesh', 'bad-method'])
 def test_unsupported_arguments_raise(kwargs, error, match):
     _, port = pair(_traj(positions(17, CUBE, 1, 20), CUBE))
     with pytest.raises(error, match=match):
         port.calculate_rdf(r_max=2.0, **kwargs)
+
+
+@pytest.mark.parametrize('shape', [(2, 2, 2), (1, 1, 8)])
+def test_mesh_matches_one_device_and_jax_mesh(shape):
+    """g(r) over a mesh (A atoms over all eight positions, B whole on each)
+    against the port's one-device brute sweep bin for bin and the JAX mesh
+    at ``tests/test_rdf.py``'s tolerance, same-group and cross."""
+    from psa_tpu.parallel import make_mesh as jax_mesh
+    from psa_tpu_torch.parallel import make_mesh
+    types = np.array([1] * 20 + [2] * 17, np.int32)
+    ref, port = pair(_traj(positions(4, CUBE, 3, 37), CUBE, types=types))
+    mesh = make_mesh(shape=shape, devices=['cpu'] * 8)
+    for kw in (dict(), dict(basis_atom_types=[1], basis_atom_types_b=[2])):
+        _, got = port.calculate_rdf(r_max=5.0, n_bins=25, mesh=mesh, atom_block=8, **kw)
+        _, one = port.calculate_rdf(r_max=5.0, n_bins=25, method='brute', **kw)
+        _, jax_got = ref.calculate_rdf(r_max=5.0, n_bins=25, mesh=jax_mesh(shape=shape),
+                                       atom_block=8, **kw)
+        np.testing.assert_array_equal(got, one)
+        np.testing.assert_allclose(got, jax_got, rtol=1e-5, atol=1e-6)
+        assert port._last_rdf_method == 'brute'
 
 
 def test_degenerate_inputs():
