@@ -61,17 +61,34 @@ resident and in superchunks, against the one-device sweeps, and
 ``sharded_sed_spectrum`` against the f64 oracle; the gridded engine's ky
 stripes; the instantaneous-phase family, MSD/VACF and g(r) over the mesh at
 2,000 frames; two processes on the card over gloo, each reading only its
-windows; ``python -m psa_tpu_torch.pod_sweep`` and its resumed rerun; and the
-rest of the slice (incoherent groups, chiral phase, iSED).
+windows; ``python -m psa_tpu_torch.pod_sweep`` and its resumed rerun; the
+port's entry points (phase 17): ``bench_torch.op_sweep`` on the working data
+against the float64 oracle, ``python3 bench_torch.py`` as a command at its
+defaults (its JSON line and the card's name printed), stopped by SIGTERM
+after its provisional headline, and with its extras, the kernel against
+its plain version on those commands' inputs; each example of
+``examples_torch/`` on the card, every launch against the plain version
+on its inputs, its printed checks against the same example's on the CPU;
+``graft_entry.entry()`` against its CPU path and ``dryrun_multichip(8)``
+with and without its extended tier, every launch against the plain
+version on its inputs; and the rest of the slice (incoherent groups,
+chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel
 (launches on the main paths, error, times per tier); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
-any result.  About 7 minutes on an H100 machine.
+any result.  About 9 minutes on an H100 machine.
+
+    python3 chip_smoke.py --phase 17
+
+runs phase 17 alone (with the build and the working data it needs).
 """
+import contextlib
 import json
 import logging
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2808,6 +2825,404 @@ def session(dev, proj):
     return launches, loop
 
 
+BENCH_KBLOCK = 1280                   # bench_torch.py's default k-points per launch
+BENCH_TIMEOUT = 600                   # s, each bench_torch.py command of phase 17
+BENCH_EXTRAS_STEPS = 2000             # PSA_BENCH_STEPS of phase 17d
+EXAMPLES =('basic_sed_analysis', 'chiral_sed_analysis', 'k_grid_heatmap_example',
+            'ised_reconstruction', 'grid_browse_and_engines', 'chiral_phonons_2d',
+            'dos_analysis', 'spectral_statistics', 'thermal_transport', 'npt_cell_sed',
+            'dynamic_structure_factor', 'liquid_dynamics', 'pod_mesh_semantics',
+            'visualization_example')
+#: Examples whose paths project (the others: the DOS, the instantaneous-phase
+#: family, the liquid observables and the plots).
+PROJECTING = {'basic_sed_analysis', 'chiral_sed_analysis', 'k_grid_heatmap_example',
+              'ised_reconstruction', 'grid_browse_and_engines', 'chiral_phonons_2d',
+              'spectral_statistics', 'thermal_transport', 'npt_cell_sed', 'pod_mesh_semantics'}
+
+
+def kernel_times(proj, data, hi, lo, k_dev, block, reps=3):
+    """The kernel alone at each block of ``block`` k-points, ``reps``
+    launches each, CUDA events as in phase 3: ([least ms], [max − min ms])
+    per block."""
+    least, spread = [], []
+    for s in range(0, len(k_dev), block):
+        ms = [cuda_ms(lambda s=s: proj.sed_projection(data, hi, lo, k_dev[s:s + block]), 1)
+              for _ in range(reps)]
+        least.append(min(ms))
+        spread.append(max(ms) - min(ms))
+    return least, spread
+
+
+def check_sweep_wall(sweep_ms, block_ms, spread_ms, what):
+    """A sweep's wall is at least its launches' kernel times: the least of
+    each block's timed launches, less their spread (the kernel's own
+    run-to-run variation in this run).  A sweep whose fence failed would
+    read the enqueue time, milliseconds."""
+    floor_ms = sum(block_ms) - sum(spread_ms)
+    check(sweep_ms >= floor_ms, f"{what} wall {sweep_ms:.3f} ms < its kernels' {sum(block_ms):.3f} "
+                                f"ms less their spread {sum(spread_ms):.3f} ms")
+    return (f"its kernels alone {' + '.join(f'{m:.3f}' for m in block_ms)} ms, spread "
+            f"{sum(spread_ms):.3f} ms")
+
+
+def bench_sweep(proj, velocities, hi_dev, lo_dev, k_vecs, oracle, cols):
+    """Phase 17a: ``bench_torch.op_sweep`` in this process on the working
+    data (its default blocks of 1,280 k, the last ragged), its spectrum's
+    ``cols`` against the float64 oracle; then the kernel alone at each
+    block's shape, whose times bound the sweep's wall from below
+    (:func:`check_sweep_wall`).  Returns (launches, kernel ms per block)."""
+    import bench_torch
+    n_k = len(k_vecs)
+    k_dev = torch.from_numpy(np.ascontiguousarray(k_vecs, dtype=np.float32)).to(velocities.device)
+    proj.launches = 0
+    sweep = bench_torch.op_sweep(velocities, hi_dev, lo_dev, k_dev, BENCH_KBLOCK, keep=cols)
+    launches = proj.launches
+    err = rel(sweep.kept.to(torch.complex128), oracle)
+    check(launches == sweep.launches == 1 + -(-n_k // BENCH_KBLOCK),
+          f"op sweep launched {launches} kernels, counted {sweep.launches}")
+    check(err <= TOL_KERNEL, f"op sweep vs f64 oracle {err:.3e} > {TOL_KERNEL}")
+    block_ms, spread_ms = kernel_times(proj, velocities, hi_dev, lo_dev, k_dev, BENCH_KBLOCK)
+    alone = check_sweep_wall(sweep.sweep_s * 1e3, block_ms, spread_ms, "op sweep")
+    log('bench', f"(a) bench_torch.op_sweep on the working data: {n_k} k in blocks of "
+                 f"{BENCH_KBLOCK}, first block {sweep.compile_s:.3f} s, sweep {sweep.sweep_s:.4f} s "
+                 f"({n_k / sweep.sweep_s:.1f} k-points/s), {alone}; launches {launches}; "
+                 f"{len(cols)} k-columns vs f64 oracle rel err {err:.3e} (tol {TOL_KERNEL})")
+    return launches, block_ms
+
+
+def bench_launches(stderr, what):
+    """The launches bench_torch.py logged for ``what`` (summed over its lines)."""
+    found = re.findall(rf"kernel launches: {re.escape(what)}.* (\d+)$", stderr, re.M)
+    check(found, f"bench_torch.py logged no launches for {what!r}")
+    return sum(int(n) for n in found)
+
+
+def bench_command(env, **knobs):
+    """``python3 bench_torch.py`` with the PSA_BENCH_* ``knobs``: CompletedProcess."""
+    return subprocess.run([sys.executable, 'bench_torch.py'], cwd=Path(__file__).resolve().parent,
+                          env=dict(env, **knobs), capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+
+
+def bench_headline(done, what):
+    """The one JSON line of a bench_torch.py run that must have exited 0."""
+    check(done.returncode == 0, f"bench_torch.py ({what}) exited {done.returncode}: "
+                                f"{done.stderr[-3000:]}")
+    lines = done.stdout.splitlines()
+    check(len(lines) == 1, f"bench_torch.py ({what}) printed {len(lines)} lines: {done.stdout!r}")
+    return json.loads(lines[0])
+
+
+def bench_runs(smi, tmp):
+    """Phase 17b-d: ``python3 bench_torch.py`` as a command: (b) at its
+    defaults, user headline included; (c) with PSA_BENCH_KBLOCK=250, stopped
+    by SIGTERM once it logged the provisional headline; (d) with the extras
+    at PSA_BENCH_STEPS=2000.  Returns (headline, {path: launches}, extras)."""
+    env = dict(os.environ, PSA_BENCH_OUT_DIR=tmp)
+    n_k = GRID * GRID
+
+    t0 = time.perf_counter()
+    done = bench_command(env)
+    wall = time.perf_counter() - t0
+    line = bench_headline(done, 'defaults')
+    user = line['headline_user']
+    check(line['value'] > 0 and user['value'] > 0 and line['device'] == smi,
+          f"headline {line}")
+    launches = {"bench_op_sweep_command": bench_launches(done.stderr, 'op sweep'),
+                "bench_user_headline": bench_launches(done.stderr, 'user headline')}
+    check(launches["bench_op_sweep_command"] == 1 + -(-n_k // BENCH_KBLOCK)
+          and launches["bench_user_headline"] > 0, f"bench launches {launches}")
+    print(smi, flush=True)
+    print(json.dumps(line), flush=True)
+    log('bench', f"(b) python3 bench_torch.py: {wall:.2f} s of command; op headline "
+                 f"{line['value']:.1f} k-points/s ({n_k / line['value'] * 1e3:.3f} ms), "
+                 f"vs_baseline {line['vs_baseline']:.1f}, compile_s "
+                 f"{line['compile_s']:.3f}; user headline {user['value']:.1f} k-points/s "
+                 f"(first {user['first_s']:.3f} s); launches {launches}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, 'bench_torch.py'], cwd=Path(__file__).resolve().parent,
+                            env=dict(env, PSA_BENCH_KBLOCK='250'), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    seen = []
+    for text in proc.stderr:
+        seen.append(text)
+        if 'provisional headline' in text:
+            proc.send_signal(signal.SIGTERM)
+            break
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    finally:
+        proc.kill()
+    stopped = subprocess.CompletedProcess(proc.args, proc.returncode, out, ''.join(seen) + err)
+    early = bench_headline(stopped, 'SIGTERM')
+    check('provisional (first block only)' in early['metric'] and early['value'] > 0
+          and 'signal 15' in stopped.stderr, f"SIGTERM run printed {early}")
+    log('bench', f"(c) SIGTERM after the provisional headline (blocks of 250): exit 0 in "
+                 f"{time.perf_counter() - t0:.2f} s, printed {early['value']:.1f} k-points/s, "
+                 f"'{early['metric'][-33:]}'")
+
+    t0 = time.perf_counter()
+    done = bench_command(env, PSA_BENCH_EXTRAS='1', PSA_BENCH_STEPS=str(BENCH_EXTRAS_STEPS))
+    short = bench_headline(done, 'extras')
+    with open(Path(tmp) / 'bench_torch_extras' / 'bench_extras.json') as f:
+        extras = json.load(f)
+    keys = {"calculate_browse_kps", "browse_d2h_reduction", "calculate_browse_f16_kps",
+            "browse_f16_speedup", "browse_f16_max_quant_err", "kpath_calculate_kps",
+            "peaks_kps", "gridded_browse_kps", "gridded_peaks_kps"}
+    check(keys <= set(extras) and extras['failed'] == [], f"extras {extras}")
+    launches["bench_extras"] = bench_launches(done.stderr, 'user path')
+    check(launches["bench_extras"] > 0, "the extras launched no kernel")
+    log('bench', f"(d) PSA_BENCH_EXTRAS=1 at 2,000 steps: {time.perf_counter() - t0:.2f} s of "
+                 f"command, op headline {short['value']:.1f} k-points/s; "
+                 + ", ".join(f"{k} {extras[k]:.4g}" for k in sorted(keys))
+                 + f"; launches {launches['bench_extras']}")
+    return line, launches, dict(extras, op_headline_2000_steps=short['value'])
+
+
+def chunk_entry(path, chunks):
+    """A path_chunks_rel_err entry of [((n_t, A, K), rel err), ...]."""
+    return {"path": path, "shapes": sorted({shape for shape, _ in chunks}),
+            "rel_err": max(err for _, err in chunks)}
+
+
+def bench_kernel_shapes(dev, proj):
+    """Kernel vs plain on bench_torch.py's own inputs, made here as it makes
+    them, at every (n_t, A, K) its commands (b) and (d) launched: the op
+    sweep and the user headline on the seeded card velocities, the Si sites
+    and the 50x50 grid in blocks of 1,280 (the headline's calculator holds
+    the sweep's tensors); the extras on the tiled host velocities at 2,000
+    steps through the calculator they build, the grid in chunks of 1,280
+    and the 250-point k-path.  The kernel alone is timed at (b)'s blocks.
+    Returns (path_chunks_rel_err entries, kernel ms per block, spread ms)."""
+    import bench_torch
+    from psa_tpu_torch import SEDCalculator
+    from psa_tpu_torch.ops.spectral import split_f64
+    mean64 = bench_torch.si_mean_positions(N_ATOMS)
+    k_grid = bench_torch.grid_k_vectors(GRID)
+    k_dev = torch.from_numpy(k_grid).to(dev)
+    data = torch.randn((N_T, N_ATOMS, 3), generator=torch.Generator(dev).manual_seed(0),
+                       device=dev)
+    hi, lo = (torch.from_numpy(x).to(dev) for x in split_f64(mean64))
+    sweep = chunk_errors(proj, data, hi, lo, k_dev, BENCH_KBLOCK)
+    block_ms, spread_ms = kernel_times(proj, data, hi, lo, k_dev, BENCH_KBLOCK)
+    del data
+    torch.cuda.empty_cache()
+    traj = bench_torch.zero_strided_trajectory(
+        mean64, BENCH_EXTRAS_STEPS, bench_torch.host_velocities(BENCH_EXTRAS_STEPS, N_ATOMS))
+    calc = SEDCalculator(traj, nx=1, ny=1, nz=1, max_device_bytes=int(13e9), device=dev)
+    data, hi, lo = calc._group_device_arrays(np.arange(N_ATOMS))
+    _, k_path = calc.get_k_path('x', bz_coverage=1.0, n_k=250, lat_param=bench_torch.A0)
+    k_path = torch.from_numpy(np.ascontiguousarray(k_path, dtype=np.float32)).to(dev)
+    extras = (chunk_errors(proj, data, hi, lo, k_dev, 1280)
+              + chunk_errors(proj, data, hi, lo, k_path, 1280))
+    del data, hi, lo
+    calc.clear_device_cache()
+    torch.cuda.empty_cache()
+    return ([chunk_entry("bench_op_sweep_command/bench_user_headline", sweep),
+             chunk_entry("bench_extras", extras)], block_ms, spread_ms)
+
+
+@contextlib.contextmanager
+def recorded_launches(proj):
+    """Within the block, the inputs of every launch of the projection
+    kernel, each kept as a clone: a list of (data, mp_hi, mp_lo, k,
+    precision).  The wrapper is replaced in every module of the port that
+    holds it by name; the block must launch as many kernels as it recorded."""
+    import inspect
+    import psa_tpu_torch.core.calculator        # noqa: F401  the modules that hold the wrapper
+    import psa_tpu_torch.core.streaming         # noqa: F401
+    import psa_tpu_torch.parallel.sharded       # noqa: F401
+    real = proj.sed_projection
+    signature = inspect.signature(real)
+    holders = [m for name, m in list(sys.modules.items())
+               if name.startswith('psa_tpu_torch') and getattr(m, 'sed_projection', None) is real]
+    kept = []
+
+    def recording(*args, **kwargs):
+        launched = proj.launches
+        out = real(*args, **kwargs)
+        call = signature.bind(*args, **kwargs)
+        call.apply_defaults()
+        a = call.arguments
+        if proj.launches > launched:
+            kept.append(tuple(a[n].clone() for n in ('data', 'mp_hi', 'mp_lo', 'k_vectors'))
+                        + (a['precision'],))
+        return out
+
+    before = proj.launches
+    for m in holders:
+        m.sed_projection = recording
+    try:
+        yield kept
+    finally:
+        for m in holders:
+            m.sed_projection = real
+    check(proj.launches - before == len(kept),
+          f"{proj.launches - before} launches, {len(kept)} recorded")
+
+
+def recorded_errors(proj, kept, path):
+    """Kernel vs plain on the inputs of every recorded launch, each held to
+    its tier's tolerance: the path_chunks_rel_err entry of ``path``."""
+    worst = {}
+    for data, hi, lo, kv, precision in kept:
+        err_abs, scale = pair_err(proj.sed_projection(data, hi, lo, kv, precision=precision),
+                                  proj.sed_projection_plain(data, hi, lo, kv, precision=precision))
+        err = err_abs / scale if scale else err_abs
+        shape = (data.shape[0], data.shape[1], len(kv))
+        check(err <= TOL_TIERS[precision],
+              f"{path}: kernel vs plain at {shape} ({precision}) {err:.3e} > {TOL_TIERS[precision]}")
+        worst[shape] = max(worst.get(shape, 0.0), err)
+    return {"path": path, "shapes": sorted(worst), "launches": len(kept),
+            "rel_err": max(worst.values(), default=0.0)}
+
+
+def run_examples(dev, proj, tmp):
+    """Phase 17e: each example's ``main(device=...)`` in this process, its
+    printed checks bounded by the example itself (it raises on a miss), its
+    launches counted, each launch held to the plain version on its own
+    inputs; then the same ``main(device='cpu')``, whose printed checks the
+    card's must equal to the place each number is printed to (the rule the
+    tests hold the port's examples to the JAX scripts by).  The
+    figures-only example runs where matplotlib is installed.  Returns
+    ({example_<name>: launches}, path_chunks_rel_err entries)."""
+    import importlib
+    import importlib.util
+    import io
+    from psa_tpu_torch.visualization import have_matplotlib
+    # by path: a machine may have another top-level package named ``tests``
+    spec = importlib.util.spec_from_file_location(
+        'torch_examples_harness',
+        Path(__file__).resolve().parent / 'tests' / 'torch_examples_harness.py')
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    launches, entries = {}, []
+    for name in EXAMPLES:
+        if name == 'visualization_example' and not have_matplotlib():
+            log('examples', f"{name}: not run (figures only; matplotlib is not installed)")
+            continue
+        module = importlib.import_module(f'examples_torch.{name}')
+        card, cpu = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with recorded_launches(proj) as kept, contextlib.redirect_stdout(card):
+            module.main(device=str(dev), out_dir=f"{tmp}/{name}")
+        card_s = time.perf_counter() - t0
+        launches[f"example_{name}"] = len(kept)
+        check((len(kept) > 0) == (name in PROJECTING), f"{name} launched {len(kept)} kernels")
+        if kept:
+            entries.append(recorded_errors(proj, kept, f"example_{name}"))
+        del kept
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(cpu):
+            module.main(device='cpu', out_dir=f"{tmp}/{name}_cpu")
+        try:
+            harness.assert_same_checks(re.sub(r'\bcuda(:\d+)?\b', 'cpu', card.getvalue()),
+                                       cpu.getvalue())
+        except AssertionError as e:
+            check(False, f"{name}: the card's printed checks differ from the CPU's: {e}")
+        checks = [ln.strip() for ln in card.getvalue().splitlines() if ln.strip()]
+        log('examples', f"{name}: {card_s:.2f} s, launches {launches[f'example_{name}']}"
+                        + (f" (vs plain on their inputs: rel err {entries[-1]['rel_err']:.3e})"
+                           if name in PROJECTING else "")
+                        + f"; the CPU's run {time.perf_counter() - t0:.2f} s printed the same "
+                        "checks; " + " | ".join(checks))
+    return launches, entries
+
+
+def run_graft(dev, proj):
+    """Phase 17f: ``graft_entry.entry()`` (the card by default) against its
+    CPU path, and ``dryrun_multichip(8)`` with and without its extended tier
+    on a virtual mesh of the card; every launch held to the plain version
+    on its own inputs.  Returns ({path: launches}, path_chunks_rel_err
+    entries)."""
+    from psa_tpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    check(all(a.is_cuda for a in args), "entry() put its tensors off the card")
+    with recorded_launches(proj) as kept:
+        got = fn(*args)
+        torch.cuda.synchronize()
+    launches = {"graft_entry": len(kept)}
+    entries = [recorded_errors(proj, kept, "graft_entry")]
+    fn_cpu, args_cpu = graft_entry.entry('cpu')
+    err = rel(got.cpu(), fn_cpu(*args_cpu))
+    check(got.dtype == torch.complex64 and err <= TOL_KERNEL,
+          f"entry() on the card vs the CPU {err:.3e} > {TOL_KERNEL}")
+    walls = {}
+    for full in (False, True):
+        key = "graft_dryrun_full" if full else "graft_dryrun"
+        t0 = time.perf_counter()
+        with recorded_launches(proj) as kept:
+            graft_entry.dryrun_multichip(8, full=full)
+        walls[key] = time.perf_counter() - t0
+        launches[key] = len(kept)
+        entries.append(recorded_errors(proj, kept, key))
+    del kept
+    check(all(n > 0 for n in launches.values()), f"graft launches {launches}")
+    log('graft', f"entry() {tuple(got.shape)} complex64 on {dev} vs the CPU path rel err "
+                 f"{err:.3e} (tol {TOL_KERNEL}); dryrun_multichip(8) {walls['graft_dryrun']:.2f} s, "
+                 f"full tier {walls['graft_dryrun_full']:.2f} s on a virtual mesh of {dev}; "
+                 f"launches {launches}; every launch vs plain on its inputs: "
+                 + ", ".join(f"{e['path']} {e['rel_err']:.3e}" for e in entries))
+    return launches, entries
+
+
+def bench_phase(dev, proj, smi):
+    """Phase 17b-f: bench_torch.py as three commands, the kernel against
+    its plain version on their inputs, the examples and the graft entry.
+    Returns (the headline, {path: launches}, the extras, path_chunks_rel_err
+    entries)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        line, launches, extras = bench_runs(smi, tmp)
+        entries, block_ms, spread_ms = bench_kernel_shapes(dev, proj)
+        sweep_ms = GRID * GRID / line['value'] * 1e3
+        alone = check_sweep_wall(sweep_ms, block_ms, spread_ms, "the bench's op sweep")
+        log('bench', f"(b) the bench's op sweep {sweep_ms:.3f} ms, {alone}, on its inputs; "
+                     "kernel vs plain on the commands' inputs: "
+                     + ", ".join(f"{e['path']} {e['shapes']} {e['rel_err']:.3e}" for e in entries)
+                     + f" (tol {TOL_KERNEL})")
+        example_launches, example_entries = run_examples(dev, proj, tmp)
+    graft_launches, graft_entries = run_graft(dev, proj)
+    log('bench', f"bench phase (b-f) took {time.perf_counter() - t0:.2f} s")
+    return (line, {**launches, **example_launches, **graft_launches}, extras,
+            entries + example_entries + graft_entries)
+
+
+def phase17_alone():
+    """``python3 chip_smoke.py --phase 17``: phase 17 by itself, as the
+    whole script runs it (the build, the working velocities and the oracle
+    columns of phase 5, then 17a-f), for a change to bench_torch.py, the
+    examples or the graft entry.  Prints the launches and the
+    path_chunks_rel_err entries as one JSON line."""
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops import sed_projection as proj
+    from psa_tpu_torch.ops.spectral import split_f64
+    t_start = time.perf_counter()
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    _build.build()
+    _build.load()
+    dev = torch.device('cuda')
+    velocities = torch.randn((N_T, N_ATOMS, 3), generator=torch.Generator(dev).manual_seed(SEED),
+                             device=dev)
+    calc, k_vecs, _ = working_calculator(dev)
+    mean64 = calc.mean_positions64
+    hi, lo = (torch.from_numpy(x).to(dev) for x in split_f64(mean64))
+    cols = np.array([0, 777, 1250, len(k_vecs) - 1])
+    oracle = f64_oracle(velocities, torch.from_numpy(mean64).to(dev),
+                        torch.from_numpy(k_vecs[cols].astype(np.float64)).to(dev))
+    sweep_launches, block_ms = bench_sweep(proj, velocities, hi, lo, k_vecs, oracle, cols)
+    del velocities, oracle, calc, hi, lo
+    torch.cuda.empty_cache()
+    line, launches, extras, entries = bench_phase(dev, proj, smi)
+    log('done', f"phase 17 took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"launches_per_path": {"bench_op_sweep": sweep_launches, **launches},
+                      "kernel_ms_per_block": block_ms, "path_chunks_rel_err": entries}),
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a CUDA GPU")
@@ -2963,6 +3378,12 @@ def main():
                                             resident_sed)
     log('gridded', f"gridded phase took {time.perf_counter() - t0:.2f} s")
 
+    # -- 17a. bench_torch's op sweep on the working data ----------------------
+    t0 = time.perf_counter()
+    bench_sweep_launches, bench_block_ms = bench_sweep(proj, velocities, hi_dev, lo_dev, k_vecs,
+                                                       oracle, cols)
+    log('bench', f"bench phase (a) took {time.perf_counter() - t0:.2f} s")
+
     # -- 5d. the precision tiers -------------------------------------------
     t0 = time.perf_counter()
     tier_info = tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols)
@@ -3033,6 +3454,10 @@ def main():
     t0 = time.perf_counter()
     session_launches, session_loop = session(dev, proj)
     log('session', f"session phase took {time.perf_counter() - t0:.2f} s")
+
+    # -- 17b-f. bench_torch.py as a command, the examples, the graft entry ---
+    torch.cuda.empty_cache()
+    bench_line, bench_path_launches, bench_extras, bench_entries = bench_phase(dev, proj, smi)
 
     # -- 6. the rest of the slice -----------------------------------------
     crystal = make_random_crystal_trajectory(n_cells_xyz=(6, 6, 6), basis=2, n_frames=256,
@@ -3111,18 +3536,27 @@ def main():
                               "npt_chain": npt_chain_launches, "cli": cli_launches,
                               **gridded_launches, **session_launches, **mesh_launches,
                               # one count over the whole phase: every engine, resident and streamed
-                              "dsf_exact_factored_incremental": dsf_info['launches']},
+                              "dsf_exact_factored_incremental": dsf_info['launches'],
+                              "bench_op_sweep": bench_sweep_launches, **bench_path_launches},
+        "bench": {"headline": bench_line, "kernel_ms_per_block": bench_block_ms,
+                  "extras": bench_extras},
         "path_chunks_rel_err": [
             {"path": path, "shapes": [shape], "rel_err": err}
             for path, chunks in (("kgrid_peaks/kgrid_browse", big_chunks),
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
             for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]
-        + [{"path": "mesh", "shapes": [shape], "rel_err": err} for shape, err in mesh_shapes]}]}),
+        + [{"path": "mesh", "shapes": [shape], "rel_err": err} for shape, err in mesh_shapes]
+        + bench_entries}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:] == ['--phase', '17']:
+        phase17_alone()
+    elif sys.argv[1:]:
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 17]")
+    else:
+        main()
     sys.exit(0)

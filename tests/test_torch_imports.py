@@ -2,7 +2,8 @@
 config manager and its plotter import with ``jax``, ``psa_tpu``, ``yaml`` and
 ``matplotlib`` all absent (blocked in ``sys.modules`` in a subprocess), and
 the command line then runs a JSON-configured SED with its figures skipped
-and its data written.  The headless half of the GUI (controller, exports)
+and its data written; the bench, the graft entry and every example import
+the same way, and an example then runs with its figures skipped.  The headless half of the GUI (controller, exports)
 and the profiling and debug helpers import with ``tkinter``, ``pandas`` and
 ``imageio`` blocked as well, and a session then computes and exports; the
 Tk view imports with ``jax`` and ``psa_tpu`` blocked."""
@@ -23,7 +24,10 @@ MODULES = ['psa_tpu_torch', 'psa_tpu_torch.cli', 'psa_tpu_torch.utils.config_man
            'psa_tpu_torch.visualization.styles', 'psa_tpu_torch.utils.fits',
            'psa_tpu_torch.ops.timecorr', 'psa_tpu_torch.ops.structure',
            'psa_tpu_torch.ops.gridded', 'psa_tpu_torch.ops.instantaneous',
-           'psa_tpu_torch.parallel', 'psa_tpu_torch.parallel.smoke', 'psa_tpu_torch.pod_sweep']
+           'psa_tpu_torch.parallel', 'psa_tpu_torch.parallel.smoke', 'psa_tpu_torch.pod_sweep',
+           'psa_tpu_torch.graft_entry', 'bench_torch', 'examples_torch._common',
+           *sorted(f'examples_torch.{p.stem}' for p in (REPO / 'examples_torch').glob('*.py')
+                   if not p.stem.startswith('_'))]
 
 
 HEADLESS = ('jax', 'jaxlib', 'psa_tpu', 'tkinter', 'matplotlib', 'pandas', 'imageio')
@@ -125,16 +129,20 @@ def test_headless_session_computes_and_exports_without_the_optional_packages(tmp
 SOURCES = sorted(str(p.relative_to(REPO)) for p in
                  [*(REPO / 'psa_tpu_torch').rglob('*.py'), REPO / 'chip_smoke.py',
                   REPO / 'chip_profile.py', REPO / 'chip_kernel_ab.py',
-                  REPO / 'psa_gui_torch_launcher.py'])
+                  REPO / 'psa_gui_torch_launcher.py', REPO / 'bench_torch.py',
+                  *(REPO / 'examples_torch').glob('*.py')])
 
 
 def test_no_source_of_the_port_names_jax_or_the_jax_package():
-    """No module of the port, nor a script that drives it on the card, has
-    an import statement of ``jax``, ``jaxlib`` or ``psa_tpu`` anywhere in
-    it, function bodies included."""
+    """No module of the port, nor a script that drives it on the card (its
+    bench and examples included), has an import statement of ``jax``,
+    ``jaxlib``, ``psa_tpu``, ``bench`` or ``__graft_entry__`` anywhere in it,
+    function bodies included."""
     assert 'psa_tpu_torch/ops/gridded.py' in SOURCES and 'chip_smoke.py' in SOURCES
     assert {'psa_tpu_torch/parallel/sharded.py', 'psa_tpu_torch/parallel/distributed.py',
-            'psa_tpu_torch/parallel/smoke.py', 'psa_tpu_torch/pod_sweep.py'} <= set(SOURCES)
+            'psa_tpu_torch/parallel/smoke.py', 'psa_tpu_torch/pod_sweep.py',
+            'psa_tpu_torch/graft_entry.py', 'bench_torch.py',
+            'examples_torch/basic_sed_analysis.py'} <= set(SOURCES)
     bad = []
     for rel in SOURCES:
         for node in ast.walk(ast.parse((REPO / rel).read_text())):
@@ -144,7 +152,8 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
                 names = [node.module or '']
             else:
                 continue
-            bad += [(rel, n) for n in names if n.split('.')[0] in ('jax', 'jaxlib', 'psa_tpu')]
+            bad += [(rel, n) for n in names if n.split('.')[0] in
+                    ('jax', 'jaxlib', 'psa_tpu', 'bench', '__graft_entry__')]
     assert not bad, bad
 
 
@@ -211,3 +220,24 @@ def test_cli_runs_a_json_config_without_yaml_or_matplotlib(tmp_path):
     assert written == ['dos.csv', 'ised_motion.dump', 'msd.csv', 'rdf.csv',
                        'sed_data_regular_x.freqs.npy', 'sed_data_regular_x.k_points.npy',
                        'sed_data_regular_x.k_vectors.npy', 'sed_data_regular_x.sed.npy']
+
+
+def test_example_runs_without_matplotlib(tmp_path):
+    """An example draws no figure where matplotlib is absent: one warning,
+    and every data file written; the figures-only example says so and
+    exits non-zero."""
+    done = subprocess.run(
+        [sys.executable, '-c', BLOCK + "import runpy\nsys.argv = ['x', '--device', 'cpu']\n"
+         f"runpy.run_path({str(REPO / 'examples_torch' / 'basic_sed_analysis.py')!r}, "
+         "run_name='__main__')\n"], cwd=tmp_path, timeout=300, capture_output=True, text=True)
+    assert done.returncode == 0, done.stderr
+    assert done.stderr.count('figures are skipped') == 1
+    assert sorted(p.name for p in (tmp_path / 'sed_output').iterdir()) == [
+        'chain_sed.freqs.npy', 'chain_sed.k_points.npy', 'chain_sed.k_vectors.npy',
+        'chain_sed.sed.npy']
+    assert 'max |peak - analytic|' in done.stdout
+    done = subprocess.run(
+        [sys.executable, '-c', BLOCK + "import runpy\nsys.argv = ['x', '--device', 'cpu']\n"
+         f"runpy.run_path({str(REPO / 'examples_torch' / 'visualization_example.py')!r}, "
+         "run_name='__main__')\n"], cwd=tmp_path, timeout=300, capture_output=True, text=True)
+    assert done.returncode != 0 and 'matplotlib is not installed' in done.stderr
