@@ -3,20 +3,30 @@
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     git show REV:psa_tpu_torch/csrc/sed_projection.cu > OTHER.cu   # e.g. a parent commit
-    python3 chip_kernel_ab.py OTHER.cu [--rounds 8]
+    python3 chip_kernel_ab.py OTHER.cu [--tier parity|balanced|fast] [--rounds 8]
 
-Both sources are compiled with the package's nvcc flags at once, each into
-its own library in a temporary directory, and loaded side by side.  On
-chip_smoke.py's working chunk, (n_t, A, K) = (10^4, 10^5, 500) with seeded
-velocities on the card, each round times, with CUDA events over two calls
-each, the other version, this one writing its output, this one adding to
-it (``accumulate``), and the same three again in reverse order.  Each
-version's output must equal this one's bit for bit (the MMA pipeline is
-shared; an add to zeros is exact).  Prints the card's name and power limit,
-one line per variant with the median and quartiles in ms, and a JSON line.
-An entry point without the ``accumulate`` or ``tier`` argument (before it
-existed) is called without it; this checkout's kernel runs its 'parity'
-tier.
+OTHER.cu may also be a version of ``csrc/sed_projection_tiers.cu`` (it
+defines ``psa_sed_tier_product``), e.g. a text-edited copy of this one that
+keeps its table layout; it then runs at --tier balanced or fast as its
+table kernel and then its product kernel, on a table of its own.
+
+The other source is compiled with the package's nvcc flags into its own
+library in a temporary directory while this checkout's kernels build as the
+package builds them (``psa_tpu_torch._build``, every ``csrc/*.cu``); both
+are loaded side by side.  On chip_smoke.py's working chunk, (n_t, A, K) =
+(10^4, 10^5, 500) with seeded velocities on the card, each round times,
+with CUDA events over two calls each, the other version at the tier (its
+one entry point, with its ``tier`` argument where it has one), this
+checkout's ``sed_projection`` at the tier writing its output, the same
+adding to it (``accumulate``), and the same three again in reverse order.
+At 'parity' each output must equal this one's bit for bit (the fused
+kernel's pipeline; an add to zeros is exact); at 'balanced' and 'fast',
+whose sum order this checkout changed (or a tiers source may change),
+within chip_smoke's TOL_KERNEL of max.  Prints the card's name and power
+limit, one line per variant with the median and quartiles in ms, and a
+JSON line.  An entry point without
+the ``accumulate`` or ``tier`` argument (before it existed) is called
+without it; one without ``tier`` runs 'parity' only.
 """
 import argparse
 import ctypes
@@ -40,31 +50,19 @@ def entry_arguments(source: Path) -> str:
     return sig.group(1)
 
 
-def build_all(sources, out_dir):
-    """Compile each source into its own library, all nvcc runs at once; the libraries."""
-    from psa_tpu_torch import _build
-    libs = [out_dir / f'lib{i}.so' for i in range(len(sources))]
-    procs = [subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, '-o', str(lib), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, lib in zip(sources, libs)]
-    for src, proc in zip(sources, procs):
-        log = proc.communicate(timeout=600)[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on {src}:\n{log}")
-    return libs
-
-
-def launcher(lib_path, arguments):
-    """f(data, hi, lo, kv, out, accumulate) launching the library's kernel
-    (its 'parity' tier, where it has tiers) on the current stream."""
+def launcher(lib_path, arguments, tier):
+    """f(data, hi, lo, kv, out) launching the library's kernel at ``tier``
+    (an index of the package's TIERS) on the current stream."""
     with_accumulate, with_tier = 'accumulate' in arguments, 'tier' in arguments
+    if tier and not with_tier:
+        raise SystemExit(f"{lib_path}: the entry point has no tier argument")
     fn = ctypes.CDLL(str(lib_path)).psa_sed_projection
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
         + [ctypes.c_int] * (with_accumulate + with_tier) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def run(data, hi, lo, kv, out, accumulate=False):
-        extra = ([int(accumulate)] if with_accumulate else []) + ([0] if with_tier else [])
+    def run(data, hi, lo, kv, out):
+        extra = [0] * with_accumulate + [tier] * with_tier
         err = fn(data.data_ptr(), hi.data_ptr(), lo.data_ptr(), kv.data_ptr(), out[0].data_ptr(),
                  out[1].data_ptr(), data.shape[0], data.shape[1], kv.shape[0], *extra,
                  torch.cuda.current_stream().cuda_stream)
@@ -73,23 +71,63 @@ def launcher(lib_path, arguments):
     return run
 
 
+def tier_launcher(lib_path, tier):
+    """f(data, hi, lo, kv, out): the library's table kernel at ``tier``
+    into a table of its own (this checkout's layout), then its product
+    kernel, on the current stream."""
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops.sed_projection import table_bytes
+    lib = _build.bind(ctypes.CDLL(str(lib_path)), ('psa_sed_tier_table', 'psa_sed_tier_product'))
+    tables = {}
+
+    def run(data, hi, lo, kv, out):
+        n_t, n_atoms, _ = data.shape
+        n_bytes = table_bytes(n_atoms, kv.shape[0])
+        if n_bytes not in tables:
+            tables[n_bytes] = torch.empty(n_bytes, dtype=torch.uint8, device=data.device)
+        table, stream = tables[n_bytes], torch.cuda.current_stream().cuda_stream
+        err = lib.psa_sed_tier_table(hi.data_ptr(), lo.data_ptr(), kv.data_ptr(), table.data_ptr(),
+                                     n_bytes, 0, n_atoms, kv.shape[0], tier, stream)
+        err = err or lib.psa_sed_tier_product(
+            data.data_ptr(), table.data_ptr(), n_bytes, out[0].data_ptr(), out[1].data_ptr(), n_t,
+            n_atoms, 0, n_atoms, kv.shape[0], 0, tier, stream)
+        if err:
+            raise RuntimeError(f"{lib_path}: CUDA error {err}")
+    return run
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('other', type=Path, help="another version of csrc/sed_projection.cu")
+    parser.add_argument('other', type=Path, help="another version of csrc/sed_projection.cu or of "
+                        "csrc/sed_projection_tiers.cu")
+    parser.add_argument('--tier', default='parity', choices=['parity', 'balanced', 'fast'])
     parser.add_argument('--rounds', type=int, default=8)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_kernel_ab: torch.cuda.is_available() is false; needs a CUDA GPU")
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops import sed_projection as proj
     from psa_tpu_torch.ops.spectral import split_f64
-    this = Path(__file__).resolve().parent / 'psa_tpu_torch' / 'csrc' / 'sed_projection.cu'
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
-        other_lib, this_lib = build_all([args.other, this], Path(tmp))
-        other = launcher(other_lib, entry_arguments(args.other))
-        mine = launcher(this_lib, entry_arguments(this))
+        other_lib = Path(tmp) / 'libother.so'
+        nvcc = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, '-o', str(other_lib),
+                                 str(args.other)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        _build.build()   # this checkout's sources, beside the other nvcc run
+        _build.load()
+        log = nvcc.communicate(timeout=600)[0]
+        if nvcc.returncode != 0:
+            raise SystemExit(f"nvcc failed on {args.other}:\n{log}")
+        if 'psa_sed_tier_product' in args.other.read_text():
+            if args.tier == 'parity':
+                raise SystemExit(f"{args.other} runs 'balanced' or 'fast'")
+            other = tier_launcher(other_lib, proj.TIERS[args.tier])
+        else:
+            other = launcher(other_lib, entry_arguments(args.other), proj.TIERS[args.tier])
 
         dev = torch.device('cuda')
         gen = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -104,16 +142,21 @@ def main():
             return tuple(torch.zeros((cs.N_T, 3, cs.K_CHUNK), device=dev) for _ in range(2))
         outs = {'this': fresh(), 'other': fresh(), 'this_accumulate': fresh()}
         variants = {'other': lambda: other(*inputs, outs['other']),
-                    'this': lambda: mine(*inputs, outs['this']),
-                    'this_accumulate': lambda: mine(*inputs, outs['this_accumulate'],
-                                                    accumulate=True)}
+                    'this': lambda: proj.sed_projection(*inputs, out=outs['this'],
+                                                        precision=args.tier),
+                    'this_accumulate': lambda: proj.sed_projection(
+                        *inputs, out=outs['this_accumulate'], accumulate=True,
+                        precision=args.tier)}
         for run in variants.values():                 # the accumulator: added once to zeros
             run()
         torch.cuda.synchronize()
+        errs = {name: cs.rel(torch.cat(outs[name]), torch.cat(outs['this'])) for name in variants}
         same = {name: all(torch.equal(a, b) for a, b in zip(outs[name], outs['this']))
                 for name in variants}
-        if not all(same.values()):
-            raise SystemExit(f"the versions disagree with this one: {same}")
+        agree = same if args.tier == 'parity' else {n: e <= cs.TOL_KERNEL for n, e in errs.items()}
+        if not all(agree.values()):
+            raise SystemExit(f"the versions disagree with this one at {args.tier}: bitwise {same}, "
+                             f"of max {errs}")
 
         ms = {name: [] for name in variants}
         order = ['other', 'this', 'this_accumulate']
@@ -127,13 +170,13 @@ def main():
     for name, times in ms.items():
         q1, med, q3 = (float(x) for x in np.percentile(times, [25, 50, 75]))
         stats[name] = {"median_ms": med, "q1_ms": q1, "q3_ms": q3, "n": len(times),
-                       "bitwise_equal_to_this": same[name]}
-        print(f"[ab] {name}: median {med:.3f} ms, quartiles {q1:.3f}-{q3:.3f} ms over "
-              f"{len(times)} timings of 2 calls at (n_t,A,K)=({cs.N_T},{cs.N_ATOMS},{cs.K_CHUNK})",
-              flush=True)
-    print(json.dumps({"other": str(args.other), "shape": [cs.N_T, cs.N_ATOMS, cs.K_CHUNK],
-                      "rounds": args.rounds, "variants": stats, "clocks_sm_power_after": clocks}),
-          flush=True)
+                       "bitwise_equal_to_this": same[name], "rel_err_to_this": errs[name]}
+        print(f"[ab] {args.tier} {name}: median {med:.3f} ms, quartiles {q1:.3f}-{q3:.3f} ms over "
+              f"{len(times)} timings of 2 calls at (n_t,A,K)=({cs.N_T},{cs.N_ATOMS},{cs.K_CHUNK}); "
+              f"bitwise equal to this {same[name]}, {errs[name]:.3e} of max", flush=True)
+    print(json.dumps({"other": str(args.other), "tier": args.tier,
+                      "shape": [cs.N_T, cs.N_ATOMS, cs.K_CHUNK], "rounds": args.rounds,
+                      "variants": stats, "clocks_sm_power_after": clocks}), flush=True)
 
 
 if __name__ == '__main__':

@@ -4,8 +4,9 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-It builds the projection kernel from ``psa_tpu_torch/csrc``,
-checks it against its plain PyTorch version (two ragged shapes and the
+It builds the projection kernels from ``psa_tpu_torch/csrc`` (one nvcc
+process per source, all at once), checks the 'parity' kernel against its
+plain PyTorch version (two ragged shapes and the
 working chunk, which must also come out bit for bit the same twice, and
 whose error against a float64 sum of the same float32 operands is printed
 for the kernel and the plain version), checks the chain-dispersion
@@ -15,9 +16,13 @@ physics, runs ``SEDCalculator.calculate`` at the working size (10^5 atoms x
 ``calculate_kgrid_browse`` (float32 and float16 readback) on the same data
 against the float64 oracle, the grid reductions' physics at small sizes
 (square-lattice peak surface, chiral peaks, L/T split, Welch), each
-precision tier of the kernel ('parity', 'balanced', 'fast') against its
-plain version at the working chunk and through ``calculate`` at the working
-size (phase 5d), the gridded (NUFFT) engine on the same data:
+precision tier ('parity', 'balanced', 'fast') against its plain version at
+the working chunk and through ``calculate`` at the working size (phase 5d:
+for 'balanced' and 'fast' the table kernel against the plain table, the
+product kernel against its plain version, ragged shapes, a view off 16
+bytes, ``out=``/``accumulate=``, three atom blocks past a lowered table cap,
+a bitwise rerun, each stage timed beside its plain version and the product
+stage beside cuBLAS, and the row-copy path at 10^5 - 1 atoms), the gridded (NUFFT) engine on the same data:
 ``calculate_gridded``, and ``engine='gridded'`` of ``calculate_kgrid_peaks``
 and ``calculate_kgrid_browse`` against the direct engine on the 50x50 grid and
 on a 200x200 grid, walls in turns, reruns bitwise equal (phase 5e; streamed
@@ -74,8 +79,9 @@ with and without its extended tier, every launch against the plain
 version on its inputs; and the rest of the slice (incoherent groups,
 chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
-non-zero.  The line before the last is a JSON record of each kernel
-(launches on the main paths, error, times per tier); the last line is
+non-zero.  The line before the last is a JSON record of each kernel (the
+'parity' kernel, and the table and product kernels at 'balanced' and
+'fast': launches on the main paths, error, times, bounds); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
 any result.  About 9 minutes on an H100 machine.
 
@@ -114,9 +120,14 @@ TOL_DOS = 1e-6      # streamed vs resident DOS: the same atom chunks, the same F
 RESUME_K = 1000     # phase 8: the first 1,000 k of the grid, two chunks of 500
 DUMP_ATOMS, DUMP_FRAMES, DUMP_CHUNK = 10_000, 200, 64   # phase 9's LAMMPS dump
 TF32_PEAK, BF16_PEAK, HBM_RATE = 495e12, 989e12, 3.35e12   # H100 SXM: dense FLOP/s, HBM bytes/s
+FP64_PEAK = 34e12     # H100 SXM float64 FLOP/s outside the tensor cores (NVIDIA's data sheet)
 #: calculate at the working size vs the float64 oracle columns, per precision tier
 TOL_TIERS = {'parity': TOL_KERNEL, 'balanced': 5e-5, 'fast': 5e-3}
 TIER_PEAK = {'parity': TF32_PEAK, 'balanced': BF16_PEAK, 'fast': TF32_PEAK}
+#: the tiers of csrc/sed_projection_tiers.cu: a table kernel, then a product kernel
+TABLE_TIERS = ('balanced', 'fast')
+TABLE_ULPS = 2        # the table kernel's cos/sin vs torch's on the card, float32 ulps of the value
+TABLE_FLOP = 8        # float64 operations per angle: the dot (3 mul, 2 add) and the fold (3)
 THERMAL_U = 0.05                      # Å, seeded site displacements of the NPT and DSF phases
 NPT_AMP, NPT_PERIOD = 0.01, 2_500     # h(t) = h̄ (1 + NPT_AMP sin(2π t / NPT_PERIOD))
 DSF_K, SELF_K = 128, 16               # k of the [100] path; of them, those of the self parts
@@ -212,8 +223,22 @@ def working_calculator(dev, velocities=None, **kw):
     return calc, k_vecs, grid_shape
 
 
+def ptxas_by_kernel(log):
+    """{kernel: ptxas_counts} for each kernel ``-Xptxas -v`` compiled, named
+    with its template arguments, e.g. ``tier_product_kernel<2,1>``."""
+    out = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        found = re.search(r'\d+([a-z_]+_kernel)(I(?:L[a-z]\d+E)+E)?', mangled)
+        name = found.group(1) if found else mangled
+        if found and found.group(2):
+            name += '<' + ','.join(re.findall(r'L[a-z](\d+)E', found.group(2))) + '>'
+        out[name] = ptxas_counts(block)
+    return out
+
+
 def ptxas_counts(log):
-    """Registers, static shared memory and spills of the kernel from ``-Xptxas -v``."""
+    """Registers, static shared memory and spills of the first kernel in ``-Xptxas -v`` output."""
     def num(pattern):
         found = re.search(pattern, log)
         return int(found.group(1)) if found else None
@@ -590,31 +615,37 @@ def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
     return lt_launches, welch_launches, chunks
 
 
-def out_accumulate_checks(proj, gen, rng, dev32, velocities, hi_dev, lo_dev, k_dev):
-    """Phase 3, continued: ``out=`` on a row slice and ``accumulate=True``
-    against the plain version's same call, at (197, 5003, 201), and the
-    working chunk summed over two atom halves.  Returns the rel errors."""
+def out_accumulate_checks(proj, gen, rng, dev32, velocities=None, hi_dev=None, lo_dev=None,
+                          k_dev=None, precision='parity'):
+    """Phase 3, continued (and 5d, per tier): ``out=`` on a row slice and
+    ``accumulate=True`` against the plain version's same call, at (197,
+    5003, 201), and, given the working chunk, that chunk summed over two
+    atom halves.  Returns the rel errors."""
     from psa_tpu_torch.ops.spectral import split_f64
     n_t, n_a, n_k = 197, 5003, 201
     hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
-    args = (torch.randn((n_t, n_a, 3), generator=gen, device=velocities.device), dev32(hi),
+    args = (torch.randn((n_t, n_a, 3), generator=gen, device=gen.device), dev32(hi),
             dev32(lo), dev32(rng.uniform(-3, 3, size=(n_k, 3))))
     errs = {}
-    sig = [torch.full((n_t + 60, 3, n_k), 7.0, device=velocities.device) for _ in range(2)]
+    sig = [torch.full((n_t + 60, 3, n_k), 7.0, device=gen.device) for _ in range(2)]
     rows = [x[20:20 + n_t] for x in sig]
-    proj.sed_projection(*args, out=rows)
-    want = proj.sed_projection_plain(*args)
+    proj.sed_projection(*args, out=rows, precision=precision)
+    want = proj.sed_projection_plain(*args, precision=precision)
     outside = all(bool((x[:20] == 7.0).all() and (x[20 + n_t:] == 7.0).all()) for x in sig)
     e, scale = pair_err(rows, want)
     errs['out_row_slice'] = e / scale
     check(outside and e / scale <= TOL_KERNEL, f"out= row slice {e / scale:.3e}, outside kept {outside}")
-    base = proj.sed_projection_plain(args[0].flip(0).contiguous(), *args[1:])
-    got = proj.sed_projection(*args, out=[b.clone() for b in base], accumulate=True)
-    want = proj.sed_projection_plain(*args, out=[b.clone() for b in base], accumulate=True)
+    base = proj.sed_projection_plain(args[0].flip(0).contiguous(), *args[1:], precision=precision)
+    got = proj.sed_projection(*args, out=[b.clone() for b in base], accumulate=True,
+                              precision=precision)
+    want = proj.sed_projection_plain(*args, out=[b.clone() for b in base], accumulate=True,
+                                     precision=precision)
     e, scale = pair_err(got, want)
     errs['accumulate'] = e / scale
     check(e / scale <= TOL_KERNEL, f"accumulate=True {e / scale:.3e}")
     del sig, rows, base, got, want, args
+    if velocities is None:
+        return errs
 
     half = velocities.shape[1] // 2
     outs = {}
@@ -915,57 +946,283 @@ def f64_oracle(velocities, mean64, k64, atoms=5000):
     return torch.fft.fft(torch.complex(s_re, s_im), dim=0) / velocities.shape[0]
 
 
-def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols):
-    """Phase 5d: each precision tier of the kernel against its plain
-    version over the whole working-chunk output, both timed, then
-    ``calculate`` at the working size at that tier against the float64
-    oracle columns.  Returns {tier: record}."""
+def float_ulp(x):
+    """The float32 spacing at |x|."""
+    a = x.abs()
+    return torch.nextafter(a, torch.full_like(a, float('inf'))) - a
+
+
+def split_at_most(parts, bound):
+    """Where the split ``parts`` (one TF32 value, or a bf16 (hi, lo) pair)
+    is at most ``bound``: the split is monotone in its value, (hi, lo)
+    ordered by hi, then lo."""
+    if len(parts) == 1:
+        return parts[0] <= bound[0]
+    (hi, lo), (b_hi, b_lo) = parts, bound
+    return (hi < b_hi) | ((hi == b_hi) & (lo <= b_lo))
+
+
+def table_checks(proj, hi, lo, kv):
+    """The table kernel against its plain version on (hi, lo, kv): each
+    tier's split table equal to the split of a value within TABLE_ULPS
+    float32 ulps of ``phase_table``'s cos/sin, plus one float32 step of the
+    angle where the float64 angle rounds the other way (the split is
+    monotone, so it lies between the splits of those bounds).  Returns per
+    tier the max abs difference of the split's value (hi + lo) from the
+    plain split's, the values whose split differs and the share equal bit
+    for bit."""
+    n_a, n_k = hi.shape[0], kv.shape[0]
+    plain = proj.phase_table(hi, lo, kv)
+    slack = TABLE_ULPS * float_ulp(plain) + float_ulp(proj.accurate_angles(hi, lo, kv)).repeat(1, 2)
+    out = {}
+    for tier in TABLE_TIERS:
+        got = proj.untile_table(proj.tier_table(hi, lo, kv, tier), n_a, n_k, tier)
+        below, above = proj.tier_split(plain - slack, tier), proj.tier_split(plain + slack, tier)
+        inside = split_at_most(below, got) & split_at_most(got, above)
+        want = proj.tier_split(plain, tier)
+        same = torch.stack([g == w for g, w in zip(got, want)]).all(dim=0)
+        check(bool(inside.all()), f"{tier} table: {int((~inside).sum())} values are no split of a "
+                                  f"value within {TABLE_ULPS} ulps of phase_table")
+        out[tier] = {"max_abs_err": float((sum(got) - sum(want)).abs().max()),   # hi + lo
+                     "differ": int((~same).sum()), "bitwise_equal_share": float(same.float().mean())}
+        del got, below, above, inside, want, same
+    torch.cuda.synchronize()
+    return out
+
+
+def tier_edges(proj, gen, rng, dev32, tier):
+    """The tier's kernels against its plain version at ragged shapes: A %
+    4 == 0 and != 0 (a view off a 16-byte boundary, copied), one stage, one
+    k-point, n_t under 4 (fewer than four time-step maps); then ``out=``
+    and ``accumulate=``.  Returns {shape: rel err} and the
+    out/accumulate errors; checks each launch counted one table and one
+    product."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    errs = {}
+    for n_t, n_a, n_k in ((9, 1000, 77), (9, 1001, 77), (197, 5003, 201), (64, 32, 64),
+                          (130, 4096, 1), (3, 1002, 70)):
+        hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
+        args = (torch.randn((n_t, n_a, 3), generator=gen, device=gen.device), dev32(hi), dev32(lo),
+                dev32(rng.uniform(-3, 3, size=(n_k, 3))))
+        views = {(n_t, n_a, n_k): args[0]}
+        if n_a % 4:
+            views[(n_t - 1, n_a, n_k, 'view')] = args[0][1:]   # starts off a 16-byte boundary
+        for key, data in views.items():
+            before = (proj.table_launches, proj.product_launches)
+            err_abs, scale = pair_err(proj.sed_projection(data, *args[1:], precision=tier),
+                                      proj.sed_projection_plain(data, *args[1:], precision=tier))
+            check((proj.table_launches, proj.product_launches) == (before[0] + 1, before[1] + 1),
+                  f"{tier} at {key}: launches {before} -> {proj.table_launches, proj.product_launches}")
+            check(err_abs / scale <= TOL_KERNEL, f"{tier} at {key}: {err_abs / scale:.3e}")
+            errs[str(key)] = err_abs / scale
+        check(args[0][1:].data_ptr() % 16 or n_a % 4 == 0, "the view must start off 16 bytes")
+    return errs, out_accumulate_checks(proj, gen, rng, dev32, precision=tier)
+
+
+def product_library_ms(proj, velocities, table, n_k, tier):
+    """ms of the library (cuBLAS through torch.matmul) doing the product
+    stage alone on the tier's table, which the port never calls: 'fast' one
+    float32 matmul with TF32 on (switched on for the timing, restored
+    after), the same function in one call; 'balanced' the three bf16
+    matmuls of its split (no one call computes it: these give bf16 outputs
+    and leave the float32 sum to do).  The data are laid out (3 n_t, A) and
+    split before the timing."""
+    n_t, n_a, _ = velocities.shape
+    parts = proj.untile_table(table, n_a, n_k, tier)
+    if tier == 'fast':
+        d = velocities.transpose(1, 2).reshape(n_t * 3, n_a)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ms = [cuda_ms(lambda: torch.matmul(d, parts[0]), 2) for _ in range(2)]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    else:
+        d_hi = torch.empty((n_t * 3, n_a), dtype=torch.bfloat16, device=velocities.device)
+        d_lo = torch.empty_like(d_hi)
+        for t0 in range(0, n_t, 1000):   # the float32 copy of the layout in time-step chunks
+            d = velocities[t0:t0 + 1000].transpose(1, 2).reshape(-1, n_a)
+            rows = slice(3 * t0, 3 * t0 + d.shape[0])
+            d_hi[rows] = d.to(torch.bfloat16)
+            d_lo[rows] = (d - d_hi[rows].float()).to(torch.bfloat16)
+        del d
+        c_hi, c_lo = (c.to(torch.bfloat16) for c in parts)
+        ms = [cuda_ms(lambda: (torch.matmul(d_lo, c_hi), torch.matmul(d_hi, c_lo),
+                               torch.matmul(d_hi, c_hi)), 2) for _ in range(2)]
+    check(not torch.backends.cuda.matmul.allow_tf32, "allow_tf32 must be back to False")
+    return float(np.mean(ms))
+
+
+def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols, gen, rng, dev32,
+          ptxas):
+    """Phase 5d: the precision tiers at the working chunk.  'parity' (the
+    fused kernel) against its plain version; for 'balanced' and 'fast' the
+    table kernel against the plain table (table_checks), the product kernel
+    against its plain version on the kernel's table, the whole projection
+    against ``sed_projection_plain``, a rerun bit for bit, an atom-blocked
+    run past a lowered table cap, the edge cases (tier_edges), the time of
+    each stage, of the whole and of the plain versions, in turns, and the
+    product stage's library time (product_library_ms); then ``calculate``
+    at the working size at each tier against the float64 oracle columns,
+    its launches of each kernel counted; last the tiers at A = N_ATOMS - 1, whose rows of 3A
+    floats leave 16-byte boundaries (the four time-step maps still take
+    them).  Returns ({tier: record},
+    [kernel records])."""
     k_dev = torch.from_numpy(np.ascontiguousarray(k_vecs[:K_CHUNK], dtype=np.float32)).to(
         velocities.device)
     work = (velocities, hi_dev, lo_dev, k_dev)
     flop = 4.0 * N_T * 3 * N_ATOMS * K_CHUNK
-    bytes_moved = 4.0 * (3 * N_T * N_ATOMS + 6 * N_ATOMS + 3 * K_CHUNK + 2 * 3 * N_T * K_CHUNK)
-    out = {}
+    data_bytes, out_bytes = 4.0 * 3 * N_T * N_ATOMS, 4.0 * 2 * 3 * N_T * K_CHUNK
+    bytes_moved = data_bytes + 4.0 * (6 * N_ATOMS + 3 * K_CHUNK) + out_bytes
+    table_out_bytes = 4.0 * N_ATOMS * 2 * K_CHUNK
+    t0 = time.perf_counter()
+    table_errs = table_checks(proj, hi_dev, lo_dev, k_dev)
+    log('tiers', f"table kernel at (A,K)=({N_ATOMS},{K_CHUNK}): each value the split of one "
+                 f"within {TABLE_ULPS} ulps of phase_table; vs the plain split "
+                 + "; ".join(f"{tier} max abs {e['max_abs_err']:.3e}, {e['differ']} values differ, "
+                             f"{e['bitwise_equal_share']:.9f} bit for bit"
+                             for tier, e in table_errs.items())
+                 + f"; {time.perf_counter() - t0:.2f} s")
+    out, kernels = {}, []
     for tier in TOL_TIERS:
-        kern = proj.sed_projection(*work, precision=tier)
         plain = proj.sed_projection_plain(*work, precision=tier)
+        kern = proj.sed_projection(*work, precision=tier)
+        again = proj.sed_projection(*work, precision=tier)
         torch.cuda.synchronize()
+        rerun_equal = all(torch.equal(a, b) for a, b in zip(kern, again))
         err_abs, scale = pair_err(kern, plain)
-        del kern, plain
+        del kern, again
+        check(rerun_equal, f"{tier}: two runs at the working chunk differ")
         check(err_abs / scale <= TOL_KERNEL,
               f"{tier} kernel vs plain at the working chunk {err_abs / scale:.3e} > {TOL_KERNEL}")
+        rec = {"max_abs_err": err_abs, "rel_err": err_abs / scale, "rerun_bitwise": rerun_equal}
         plain_ms = [cuda_ms(lambda: proj.sed_projection_plain(*work, precision=tier), 1)]
-        kern_ms = [cuda_ms(lambda: proj.sed_projection(*work, precision=tier), 2) for _ in range(2)]
+        if tier == 'parity':
+            rec["ms_runs"] = [cuda_ms(lambda: proj.sed_projection(*work, precision=tier), 2)
+                              for _ in range(2)]
+        else:
+            table = proj.tier_table(*work[1:], tier)
+            pair_out = tuple(torch.empty_like(x) for x in plain)
+            proj.tier_product(velocities, table, K_CHUNK, tier, pair_out)
+            p_abs, p_scale = pair_err(pair_out, proj.tier_product_plain(velocities, table, K_CHUNK,
+                                                                        tier))
+            check(p_abs / p_scale <= TOL_KERNEL, f"{tier} product vs plain {p_abs / p_scale:.3e}")
+            saved, before = proj.TABLE_CAP_BYTES, (proj.table_launches, proj.product_launches)
+            stages = -(-N_ATOMS // proj.TABLE_ATOMS)
+            proj.TABLE_CAP_BYTES = proj.table_bytes(-(-stages // 3) * proj.TABLE_ATOMS, K_CHUNK)
+            try:
+                blocked = proj.sed_projection(*work, precision=tier)
+            finally:
+                proj.TABLE_CAP_BYTES = saved
+            b_abs, b_scale = pair_err(blocked, plain)
+            blocked_launches = (proj.table_launches - before[0], proj.product_launches - before[1])
+            del blocked
+            check(blocked_launches == (3, 3) and b_abs / b_scale <= TOL_KERNEL,
+                  f"{tier} in 3 atom blocks: launches {blocked_launches}, {b_abs / b_scale:.3e}")
+            t_plain = [cuda_ms(lambda: proj.tier_table_plain(*work[1:], tier), 2)]
+            p_plain = [cuda_ms(lambda: proj.tier_product_plain(velocities, table, K_CHUNK, tier), 1)]
+            rec["table_ms_runs"] = [cuda_ms(lambda: proj.tier_table(*work[1:], tier, out=table), 5)
+                                    for _ in range(2)]
+            rec["product_ms_runs"] = [cuda_ms(lambda: proj.tier_product(velocities, table, K_CHUNK,
+                                                                        tier, pair_out), 2)
+                                      for _ in range(2)]
+            rec["ms_runs"] = [cuda_ms(lambda: proj.sed_projection(*work, precision=tier,
+                                                                  out=pair_out), 2)
+                              for _ in range(2)]
+            t_plain.append(cuda_ms(lambda: proj.tier_table_plain(*work[1:], tier), 2))
+            p_plain.append(cuda_ms(lambda: proj.tier_product_plain(velocities, table, K_CHUNK,
+                                                                   tier), 1))
+            del pair_out
+            torch.cuda.empty_cache()
+            library_ms = product_library_ms(proj, velocities, table, K_CHUNK, tier)
+            del table
+            torch.cuda.empty_cache()
+            edge_errs, oa_errs = tier_edges(proj, gen, rng, dev32, tier)
+            rec.update(table_ms=float(np.mean(rec["table_ms_runs"])),
+                       product_ms=float(np.mean(rec["product_ms_runs"])),
+                       table_plain_ms=float(np.mean(t_plain)), product_plain_ms=float(np.mean(p_plain)),
+                       product_max_abs_err=p_abs, product_rel_err=p_abs / p_scale,
+                       blocked_rel_err=b_abs / b_scale, blocked_launches=list(blocked_launches),
+                       product_library_ms=library_ms, edges_rel_err=edge_errs,
+                       out_accumulate_rel_err=oa_errs)
         plain_ms.append(cuda_ms(lambda: proj.sed_projection_plain(*work, precision=tier), 1))
+        del plain
         torch.cuda.empty_cache()
 
         tcalc, _, _ = working_calculator(velocities.device, precision=tier)
         tcalc.preload_device_group_data(velocities, hi_dev, lo_dev)
-        proj.launches = 0
+        proj.launches = proj.table_launches = proj.product_launches = 0
         t0 = time.perf_counter()
         sed = tcalc.calculate(np.array([], np.float32), k_vecs, k_grid_shape=grid_shape,
                               k_chunk_size=K_CHUNK)
         wall = time.perf_counter() - t0
-        launches = proj.launches
+        launches = (proj.launches, proj.table_launches, proj.product_launches)
+        n_chunks = -(-len(k_vecs) // K_CHUNK)
         got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
         calc_err = rel(got.to(torch.complex128), oracle)
-        check(bool(np.isfinite(sed.sed).all()) and launches == -(-len(k_vecs) // K_CHUNK),
-              f"{tier} calculate: launches {launches}")
+        want = (n_chunks, 0, 0) if tier == 'parity' else (0, n_chunks, n_chunks)
+        check(bool(np.isfinite(sed.sed).all()) and launches == want,
+              f"{tier} calculate: launches (fused, tables, products) {launches}, want {want}")
         check(calc_err <= TOL_TIERS[tier],
               f"{tier} calculate vs f64 oracle {calc_err:.3e} > {TOL_TIERS[tier]}")
         del sed, got, tcalc
         bound = {"operations": flop / TIER_PEAK[tier] * 1e3, "bytes": bytes_moved / HBM_RATE * 1e3}
         bound_by = max(bound, key=bound.get)
-        out[tier] = {"ms": float(np.mean(kern_ms)), "plain_ms": float(np.mean(plain_ms)),
-                     "max_abs_err": err_abs, "rel_err": err_abs / scale,
-                     "calculate_rel_err": calc_err, "calculate_wall_s": wall,
-                     "launches": launches, "bound_ms": bound[bound_by], "bound_by": bound_by}
+        rec.update(ms=float(np.mean(rec["ms_runs"])), plain_ms=float(np.mean(plain_ms)),
+                   calculate_rel_err=calc_err, calculate_wall_s=wall, launches=launches[0],
+                   table_launches=launches[1], product_launches=launches[2],
+                   bound_ms=bound[bound_by], bound_by=bound_by)
+        out[tier] = rec
+        stages = "" if tier == 'parity' else (
+            f" = table {rec['table_ms']:.3f} + product {rec['product_ms']:.3f} ms (plain "
+            f"{rec['table_plain_ms']:.3f} + {rec['product_plain_ms']:.3f}; the library on the "
+            f"product stage alone {rec['product_library_ms']:.3f}); product vs plain "
+            f"{rec['product_rel_err']:.3e}, 3 atom blocks {rec['blocked_rel_err']:.3e}, edges "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rec['edges_rel_err'].items())
+            + ", " + ", ".join(f"{k} {v:.3e}" for k, v in rec['out_accumulate_rel_err'].items()))
         log('tiers', f"{tier}: working chunk (n_t,A,K)=({N_T},{N_ATOMS},{K_CHUNK}) kernel vs plain "
-                     f"rel err {err_abs / scale:.3e} (tol {TOL_KERNEL}); kernel {out[tier]['ms']:.3f} ms, "
-                     f"plain {out[tier]['plain_ms']:.3f} ms, bound {bound[bound_by]:.3f} ms by "
-                     f"{bound_by}; calculate {len(k_vecs)} k {wall:.3f} s wall, launches {launches}, "
-                     f"4 k-columns vs f64 oracle {calc_err:.3e} (tol {TOL_TIERS[tier]})")
-    return out
+                     f"rel err {err_abs / scale:.3e} (tol {TOL_KERNEL}), rerun bitwise; kernel "
+                     f"{rec['ms']:.3f} ms{stages}; plain {rec['plain_ms']:.3f} ms, bound "
+                     f"{bound[bound_by]:.3f} ms by {bound_by}; calculate {len(k_vecs)} k "
+                     f"{wall:.3f} s wall, launches (fused, tables, products) {launches}, 4 "
+                     f"k-columns vs f64 oracle {calc_err:.3e} (tol {TOL_TIERS[tier]})")
+        if tier == 'parity':
+            continue
+        table_bound = {"operations": TABLE_FLOP * N_ATOMS * K_CHUNK / FP64_PEAK * 1e3,
+                       "bytes": (4.0 * (6 * N_ATOMS + 3 * K_CHUNK) + table_out_bytes) / HBM_RATE * 1e3}
+        product_bound = {"operations": bound["operations"],
+                         "bytes": (data_bytes + table_out_bytes + out_bytes) / HBM_RATE * 1e3}
+        source, replaces = "psa_tpu_torch/csrc/sed_projection_tiers.cu", "psa_tpu/ops/pallas_sed.py:116"
+        library_call = ("torch.matmul, TF32 on" if tier == 'fast' else
+                        "3 torch.matmul of the bf16 split, bf16 outputs (no one call computes it)")
+        for name, launches_n, err, ms, p_ms, bnd, lib_ms, kernel, extra in (
+                ("sed_tier_table", launches[1], table_errs[tier]['max_abs_err'], rec['table_ms'],
+                 rec['table_plain_ms'], table_bound, None, f"tier_table_kernel<{proj.TIERS[tier]}>",
+                 {}),
+                ("sed_tier_product", launches[2], rec['product_max_abs_err'], rec['product_ms'],
+                 rec['product_plain_ms'], product_bound, rec['product_library_ms'],
+                 f"tier_product_kernel<{proj.TIERS[tier]}>",
+                 {"library_call": library_call,
+                  "design_bound_ms": (3 if tier == 'balanced' else 1) * bound["operations"]})):
+            by = max(bnd, key=bnd.get)
+            kernels.append({"name": f"{name}[{tier}]", "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": launches_n, "max_abs_err": err,
+                            "ms": ms, "plain_ms": p_ms, "bound_ms": bnd[by], "bound_by": by,
+                            "library_ms": lib_ms, "ptxas": ptxas.get(kernel), **extra})
+    odd = (velocities[:, :N_ATOMS - 1].contiguous(), hi_dev[:N_ATOMS - 1], lo_dev[:N_ATOMS - 1],
+           k_dev)
+    for tier in TABLE_TIERS:
+        err_abs, scale = pair_err(proj.sed_projection(*odd, precision=tier),
+                                  proj.sed_projection_plain(*odd, precision=tier))
+        check(err_abs / scale <= TOL_KERNEL, f"{tier} at A={N_ATOMS - 1}: {err_abs / scale:.3e}")
+        ms = float(np.mean([cuda_ms(lambda: proj.sed_projection(*odd, precision=tier), 2)
+                            for _ in range(2)]))
+        out[tier].update(row_copy_ms=ms, row_copy_rel_err=err_abs / scale)
+        log('tiers', f"{tier} at (n_t,A,K)=({N_T},{N_ATOMS - 1},{K_CHUNK}), rows off 16 bytes: "
+                     f"{ms:.3f} ms (at A={N_ATOMS}: {out[tier]['ms']:.3f} ms), kernel "
+                     f"vs plain {err_abs / scale:.3e}")
+    del odd
+    return out, kernels
 
 
 def fill_positions(host_pos, make_frames):
@@ -3025,10 +3282,11 @@ def bench_kernel_shapes(dev, proj):
 
 @contextlib.contextmanager
 def recorded_launches(proj):
-    """Within the block, the inputs of every launch of the projection
-    kernel, each kept as a clone: a list of (data, mp_hi, mp_lo, k,
-    precision).  The wrapper is replaced in every module of the port that
-    holds it by name; the block must launch as many kernels as it recorded."""
+    """Within the block, the inputs of every call of the projection wrapper
+    that launched a kernel, each kept as a clone: a list of (data, mp_hi,
+    mp_lo, k, precision).  The wrapper is replaced in every module of the
+    port that holds it by name; every kernel the block launches must come
+    from a recorded call."""
     import inspect
     import psa_tpu_torch.core.calculator        # noqa: F401  the modules that hold the wrapper
     import psa_tpu_torch.core.streaming         # noqa: F401
@@ -3039,18 +3297,21 @@ def recorded_launches(proj):
                if name.startswith('psa_tpu_torch') and getattr(m, 'sed_projection', None) is real]
     kept = []
 
+    counted = []
+
     def recording(*args, **kwargs):
-        launched = proj.launches
+        launched = proj.kernel_launches()
         out = real(*args, **kwargs)
         call = signature.bind(*args, **kwargs)
         call.apply_defaults()
         a = call.arguments
-        if proj.launches > launched:
+        if proj.kernel_launches() > launched:
             kept.append(tuple(a[n].clone() for n in ('data', 'mp_hi', 'mp_lo', 'k_vectors'))
                         + (a['precision'],))
+            counted.append(proj.kernel_launches() - launched)
         return out
 
-    before = proj.launches
+    before = proj.kernel_launches()
     for m in holders:
         m.sed_projection = recording
     try:
@@ -3058,8 +3319,9 @@ def recorded_launches(proj):
     finally:
         for m in holders:
             m.sed_projection = real
-    check(proj.launches - before == len(kept),
-          f"{proj.launches - before} launches, {len(kept)} recorded")
+    check(proj.kernel_launches() - before == sum(counted),
+          f"{proj.kernel_launches() - before} launches, {sum(counted)} in the {len(kept)} "
+          f"recorded calls")
 
 
 def recorded_errors(proj, kept, path):
@@ -3251,12 +3513,21 @@ def main():
     t0 = time.perf_counter()
     _build.build()   # from the checkout's sources, whatever _build/ holds
     lib = _build.load()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines() if 'registers' in ln or 'spill' in ln]
-    ptxas_info = ptxas_counts(_build.build_log)
+    ptxas = ptxas_by_kernel(_build.build_log)
+    ptxas_info = ptxas.get('sed_projection_kernel', {"registers": None})
     ptxas_info["smem_dynamic_bytes"] = lib.psa_sed_projection_smem_bytes()
+    for name, counts in ptxas.items():
+        if name.startswith('tier_product_kernel'):
+            counts["smem_dynamic_bytes"] = lib.psa_sed_tier_product_smem_bytes()
     log('build', f"{_build.LIB_PATH.name} ready in {time.perf_counter() - t0:.2f} s "
-                 f"(nvcc {_build.build_seconds} s); ptxas: {' | '.join(ptxas)}")
-    check(ptxas_info["registers"] is not None, "no ptxas register count in the build log")
+                 f"(nvcc {_build.build_seconds} s, one process per source); ptxas: "
+                 + " | ".join(f"{name}: {c['registers']} registers, spills {c['spill_stores_bytes']}"
+                              f"/{c['spill_loads_bytes']} bytes" for name, c in ptxas.items()))
+    want_kernels = {'sed_projection_kernel'} | {f'tier_{stage}_kernel<{proj.TIERS[tier]}>'
+                                                 for stage in ('table', 'product')
+                                                 for tier in TABLE_TIERS}
+    check(ptxas_info["registers"] is not None and set(ptxas) == want_kernels,
+          f"ptxas counts of {sorted(want_kernels)} expected, got {sorted(ptxas)}")
 
     # -- 3. kernel against its plain version ------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3386,7 +3657,8 @@ def main():
 
     # -- 5d. the precision tiers -------------------------------------------
     t0 = time.perf_counter()
-    tier_info = tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols)
+    tier_info, tier_kernels = tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle,
+                                    cols, gen, rng, dev32, ptxas)
     log('tiers', f"tier phase took {time.perf_counter() - t0:.2f} s")
 
     # -- 7/8/9. out of core, resume, from disk ------------------------------
@@ -3530,8 +3802,6 @@ def main():
                               "welch": welch_launches, "calculate_streamed": streamed_launches,
                               "kgrid_peaks_streamed": streamed_peaks_launches,
                               "resume_rerun": rerun_launches, "from_dump": dump_launches,
-                              "calculate_balanced": tier_info['balanced']['launches'],
-                              "calculate_fast": tier_info['fast']['launches'],
                               "npt_peaks": npt_peaks_launches, "npt": npt_launches,
                               "npt_chain": npt_chain_launches, "cli": cli_launches,
                               **gridded_launches, **session_launches, **mesh_launches,
@@ -3546,7 +3816,7 @@ def main():
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
             for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]
         + [{"path": "mesh", "shapes": [shape], "rel_err": err} for shape, err in mesh_shapes]
-        + bench_entries}]}),
+        + bench_entries}] + tier_kernels}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)

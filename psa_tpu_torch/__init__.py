@@ -18,8 +18,10 @@ sweeps); and the command line, ``python -m psa_tpu_torch.cli``, with its
 configuration schema (YAML or JSON) and plots (matplotlib and PyYAML are
 imported only where a figure is drawn or a YAML file is read).
 The projection runs, at the precision tier the calculator names, in
-a hand-written CUDA kernel (``csrc/sed_projection.cu``, built with ``nvcc``
-at first use) on a GPU, and in its plain PyTorch version on CPU tensors;
+hand-written CUDA kernels (``csrc/sed_projection.cu`` at 'parity',
+``csrc/sed_projection_tiers.cu`` at 'balanced' and 'fast', built with
+``nvcc`` at first use) on a GPU, and in their plain PyTorch versions on CPU
+tensors;
 the reductions are torch ops on the same device.  This package imports
 ``torch`` and never ``jax``.
 """

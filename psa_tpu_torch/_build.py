@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface under ``_build/`` (listed in ``.gitignore``), and
-:func:`load` opens it with :mod:`ctypes`.  A stamp file beside the library
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` into an object, one
+process per source, all started together, and links them into one shared
+library with a plain C interface under ``_build/`` (listed in
+``.gitignore``); :func:`load` opens it with :mod:`ctypes`.  A stamp file beside the library
 holds the hash of the sources, the headers and the nvcc flags it was built
 from; the library is rebuilt when that hash changes.  Importing this module
 needs neither ``nvcc`` nor a GPU, so the CPU tests can import every module.
@@ -26,6 +27,20 @@ LIB_PATH = BUILD_DIR / 'libpsa_kernels.so'
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_PTR, _LL, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+#: Entry point -> (argument types, result type) of the library's C interface.
+SIGNATURES = {
+    # data, mp_hi, mp_lo, kv, out_re, out_im, n_t, n_atoms, n_k, accumulate, stream
+    'psa_sed_projection': ([_PTR] * 6 + [_LL] * 3 + [_I32, _PTR], _I32),
+    'psa_sed_projection_smem_bytes': ([], _I32),
+    # mp_hi, mp_lo, kv, table, table_bytes, atom0, n_atoms, n_k, tier, stream
+    'psa_sed_tier_table': ([_PTR] * 4 + [_LL] * 4 + [_I32, _PTR], _I32),
+    # data, table, table_bytes, out_re, out_im, n_t, row_atoms, atom0, n_atoms, n_k,
+    # accumulate, tier, stream
+    'psa_sed_tier_product': ([_PTR, _PTR, _LL, _PTR, _PTR] + [_LL] * 5 + [_I32, _I32, _PTR], _I32),
+    'psa_sed_tier_product_smem_bytes': ([], _I32),
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -71,18 +86,32 @@ def _stale() -> bool:
 
 
 def build() -> None:
-    """Compile ``csrc/*.cu`` into :data:`LIB_PATH` (atomic rename), then stamp it."""
+    """Compile each ``csrc/*.cu`` into an object (all nvcc runs at once),
+    link them into :data:`LIB_PATH` (atomic rename), then stamp it."""
     global build_seconds, build_log
     LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     stamp = fingerprint()
-    tmp = LIB_PATH.with_name(f'{LIB_PATH.name}.{os.getpid()}.tmp')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, sources())]
+    nvcc, tag = find_nvcc(), f'{os.getpid()}.tmp'
+    tmp = LIB_PATH.with_name(f'{LIB_PATH.name}.{tag}')
+    compile_flags = [f for f in NVCC_FLAGS if f != '-shared']
+    objects = [LIB_PATH.with_name(f'{src.stem}.{tag}.o') for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    procs = [subprocess.Popen([nvcc, *compile_flags, '-c', '-o', str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objects)]
+    logs = [f'== {src.name}\n{proc.communicate()[0]}' for src, proc in zip(sources(), procs)]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, '-o', str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        logs.append(f'== link\n{link.stdout}{link.stderr}')
+        failed = [link.returncode] if link.returncode != 0 else []
+    build_log = ''.join(logs)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, LIB_PATH)
     _stamp_path().write_text(stamp)
     build_seconds = time.perf_counter() - t0
@@ -95,12 +124,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             if _stale():
                 build()
-            lib = ctypes.CDLL(str(LIB_PATH))
-            fn = lib.psa_sed_projection
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 \
-                + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            lib.psa_sed_projection_smem_bytes.argtypes = []
-            lib.psa_sed_projection_smem_bytes.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(LIB_PATH)))
         return _lib
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Set the argument and result types of ``names`` (default: every entry
+    point of :data:`SIGNATURES`) on ``lib``; returns it."""
+    for name in SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = SIGNATURES[name]
+    return lib

@@ -1,19 +1,20 @@
-// Fused phase generation + atom contraction of the SED, for Hopper (sm_90a).
+// Fused phase generation + atom contraction of the SED, for Hopper (sm_90a):
+// the 'parity' tier (3xTF32).
 //
 //   out_re[t, c, k] = sum_a data[t, a, c] * cos(A[a, k])
 //   out_im[t, c, k] = sum_a data[t, a, c] * sin(A[a, k])
 //   A[a, k]         = (mp_hi + mp_lo)[a] . kv[k], folded into [-pi, pi]
 //
 // Replaces the Pallas TPU kernel psa_tpu/ops/pallas_sed.py::sed_projection_pallas
-// (body _projection_kernel, angle tile _angles_tile).  As there, the (A, 2K)
-// phase table never reaches device memory.
+// (body _projection_kernel, angle tile _angles_tile) at Precision.HIGHEST.  As
+// there, the (A, 2K) phase table never reaches device memory.  The other
+// tiers ('balanced', 'fast') run in sed_projection_tiers.cu: a table made once
+// per call, then a wgmma product.
 //
 // As a matrix product: M = 3 n_t rows (t, c), N = 2K columns (cos | sin),
 // depth A.  What bounds it, per working chunk (n_t, A, K) = (1e4, 1e5, 500):
 //   * tensor work: 2 M N A = 6.0e12 flop per float32 product, 1.8e13 in the
-//     3xTF32 form below: 36 ms at the card's 495 TFLOP/s dense TF32 (the
-//     'fast' tier's one product 12 ms; 'balanced', three bf16 products at
-//     989 TFLOP/s, 18 ms).
+//     3xTF32 form below: 36 ms at the card's 495 TFLOP/s dense TF32.
 //   * angle tile: ceil(n_t / BT) * A * K = 7.9e9 evaluations (float64 dot
 //     and fold, float32 sincosf, TF32 split) at BT = 64, on the CUDA cores.
 //   * memory: the 12 GB trajectory is read from HBM about once: the
@@ -21,22 +22,9 @@
 //     it through L2 (16 x 12 GB = 192 GB of L2 reads, where the PR 1 raster
 //     read 8 x 12 GB from HBM).  Outputs: 0.12 GB.
 //
-// Precision tiers (the template argument TIER; one pipeline for all three):
-//   * 'parity' = 3xTF32.  Each float32 operand x is split into
-//     big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and
-//     d*c ~ d_small*c_big + d_big*c_small + d_big*c_big: three
-//     wgmma.m64n64k8 TF32 products per k-step of 8 atoms.
-//   * 'balanced' = 3xBF16, the split of the TPU's Precision.HIGH:
-//     hi = rn_bf16(x), lo = rn_bf16(x - hi), and d*c ~ d_lo*c_hi +
-//     d_hi*c_lo + d_hi*c_hi on wgmma.m64n64k16 bf16 products, per k-step of
-//     16 atoms (~1e-5 relative).  A fragments pack two bf16 atoms per
-//     register; a K-major B core matrix is 8 columns x 8 bf16 atoms, so the
-//     byte strides between core matrices (LBO, SBO) are the TF32 ones.
-//   * 'fast' = 1xTF32: the one product d_big*c_big per k-step; the makers
-//     write no small half and the MMA warps split nothing (~1e-3 relative).
-//   A TF32xTF32 or bf16xbf16 product is exact in float32, so every tier
-//   differs from its plain version (ops/sed_projection.py, which rounds the
-//   operands the same way) only in the order of the sum.
+// 3xTF32: each float32 operand x is split into big = cvt.rna.tf32(x) and
+// small = cvt.rna.tf32(x - big), and d*c ~ d_small*c_big + d_big*c_small +
+// d_big*c_big: three wgmma.m64n64k8 TF32 products per k-step of 8 atoms.
 //
 // Design:
 //   * The tensor cores add to their float32 accumulator with truncation, so
@@ -57,7 +45,7 @@
 //     (the card has native FP64, so the TPU's double-single arithmetic,
 //     which nvcc's FMA contraction would break, is not used), the accurate
 //     sincosf (this file must not be built with --use_fast_math), the
-//     tier's split, written as K-major core matrices for wgmma.  Named barriers
+//     TF32 split, written as K-major core matrices for wgmma.  Named barriers
 //     (FULL, EMPTY per slot) hand the slots over, so the angle work and the
 //     copies overlap the MMAs.
 //   * The data tile keeps the natural (n_t, A, 3) layout: per time step one
@@ -70,7 +58,8 @@
 //     time tiles and their data tiles come from L2.
 //
 // Measured on an NVIDIA H100 80GB HBM3, 700 W power limit, at the working
-// chunk: ~97 ms against ~130 ms for the plain table + cuBLAS path and
+// chunk: ~97 ms (97.3-97.9 with the other tiers moved out, bit for bit the
+// same outputs) against ~130 ms for the plain table + cuBLAS path and
 // 267.673 ms for the PR 1 kernel; the MMA warpgroups alone take ~62 ms, so
 // the makers' angle work (float64 math, sincosf) and copies, sharing the
 // SMs' issue slots, set the pace.  Error against a float64 sum of the same
@@ -102,6 +91,9 @@ constexpr int NS = 4;                     // stages in the shared-memory ring
 constexpr int AHEAD = 2;                  // stages a data copy is issued ahead of its use
 constexpr int SUM_ATOMS = 256;            // atoms per fresh partial sum
 constexpr int CHAIN_ATOMS = 16;           // atoms per fresh MMA sum, then added in IEEE float32
+constexpr int KATOMS = 8;                 // atoms per m64n64k8 k-step
+constexpr int KSTEPS = BA / KATOMS;       // k-steps per stage
+constexpr int CHAIN = CHAIN_ATOMS / KATOMS;   // k-steps per fresh MMA sum
 constexpr int MMA_THREADS = 128 * (BM / 64);   // one warpgroup per 64 rows: 384
 constexpr int MAKER_WARPS = 8;            // warps that copy data and make angles
 constexpr int MAKER_THREADS = 32 * MAKER_WARPS;       // 256
@@ -124,7 +116,7 @@ constexpr int MAKERS = EMPTY + NS;        // the maker warps among themselves
 
 static_assert(BM % 64 == 0 && BN == 64, "m64n64k8 warpgroup tiles");
 static_assert(SUM_ATOMS % BA == 0, "partials restart on stage boundaries");
-static_assert(BA % CHAIN_ATOMS == 0 && CHAIN_ATOMS % 16 == 0, "MMA sums within a stage");
+static_assert(BA % CHAIN_ATOMS == 0 && CHAIN_ATOMS % KATOMS == 0, "MMA sums within a stage");
 static_assert(MAKER_WARPS * 16 == GROUPS8 * BK, "one maker warp per (8 atoms, 16 k-points)");
 static_assert(MAKERS < 16 && ROW_FLOATS <= MAKER_THREADS, "named barriers; position makers");
 static_assert(AHEAD + 2 <= NS, "the makers run up to NS - AHEAD stages ahead of the MMA warps");
@@ -143,38 +135,6 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
     big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
     small = __float_as_uint(x - __uint_as_float(big)) + 0x1000u;
 }
-
-// The bits of rn_bf16(x) (round to nearest, ties to even) in the high half
-// of a float's bits, the low half zero; x finite.
-__device__ __forceinline__ uint32_t bf16_rn(float x)
-{
-    const uint32_t u = __float_as_uint(x);
-    return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
-}
-
-// The 3xBF16 split: hi = rn_bf16(x), lo = rn_bf16(x - hi) (x - hi is exact
-// in float32), each as its 16 bits.
-__device__ __forceinline__ void split_bf16(float x, uint32_t& hi, uint32_t& lo)
-{
-    const uint32_t h = bf16_rn(x);
-    hi = h >> 16;
-    lo = bf16_rn(x - __uint_as_float(h)) >> 16;
-}
-
-// Tiers, in the order of the entry point's `tier` argument.
-constexpr int PARITY = 0, BALANCED = 1, FAST = 2;
-
-// Per tier: atoms per MMA k-step (KATOMS), bytes per B element (ELEM),
-// parts of the angle tile (PARTS: big and small, or big alone).  A core
-// matrix row holds 16 / ELEM atoms.
-template <int TIER> struct Tier {
-    static constexpr int KATOMS = TIER == BALANCED ? 16 : 8;
-    static constexpr int ELEM = TIER == BALANCED ? 2 : 4;
-    static constexpr int PARTS = TIER == FAST ? 1 : 2;
-    static constexpr int CORE_ATOMS = 16 / ELEM;
-    static constexpr int KSTEPS = BA / KATOMS;          // k-steps per stage
-    static constexpr int CHAIN = CHAIN_ATOMS / KATOMS;  // k-steps per fresh MMA sum
-};
 
 // Shared-memory matrix descriptor, no swizzle: start address, then the byte
 // offsets between core matrices (8 rows x 16 bytes) along K (LBO) and
@@ -206,72 +166,27 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[ACC], const uint32_t (&a)[
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
 }
 
-// The same for m64n64k16 with bf16 inputs: a is the m16n8k16 A fragment
-// (two bf16 per register, the lower column in the low half); b K-major
-// (the last immediate, imm-trans-b, is 0).
-__device__ __forceinline__ void wgmma_bf16(float (&d)[ACC], const uint32_t (&a)[4],
-                                           uint64_t b_desc, int accumulate)
-{
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b_desc), "r"(accumulate));
-}
-
-// One k-step's product of the tier into d (from zero unless accumulate):
-// the small terms first, so the truncating accumulator adds the big one last.
-template <int TIER>
+// One k-step's product into d (from zero unless accumulate): the small
+// terms first, so the truncating accumulator adds the big one last.
 __device__ __forceinline__ void mma_step(float (&d)[ACC], const uint32_t (&a_big)[4],
                                          const uint32_t (&a_small)[4], uint64_t b_big,
                                          uint64_t b_small, int accumulate)
 {
-    if constexpr (TIER == PARITY) {
-        wgmma_tf32(d, a_small, b_big, accumulate);
-        wgmma_tf32(d, a_big, b_small, 1);
-        wgmma_tf32(d, a_big, b_big, 1);
-    } else if constexpr (TIER == BALANCED) {
-        wgmma_bf16(d, a_small, b_big, accumulate);
-        wgmma_bf16(d, a_big, b_small, 1);
-        wgmma_bf16(d, a_big, b_big, 1);
-    } else {
-        wgmma_tf32(d, a_big, b_big, accumulate);
-    }
+    wgmma_tf32(d, a_small, b_big, accumulate);
+    wgmma_tf32(d, a_big, b_small, 1);
+    wgmma_tf32(d, a_big, b_big, 1);
 }
 
 // The A fragment of one k-step from the data tile: r0 and r1 point at the
-// k-step's first atom of this thread in rows g and g + 8.  TF32: atoms tq
-// and tq + 4 (floats 0 and 12 on); BF16: atoms 2tq, 2tq + 1, 2tq + 8 and
-// 2tq + 9 (floats 0, 3, 24 and 27 on), packed in pairs.
-template <int TIER>
+// k-step's first atom of this thread in rows g and g + 8: atoms tq and
+// tq + 4 (floats 0 and 12 on).
 __device__ __forceinline__ void load_a(const float* r0, const float* r1, uint32_t (&big)[4],
                                        uint32_t (&small)[4])
 {
-    if constexpr (TIER == BALANCED) {
-        const float* rows[2] = {r0, r1};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const float* r = rows[j % 2] + 24 * (j / 2);
-            uint32_t h0, l0, h1, l1;
-            split_bf16(r[0], h0, l0);
-            split_bf16(r[3], h1, l1);
-            big[j] = h0 | (h1 << 16);
-            small[j] = l0 | (l1 << 16);
-        }
-    } else {
-        split_tf32(r0[0], big[0], small[0]);
-        split_tf32(r1[0], big[1], small[1]);
-        split_tf32(r0[12], big[2], small[2]);
-        split_tf32(r1[12], big[3], small[3]);
-    }
+    split_tf32(r0[0], big[0], small[0]);
+    split_tf32(r1[0], big[1], small[1]);
+    split_tf32(r0[12], big[2], small[2]);
+    split_tf32(r1[12], big[3], small[3]);
 }
 
 __device__ __forceinline__ void wgmma_fence()
@@ -330,44 +245,29 @@ __device__ __forceinline__ void bar_arrive(int id)
 // Angle tile layout: K-major core matrices for the wgmma B operand.  Column
 // n < BK holds cos and n >= BK sin of k-point n % BK; per k-step ks and part
 // (big, small) a 2 x 8 grid of core matrices, each 8 columns x 16 bytes
-// (4 TF32 or 8 bf16 atoms): atom a = al % KATOMS of k-step al / KATOMS at
-//   byte ((((ks * PARTS + part) * 2 + a / CORE_ATOMS) * 8 + n / 8) * 128
-//         + (n % 8) * 16 + (a % CORE_ATOMS) * ELEM.
-// A stage fills at most B_STAGE floats (parity: 4 k-steps x 2 parts).
+// (4 TF32 atoms): atom a = al % KATOMS of k-step al / KATOMS at
+//   byte ((((ks * 2 + part) * 2 + a / 4) * 8 + n / 8) * 128 + (n % 8) * 16 + (a % 4) * 4.
+// A stage fills B_STAGE floats (4 k-steps x 2 parts).
 constexpr uint32_t CORE_K_STEP = 8 * 128;     // next 16 bytes of atoms (LBO)
 constexpr uint32_t CORE_N_STEP = 128;         // next 8 columns (SBO)
 constexpr uint32_t PART_BYTES = 2 * 8 * 128;  // one k-step's big or small tile
 
-template <int TIER>
 __device__ __forceinline__ uint32_t b_byte(int al, int n)
 {
-    using T = Tier<TIER>;
-    const int ks = al / T::KATOMS, a = al % T::KATOMS;
-    return (((ks * T::PARTS) * 2 + a / T::CORE_ATOMS) * 8 + n / 8) * 128 + (n % 8) * 16
-         + (a % T::CORE_ATOMS) * T::ELEM;
+    const int ks = al / KATOMS, a = al % KATOMS;
+    return (((ks * 2) * 2 + a / 4) * 8 + n / 8) * 128 + (n % 8) * 16 + (a % 4) * 4;
 }
 
 // Write one angle-tile value x (cos or sin, 0 where masked) at byte `at`
-// of part big, split as the tier multiplies it; the small part follows
-// PART_BYTES later.
-template <int TIER>
+// of part big, split in 3xTF32 form; the small part follows PART_BYTES later.
 __device__ __forceinline__ void store_b(unsigned char* at, float x)
 {
-    if constexpr (TIER == BALANCED) {
-        uint32_t hi, lo;
-        split_bf16(x, hi, lo);
-        *reinterpret_cast<uint16_t*>(at) = (uint16_t)hi;
-        *reinterpret_cast<uint16_t*>(at + PART_BYTES) = (uint16_t)lo;
-    } else {
-        uint32_t big, small;
-        split_tf32(x, big, small);
-        *reinterpret_cast<uint32_t*>(at) = big;
-        if constexpr (TIER == PARITY)
-            *reinterpret_cast<uint32_t*>(at + PART_BYTES) = small;
-    }
+    uint32_t big, small;
+    split_tf32(x, big, small);
+    *reinterpret_cast<uint32_t*>(at) = big;
+    *reinterpret_cast<uint32_t*>(at + PART_BYTES) = small;
 }
 
-template <int TIER>
 __global__ void __launch_bounds__(THREADS, 1)
 sed_projection_kernel(const float* __restrict__ data,
                       const float* __restrict__ mp_hi,
@@ -510,8 +410,8 @@ sed_projection_kernel(const float* __restrict__ data,
                     float cs, sn;
                     sincosf(ang32[h][i], &sn, &cs);
                     const int al = 8 * gen_ks + tq + 4 * i, n = 16 * gen_w + 8 * h + g;
-                    store_b<TIER>(sb + b_byte<TIER>(al, n), ok[h][i] ? cs : 0.0f);
-                    store_b<TIER>(sb + b_byte<TIER>(al, n + BK), ok[h][i] ? sn : 0.0f);
+                    store_b(sb + b_byte(al, n), ok[h][i] ? cs : 0.0f);
+                    store_b(sb + b_byte(al, n + BK), ok[h][i] ? sn : 0.0f);
                 }
             }
             // The MMA warps read the angle tile through the async proxy.
@@ -525,15 +425,13 @@ sed_projection_kernel(const float* __restrict__ data,
     // ---- MMA warpgroups: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
     const int wg = warp / 4, wq = warp % 4;
     // Rows 64 wg + 16 wq + g + 8 h of the A fragments: (time tl, component
-    // c).  row_at[h] is where this thread's first atom of the stage (tq for
-    // TF32, 2 tq for BF16) sits in that row.
-    using T = Tier<TIER>;
+    // c).  row_at[h] is where this thread's first atom of the stage (tq)
+    // sits in that row.
     int row_at[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         const int m = 64 * wg + 16 * wq + g + 8 * h, tl = m / 3;
-        row_at[h] = tl * DATA_PITCH + (int)(((t0 + tl) * row_stride) & 3) + m % 3
-                  + 3 * tq * (T::KATOMS / 8);
+        row_at[h] = tl * DATA_PITCH + (int)(((t0 + tl) * row_stride) & 3) + m % 3 + 3 * tq;
     }
     for (int i = 0; i < ACC; ++i)
         s_tot[i * MMA_THREADS + tid] = 0.0f;
@@ -549,24 +447,23 @@ sed_projection_kernel(const float* __restrict__ data,
         bar_sync(FULL + buf);
         const float* sd = s_data + buf * DATA_STAGE;
         const uint32_t sb = b_base + buf * B_STAGE * sizeof(float);
-        constexpr int CHAIN = T::CHAIN;   // k-steps per MMA sum
 #pragma unroll
-        for (int k0s = 0; k0s < T::KSTEPS; k0s += CHAIN) {
+        for (int k0s = 0; k0s < KSTEPS; k0s += CHAIN) {
             uint32_t a_big[CHAIN][4], a_small[CHAIN][4];
 #pragma unroll
             for (int q = 0; q < CHAIN; ++q)
-                load_a<TIER>(sd + row_at[0] + 3 * T::KATOMS * (k0s + q),
-                             sd + row_at[1] + 3 * T::KATOMS * (k0s + q), a_big[q], a_small[q]);
+                load_a(sd + row_at[0] + 3 * KATOMS * (k0s + q),
+                       sd + row_at[1] + 3 * KATOMS * (k0s + q), a_big[q], a_small[q]);
             // The tensor cores truncate when they add to the accumulator,
             // so each MMA sum covers only CHAIN_ATOMS atoms, from zero, and
             // is added in IEEE float32.
             wgmma_fence();
 #pragma unroll
             for (int q = 0; q < CHAIN; ++q) {
-                const uint32_t b = sb + T::PARTS * (k0s + q) * PART_BYTES;
+                const uint32_t b = sb + 2 * (k0s + q) * PART_BYTES;
                 const uint64_t b_big = smem_desc(b, CORE_K_STEP, CORE_N_STEP);
                 const uint64_t b_small = smem_desc(b + PART_BYTES, CORE_K_STEP, CORE_N_STEP);
-                mma_step<TIER>(step, a_big[q], a_small[q], b_big, b_small, q > 0);
+                mma_step(step, a_big[q], a_small[q], b_big, b_small, q > 0);
             }
             wgmma_commit_wait();
 #pragma unroll
@@ -603,17 +500,16 @@ sed_projection_kernel(const float* __restrict__ data,
         }
 }
 
-template <int TIER>
 cudaError_t launch(const void* data, const void* mp_hi, const void* mp_lo, const void* kv,
                    void* out_re, void* out_im, long long n_t, long long n_atoms,
                    long long n_k, long long grid_t, long long grid_k, int accumulate,
                    cudaStream_t stream)
 {
     cudaError_t err = cudaFuncSetAttribute(
-        sed_projection_kernel<TIER>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+        sed_projection_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess)
         return err;
-    sed_projection_kernel<TIER><<<(unsigned)(grid_t * grid_k), THREADS, SMEM_BYTES, stream>>>(
+    sed_projection_kernel<<<(unsigned)(grid_t * grid_k), THREADS, SMEM_BYTES, stream>>>(
         (const float*)data, (const float*)mp_hi, (const float*)mp_lo,
         (const float*)kv, (float*)out_re, (float*)out_im, n_t, n_atoms, n_k,
         (int)grid_k, accumulate);
@@ -622,14 +518,13 @@ cudaError_t launch(const void* data, const void* mp_hi, const void* mp_lo, const
 
 }  // namespace
 
-// tier: 0 'parity' (3xTF32), 1 'balanced' (3xBF16), 2 'fast' (1xTF32).
 extern "C" int psa_sed_projection(const void* data, const void* mp_hi,
                                   const void* mp_lo, const void* kv,
                                   void* out_re, void* out_im,
                                   long long n_t, long long n_atoms,
-                                  long long n_k, int accumulate, int tier, void* stream)
+                                  long long n_k, int accumulate, void* stream)
 {
-    if (n_t < 1 || n_atoms < 1 || n_k < 1 || tier < PARITY || tier > FAST)
+    if (n_t < 1 || n_atoms < 1 || n_k < 1)
         return (int)cudaErrorInvalidValue;
     if (reinterpret_cast<uintptr_t>(data) % 16 != 0)   // the 16-byte copies need it
         return (int)cudaErrorMisalignedAddress;
@@ -637,8 +532,7 @@ extern "C" int psa_sed_projection(const void* data, const void* mp_hi,
     const long long grid_k = (n_k + BK - 1) / BK;
     if (grid_t * grid_k > 2147483647LL || (n_atoms + BA - 1) / BA > 2147483647LL)
         return (int)cudaErrorInvalidConfiguration;
-    auto run = tier == PARITY ? launch<PARITY> : tier == BALANCED ? launch<BALANCED> : launch<FAST>;
-    return (int)run(data, mp_hi, mp_lo, kv, out_re, out_im, n_t, n_atoms, n_k, grid_t, grid_k,
+    return (int)launch(data, mp_hi, mp_lo, kv, out_re, out_im, n_t, n_atoms, n_k, grid_t, grid_k,
                     accumulate, (cudaStream_t)stream);
 }
 

@@ -17,12 +17,16 @@ oracle at a small ragged size.  Two other paths must miss the bar, which
 shows the test can tell them apart: one TF32 product alone, and three TF32
 products chained in the truncating accumulator over a whole partial.
 
-The other two tiers run the same pipeline: 'balanced' splits each operand
-into hi = rn_bf16(x) and lo = rn_bf16(x - hi) (round to nearest, ties to
-even) and takes lo*hi + hi*lo + hi*hi in MMAs of depth 16; 'fast' takes
-the one product big*big of the TF32 split in MMAs of depth 8.  Each is held
-to its bar against the oracle (5e-5 and 5e-3 of max) and to the wrapper's
-plain version of the tier at 1e-6, which rounds the operands the same way.
+The other two tiers run in ``csrc/sed_projection_tiers.cu`` (a table, then
+a wgmma product) with the same two-level sum, its constants read from that
+source: 'balanced' splits each operand into hi = rn_bf16(x) and
+lo = rn_bf16(x - hi) (round to nearest, ties to even) and takes
+lo*hi + hi*lo + hi*hi in MMAs of depth BF16_DEPTH; 'fast' takes the one
+product big*big of the TF32 split in MMAs of depth TF32_DEPTH.  Each is
+held to its bar against the oracle (5e-5 and 5e-3 of max) and to the
+wrapper's plain version of the tier at 1e-6, which rounds the operands the
+same way, whole and with the atom axis in blocks (each block's sum added to
+the output in float32, as the wrapper adds them past its table cap).
 """
 import re
 from pathlib import Path
@@ -37,13 +41,14 @@ from psa_tpu_torch.ops.spectral import split_f64
 torch.set_num_threads(1)
 
 KERNEL = Path(__file__).resolve().parents[1] / 'psa_tpu_torch' / 'csrc' / 'sed_projection.cu'
+TIER_KERNEL = KERNEL.with_name('sed_projection_tiers.cu')   # 'balanced' and 'fast'
 SHAPE = (8, 4099, 19)        # (n_t, A, K): ragged on every axis
 MMA_DEPTH = 8                # atoms per m16n8k8 product
 
 
-def kernel_constant(name):
-    """An ``int`` constant of the kernel source, so the emulation follows it."""
-    return int(re.search(rf'constexpr int {name} = (\d+);', KERNEL.read_text()).group(1))
+def kernel_constant(name, source=KERNEL):
+    """An ``int`` constant of a kernel source, so the emulation follows it."""
+    return int(re.search(rf'constexpr int {name} = (\d+);', source.read_text()).group(1))
 
 
 def tf32(x):
@@ -109,8 +114,9 @@ def emulate(d, c, terms, sum_atoms, chain_atoms, rnd=tf32, depth=MMA_DEPTH):
 THREE_TF32 = [('small', 'big'), ('big', 'small'), ('big', 'big')]
 ONE_TF32 = [('big', 'big')]
 #: tier -> (MMA terms, rounding of the split, MMA depth in atoms, bar against the oracle)
-TIERS = {'parity': (THREE_TF32, tf32, 8, 1e-6), 'balanced': (THREE_TF32, bf16, 16, 5e-5),
-         'fast': (ONE_TF32, tf32, 8, 5e-3)}
+TIERS = {'parity': (THREE_TF32, tf32, 8, 1e-6),
+         'balanced': (THREE_TF32, bf16, kernel_constant('BF16_DEPTH', TIER_KERNEL), 5e-5),
+         'fast': (ONE_TF32, tf32, kernel_constant('TF32_DEPTH', TIER_KERNEL), 5e-3)}
 
 
 @pytest.fixture(scope='module')
@@ -132,15 +138,18 @@ def rel(got, want):
     return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
 
 
-def kernel_path(d, c, terms, rnd=tf32, depth=MMA_DEPTH):
-    return emulate(d, c, terms, kernel_constant('SUM_ATOMS'), kernel_constant('CHAIN_ATOMS'),
-                   rnd, depth)
+def kernel_path(d, c, terms, rnd=tf32, depth=MMA_DEPTH, source=KERNEL):
+    return emulate(d, c, terms, kernel_constant('SUM_ATOMS', source),
+                   kernel_constant('CHAIN_ATOMS', source), rnd, depth)
 
 
 def test_kernel_constants_are_read():
-    assert kernel_constant('SUM_ATOMS') % kernel_constant('BA') == 0
-    assert kernel_constant('BA') % kernel_constant('CHAIN_ATOMS') == 0
-    assert kernel_constant('CHAIN_ATOMS') % 16 == 0      # whole k16 steps of the bf16 tier
+    for source in (KERNEL, TIER_KERNEL):
+        assert kernel_constant('SUM_ATOMS', source) % kernel_constant('BA', source) == 0
+        assert kernel_constant('BA', source) % kernel_constant('CHAIN_ATOMS', source) == 0
+    assert kernel_constant('CHAIN_ATOMS') % MMA_DEPTH == 0
+    for depth in ('TF32_DEPTH', 'BF16_DEPTH'):   # whole k-steps of each tier per MMA sum
+        assert kernel_constant('CHAIN_ATOMS', TIER_KERNEL) % kernel_constant(depth, TIER_KERNEL) == 0
 
 
 def test_truncate_rounds_toward_zero():
@@ -205,11 +214,32 @@ def test_emulated_tier_against_oracle_and_plain(problem, tier):
     with the wrapper's plain version of the tier to 1e-6 of max."""
     data, hi, lo, kv, d, table, oracle = problem
     terms, rnd, depth, bar = TIERS[tier]
-    got = kernel_path(d, table, terms, rnd, depth)
+    got = kernel_path(d, table, terms, rnd, depth, TIER_KERNEL)
     above = {'balanced': TIERS['parity'][3], 'fast': TIERS['balanced'][3]}[tier]
     assert above < rel(got, oracle) < bar
     re_, im_ = tproj.sed_projection(*(torch.from_numpy(np.ascontiguousarray(x))
                                       for x in (data, hi, lo, kv)), precision=tier)
     n_t, _, n_k = SHAPE
+    plain = torch.cat([re_, im_], dim=2).reshape(n_t * 3, 2 * n_k).numpy()
+    assert rel(got, plain) < 1e-6
+
+
+@pytest.mark.parametrize('tier', ['balanced', 'fast'])
+def test_emulated_tier_in_atom_blocks(problem, tier):
+    """Past its table cap the wrapper runs the atom axis in blocks, each
+    block's two-level sum added to the output in float32: that path too
+    meets the tier's bar and agrees with the plain version to 1e-6."""
+    data, hi, lo, kv, d, table, oracle = problem
+    terms, rnd, depth, bar = TIERS[tier]
+    n_k = SHAPE[2]
+    blocks = tproj.atom_blocks(SHAPE[1], n_k, tproj.table_bytes(40 * tproj.TABLE_ATOMS, n_k))
+    assert len(blocks) == 4 and blocks[-1][1] - blocks[-1][0] < blocks[0][1] - blocks[0][0]
+    got = np.zeros((d.shape[0], table.shape[1]), np.float32)
+    for a0, a1 in blocks:
+        got += kernel_path(d[:, a0:a1], table[a0:a1], terms, rnd, depth, TIER_KERNEL)
+    assert rel(got, oracle) < bar
+    re_, im_ = tproj.sed_projection(*(torch.from_numpy(np.ascontiguousarray(x))
+                                      for x in (data, hi, lo, kv)), precision=tier)
+    n_t = SHAPE[0]
     plain = torch.cat([re_, im_], dim=2).reshape(n_t * 3, 2 * n_k).numpy()
     assert rel(got, plain) < 1e-6

@@ -210,7 +210,7 @@ def test_cpu_path_never_counts_a_launch():
 
 def test_build_module_imports_without_nvcc():
     """The build module imports anywhere; it needs nvcc only to build."""
-    assert [p.name for p in _build.sources()] == ['sed_projection.cu']
+    assert [p.name for p in _build.sources()] == ['sed_projection.cu', 'sed_projection_tiers.cu']
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     assert '--use_fast_math' not in _build.NVCC_FLAGS
 
