@@ -35,7 +35,7 @@ Contract:
     in ``bench_torch_baseline.json``, keyed by shape and host name;
   * a failure after the headline (user headline or an extra) is logged with
     its name and the process exits 1;
-  * each path's launches of the projection kernel are logged to stderr as
+  * each path's launches of the projection's kernels are logged to stderr as
     ``kernel launches: <path> <n>``;
   * without a CUDA card the script fails before it measures anything; only
     ``PSA_BENCH_DEVICE=cpu`` runs it on the host (the line then says ``cpu``).
@@ -379,13 +379,13 @@ def user_path_benches(dev, mean_pos64, n_steps, k_vectors, grid, precision, dead
             log(f"skipping user path {name}: the float32 browse did not run")
             continue
         log(f"user path {name}...")
-        launched = proj.launches
+        launched = proj.kernel_launches()
         try:
             fn()
         except Exception as e:   # logged and counted: the run then exits 1
             log(f"user path {name} failed: {type(e).__name__}: {e}\n{traceback.format_exc()}")
             failures.append(name)
-        log(f"kernel launches: user path {name} {proj.launches - launched}")
+        log(f"kernel launches: user path {name} {proj.kernel_launches() - launched}")
     return extras
 
 
@@ -451,9 +451,9 @@ def main():
         log(f"provisional headline after the first block: {kps0:.1f} k-points/s")
 
     head.stage = 'timed sweep'
-    launched = proj.launches
+    launched = proj.kernel_launches()
     sweep = op_sweep(data, hi, lo, k_dev, block, precision, on_first_block=provisional)
-    log(f"kernel launches: op sweep {proj.launches - launched}")
+    log(f"kernel launches: op sweep {proj.kernel_launches() - launched}")
     kps = n_k / sweep.sweep_s
     speedup = ref_s_per_k * n_k / sweep.sweep_s
     log(f"compile+first block: {sweep.compile_s:.3f} s")
@@ -466,11 +466,11 @@ def main():
     failures = []
     if os.environ.get('PSA_BENCH_USER_HEADLINE', '1') not in ('', '0'):
         head.stage = 'user headline'
-        launched = proj.launches
+        launched = proj.kernel_launches()
         try:
             user = measure_user_headline(dev, mean_pos64, n_steps, k_vectors, grid, precision,
                                          data, hi, lo)
-            log(f"kernel launches: user headline {proj.launches - launched}")
+            log(f"kernel launches: user headline {proj.kernel_launches() - launched}")
             head.line = dict(line, headline_user=user)
         except Exception as e:   # the op headline still prints; the run exits 1
             log(f"user headline failed: {type(e).__name__}: {e}\n{traceback.format_exc()}")

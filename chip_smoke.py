@@ -355,12 +355,12 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):                                  # a first call, then a warm one
         torch.cuda.synchronize()
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         t0 = time.perf_counter()
         (pf, ph, pw), syncs = count_syncs(lambda: calc.calculate_kgrid_peaks(
             k_vecs, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK_GRID))
         walls.append(time.perf_counter() - t0)
-        launches.append(proj.launches)
+        launches.append(proj.counters['launch.parity'])
         check(launches[-1] == want_launches,
               f"kgrid_peaks launched {launches[-1]} kernels, want {want_launches}")
     peak_mem = torch.cuda.max_memory_allocated() / 1e9
@@ -385,13 +385,13 @@ def grid_working_size(calc, proj, arrays, k_vecs, oracle, cols, dt_ps):
 
     out = {}
     for dtype in ('float32', 'float16'):
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         t0 = time.perf_counter()
         freqs_b, inten, _ = calc.calculate_kgrid_browse(k_vecs, k_chunk_size=K_CHUNK_GRID,
                                                         readback_dtype=dtype)
-        out[dtype] = (time.perf_counter() - t0, inten, proj.launches)
-        check(proj.launches == want_launches and inten.shape == (len(freqs_kept), n_k),
-              f"kgrid_browse {dtype}: launches {proj.launches}, shape {inten.shape}")
+        out[dtype] = (time.perf_counter() - t0, inten, proj.counters['launch.parity'])
+        check(proj.counters['launch.parity'] == want_launches and inten.shape == (len(freqs_kept), n_k),
+              f"kgrid_browse {dtype}: launches {proj.counters['launch.parity']}, shape {inten.shape}")
     exact, f16 = out['float32'][1], out['float16'][1]
     browse_err = float(np.max(np.abs(exact[:, cols] - orc)) / orc.max())
     check(np.array_equal(freqs_b, freqs_kept) and browse_err <= TOL_KERNEL,
@@ -451,10 +451,10 @@ def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_
     Returns the gridded 50x50 peaks and the projection launches of each
     gridded path."""
     n_k = len(k_vecs)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     (sed, wall, peak) = timed(lambda: calc.calculate_gridded(k_vecs, grid_shape))
-    counts = {"calculate_gridded": proj.launches}
-    check(proj.launches == 0, "calculate_gridded launched the projection kernel")
+    counts = {"calculate_gridded": proj.counters['launch.parity']}
+    check(proj.counters['launch.parity'] == 0, "calculate_gridded launched the projection kernel")
     check(sed.sed.shape == (N_T, n_k, 3) and bool(np.isfinite(sed.sed).all()), "gridded SED")
     vs_direct = float(np.abs(sed.sed - resident_sed).max() / np.abs(resident_sed).max())
     got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
@@ -482,15 +482,15 @@ def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_
             (f'{BIG_GRID}x{BIG_GRID}', big_k, big_shape, ('direct', 'gridded', 'gridded'))):
         runs = {'direct': [], 'gridded': []}
         for engine in turns:
-            proj.launches = 0
+            proj.counters['launch.parity'] = 0
             out, wall, peak = timed((lambda: direct(kv)) if engine == 'direct'
                                     else (lambda: gridded(kv, shape)))
             runs[engine].append((out, wall, peak))
             want = -(-len(kv) // K_CHUNK_GRID) if engine == 'direct' else 0
             if engine == 'gridded':
-                counts["kgrid_peaks_gridded"] = proj.launches
-            check(proj.launches == want, f"{engine} peaks of the {name} grid launched the "
-                                         f"projection kernel {proj.launches} times, want {want}")
+                counts["kgrid_peaks_gridded"] = proj.counters['launch.parity']
+            check(proj.counters['launch.parity'] == want, f"{engine} peaks of the {name} grid launched the "
+                                         f"projection kernel {proj.counters['launch.parity']} times, want {want}")
         (g1, _, g_peak), (g2, _, _) = runs['gridded']
         check(all(np.array_equal(a, b) for a, b in zip(g1, g2)),
               f"two gridded peaks sweeps of the {name} grid differ")
@@ -507,12 +507,12 @@ def gridded_working_size(calc, proj, k_vecs, grid_shape, oracle, cols, resident_
         if small is None:
             small = g1
 
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     (f_g, i_g, _), wall_g, peak_g = timed(lambda: calc.calculate_kgrid_browse(
         k_vecs, engine='gridded', k_grid_shape=grid_shape))
-    counts["kgrid_browse_gridded"] = proj.launches
-    check(proj.launches == 0, f"the gridded browse launched the projection kernel "
-                              f"{proj.launches} times")
+    counts["kgrid_browse_gridded"] = proj.counters['launch.parity']
+    check(proj.counters['launch.parity'] == 0, f"the gridded browse launched the projection kernel "
+                              f"{proj.counters['launch.parity']} times")
     (f_d, i_d, _), wall_d, _ = timed(lambda: calc.calculate_kgrid_browse(
         k_vecs, k_chunk_size=K_CHUNK_GRID))
     b_err = float(np.abs(i_g - i_d).max() / i_d.max())
@@ -536,11 +536,11 @@ def gridded_streamed(dev, proj, host_vel, k_vecs, grid_shape, resident_peaks):
     scalc.mean_positions64                           # host mean, outside the timed call
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     got, wall, peak = timed(lambda: scalc.calculate_kgrid_peaks(
         k_vecs, n_peaks=N_PEAKS, engine='gridded', k_grid_shape=grid_shape))
-    check(proj.launches == 0 and scalc.streamed_bytes == host_vel.nbytes,
-          f"streamed gridded peaks: launches {proj.launches}, {scalc.streamed_bytes} bytes moved")
+    check(proj.counters['launch.parity'] == 0 and scalc.streamed_bytes == host_vel.nbytes,
+          f"streamed gridded peaks: launches {proj.counters['launch.parity']}, {scalc.streamed_bytes} bytes moved")
     n_differ, h_err, _ = peaks_agree(scalc, k_vecs, got, resident_peaks, "streamed gridded peaks")
     log('gridded', f"kgrid_peaks 50x50, engine='gridded', velocities on the host, "
                    f"max_device_bytes={scalc.max_device_bytes:.0e}: {wall:.3f} s wall, "
@@ -548,7 +548,7 @@ def gridded_streamed(dev, proj, host_vel, k_vecs, grid_shape, resident_peaks):
                    f"host->device, peak device memory above the call's start "
                    f"{peak - base / 1e9:.2f} GB; peak frequencies equal the resident sweep's but on "
                    f"{n_differ} near-tied k-columns, heights within {h_err:.3e}")
-    return proj.launches
+    return proj.counters['launch.parity']
 
 
 def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
@@ -569,31 +569,31 @@ def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
     chunks = chunk_errors(proj, *arrays, 17)
     log('grid', "kernel vs plain over the whole output at the square lattice's k-chunks: "
                 + ", ".join(f"{s}: rel err {e:.3e}" for s, e in chunks) + f" (tol {TOL_KERNEL})")
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     pf, _, pw = lcalc.calculate_kgrid_peaks(kv, n_peaks=1, k_chunk_size=17)
     analytic = square_lattice_dispersion(kv[:, 0], kv[:, 1], a=2.5, nu_max_thz=10.0)
     df = 1.0 / (lattice.n_frames * lattice.dt_ps)
     ok = analytic > df
     miss = float(np.max(np.abs(pf[0][ok] - analytic[ok])))
-    check(proj.launches > 0 and miss <= df + 1e-6 and (pw >= 0).all(),
+    check(proj.counters['launch.parity'] > 0 and miss <= df + 1e-6 and (pw >= 0).all(),
           f"square-lattice peak surface off by {miss} THz > {df}")
     log('grid', f"square-lattice peak surface on nu(kx, ky): max miss {miss:.4f} THz <= "
-                f"{df:.4f}; launches {proj.launches}")
+                f"{df:.4f}; launches {proj.counters['launch.parity']}")
 
     chiral = make_chiral_chain_trajectory(n_cells=32, n_frames=250, dt_ps=0.02, a=2.5,
                                           nu_thz=5.0, mode_index=8, handedness=+1, seed=3)
     hcalc = SEDCalculator(chiral, nx=32, ny=1, nz=1, device=dev)
     kv1 = np.array([[2 * np.pi * 8 / (32 * 2.5), 0.0, 0.0]], dtype=np.float32)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     pf, _, _, pph = hcalc.calculate_kgrid_peaks(kv1, n_peaks=1, chiral=True, chiral_axis='x')
-    check(proj.launches > 0 and abs(pf[0, 0] - 5.0) <= 1.0 / (250 * 0.02) + 1e-6
+    check(proj.counters['launch.parity'] > 0 and abs(pf[0, 0] - 5.0) <= 1.0 / (250 * 0.02) + 1e-6
           and abs(pph[0, 0] - np.pi / 2) < 0.05, f"chiral peak {pf[0, 0]} THz, phase {pph[0, 0]}")
     log('grid', f"chiral peak at {pf[0, 0]:.3f} THz, phase {pph[0, 0]:.5f} rad (expect pi/2); "
-                f"launches {proj.launches}")
+                f"launches {proj.counters['launch.parity']}")
 
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     _, i_l, i_t = lcalc.calculate_lt(kv, k_chunk_size=17)
-    lt_launches = proj.launches
+    lt_launches = proj.counters['launch.parity']
     _, inten, _ = lcalc.calculate_kgrid_browse(kv, k_chunk_size=17)
     lt_err = float(np.max(np.abs(i_l + i_t - inten)) / inten.max())
     check(lt_launches > 0 and lt_err <= TOL_PARITY, f"I_L + I_T vs browse {lt_err:.3e}")
@@ -601,9 +601,9 @@ def grid_small_sizes(dev, proj, chain, ccalc, nu_max, a):
                 f"(tol {TOL_PARITY}); launches {lt_launches}")
 
     k_mags, k_path = ccalc.get_k_path('x', bz_coverage=0.5, n_k=chain.n_atoms // 2 + 1)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     welch = ccalc.calculate_welch(k_mags, k_path, segments=2)
-    welch_launches = proj.launches
+    welch_launches = proj.counters['launch.parity']
     pos = welch.freqs >= 0
     peaks = welch.freqs[pos][np.argmax(welch.sed[pos], axis=0)]
     df_seg = 1.0 / (welch.sed.shape[0] * chain.dt_ps)
@@ -712,12 +712,12 @@ def out_of_core(velocities, calc, proj, k_vecs, grid_shape, oracle, cols, reside
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    proj.launches, moved0 = 0, scalc.streamed_bytes
+    proj.counters['launch.parity'], moved0 = 0, scalc.streamed_bytes
     t0 = time.perf_counter()
     sed = scalc.calculate(np.array([], np.float32), k_vecs, k_grid_shape=grid_shape,
                           k_chunk_size=K_CHUNK)
     wall = time.perf_counter() - t0
-    calc_launches = proj.launches
+    calc_launches = proj.counters['launch.parity']
     moved = (scalc.streamed_bytes - moved0) / 1e9
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     accum = 24 * N_T * n_k / 1e9
@@ -743,11 +743,11 @@ def out_of_core(velocities, calc, proj, k_vecs, grid_shape, oracle, cols, reside
     del sed, got
 
     pf_res, tied = resident_peaks
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     t0 = time.perf_counter()
     pf, ph, pw = scalc.calculate_kgrid_peaks(k_vecs, n_peaks=N_PEAKS, k_chunk_size=K_CHUNK_GRID)
     peaks_wall = time.perf_counter() - t0
-    peaks_launches = proj.launches
+    peaks_launches = proj.counters['launch.parity']
     checked = [int(c) for c, t in zip(cols, tied) if not t]
     check(all(np.array_equal(pf[:, c], pf_res[:, c]) for c in checked),
           "streamed peak bins differ from the resident ones")
@@ -796,11 +796,11 @@ def resume(calc, proj, k_vecs):
                 if step == 1:
                     next(d.glob('*/chunk_00001.npy')).unlink()
                 torch.cuda.synchronize()
-                proj.launches = 0
+                proj.counters['launch.parity'] = 0
                 t0 = time.perf_counter()
                 outs.append(run(d))
                 walls.append(time.perf_counter() - t0)
-                launches.append(proj.launches)
+                launches.append(proj.counters['launch.parity'])
             n_chunks = -(-RESUME_K // K_CHUNK)
             check(launches == [n_chunks, 1, 0],
                   f"{name} resume launches {launches}")
@@ -909,11 +909,11 @@ def from_disk(dev, proj, k_vecs):
         t0 = time.perf_counter()
         whole = calc.calculate(np.array([], np.float32), kv)
         t_calc = time.perf_counter() - t0
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         t0 = time.perf_counter()
         streamed = sed_from_dump_streaming(path, 0.01, kv, frame_chunk=DUMP_CHUNK, device=dev)
         t_stream = time.perf_counter() - t0
-        launches = proj.launches
+        launches = proj.counters['launch.parity']
         loop = dump_chunk_errors(dev, proj, traj, calc.mean_positions64, kv)
     err = float(np.abs(streamed.sed - whole.sed).max() / np.abs(whole.sed).max())
     check(launches == -(-DUMP_FRAMES // DUMP_CHUNK), f"from_dump launches {launches}")
@@ -1008,11 +1008,11 @@ def tier_edges(proj, gen, rng, dev32, tier):
         if n_a % 4:
             views[(n_t - 1, n_a, n_k, 'view')] = args[0][1:]   # starts off a 16-byte boundary
         for key, data in views.items():
-            before = (proj.table_launches, proj.product_launches)
+            before = (proj.counters['launch.table'], proj.counters['launch.product'])
             err_abs, scale = pair_err(proj.sed_projection(data, *args[1:], precision=tier),
                                       proj.sed_projection_plain(data, *args[1:], precision=tier))
-            check((proj.table_launches, proj.product_launches) == (before[0] + 1, before[1] + 1),
-                  f"{tier} at {key}: launches {before} -> {proj.table_launches, proj.product_launches}")
+            check((proj.counters['launch.table'], proj.counters['launch.product']) == (before[0] + 1, before[1] + 1),
+                  f"{tier} at {key}: launches {before} -> {proj.counters['launch.table'], proj.counters['launch.product']}")
             check(err_abs / scale <= TOL_KERNEL, f"{tier} at {key}: {err_abs / scale:.3e}")
             errs[str(key)] = err_abs / scale
         check(args[0][1:].data_ptr() % 16 or n_a % 4 == 0, "the view must start off 16 bytes")
@@ -1107,7 +1107,7 @@ def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols, ge
             p_abs, p_scale = pair_err(pair_out, proj.tier_product_plain(velocities, table, K_CHUNK,
                                                                         tier))
             check(p_abs / p_scale <= TOL_KERNEL, f"{tier} product vs plain {p_abs / p_scale:.3e}")
-            saved, before = proj.TABLE_CAP_BYTES, (proj.table_launches, proj.product_launches)
+            saved, before = proj.TABLE_CAP_BYTES, (proj.counters['launch.table'], proj.counters['launch.product'])
             stages = -(-N_ATOMS // proj.TABLE_ATOMS)
             proj.TABLE_CAP_BYTES = proj.table_bytes(-(-stages // 3) * proj.TABLE_ATOMS, K_CHUNK)
             try:
@@ -1115,7 +1115,7 @@ def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols, ge
             finally:
                 proj.TABLE_CAP_BYTES = saved
             b_abs, b_scale = pair_err(blocked, plain)
-            blocked_launches = (proj.table_launches - before[0], proj.product_launches - before[1])
+            blocked_launches = (proj.counters['launch.table'] - before[0], proj.counters['launch.product'] - before[1])
             del blocked
             check(blocked_launches == (3, 3) and b_abs / b_scale <= TOL_KERNEL,
                   f"{tier} in 3 atom blocks: launches {blocked_launches}, {b_abs / b_scale:.3e}")
@@ -1151,12 +1151,12 @@ def tiers(proj, velocities, hi_dev, lo_dev, k_vecs, grid_shape, oracle, cols, ge
 
         tcalc, _, _ = working_calculator(velocities.device, precision=tier)
         tcalc.preload_device_group_data(velocities, hi_dev, lo_dev)
-        proj.launches = proj.table_launches = proj.product_launches = 0
+        proj.counters['launch.parity'] = proj.counters['launch.table'] = proj.counters['launch.product'] = 0
         t0 = time.perf_counter()
         sed = tcalc.calculate(np.array([], np.float32), k_vecs, k_grid_shape=grid_shape,
                               k_chunk_size=K_CHUNK)
         wall = time.perf_counter() - t0
-        launches = (proj.launches, proj.table_launches, proj.product_launches)
+        launches = (proj.counters['launch.parity'], proj.counters['launch.table'], proj.counters['launch.product'])
         n_chunks = -(-len(k_vecs) // K_CHUNK)
         got = torch.from_numpy(np.ascontiguousarray(sed.sed[:, cols, :])).to(oracle.device)
         calc_err = rel(got.to(torch.complex128), oracle)
@@ -1262,9 +1262,9 @@ def npt_small(dev, proj):
     traj = npt_chain(1.0 + 0.10 * np.linspace(0.0, 1.0, n_frames), mode_m=mode_m)
     calc = SEDCalculator(traj, nx=16, ny=1, nz=1, device=dev)
     m = np.stack([np.arange(1, 9), np.zeros(8), np.zeros(8)], axis=1)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     sed = calc.calculate_npt(m)
-    launches = proj.launches
+    launches = proj.counters['launch.parity']
     pos = sed.freqs >= 0
     inten, col = sed.intensity[pos], mode_m - 1
     df = sed.freqs[1] - sed.freqs[0]
@@ -1280,7 +1280,7 @@ def npt_small(dev, proj):
                f"launches {launches}")
     lam = 1.0 + 0.03 * np.sin(np.linspace(0, 2 * np.pi, 96))
     icalc = SEDCalculator(npt_chain(lam), nx=16, ny=1, nz=1, device=dev)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     with tempfile.TemporaryDirectory() as tmp:
         dump = f"{tmp}/npt.dump"
         icalc.ised(k_dir_spec=[1, 0, 0], k_target=2 * np.pi * 5 / (lam.mean() * 16 * 2.5),
@@ -1288,8 +1288,8 @@ def npt_small(dev, proj):
                    rescale_factor='auto', n_recon_frames=32, dump_filepath=dump, npt=True)
         with open(dump) as f:
             n_frames = f.read().count("ITEM: TIMESTEP")
-    check(n_frames == 32 and proj.launches > 0, f"NPT iSED dump frames {n_frames}")
-    log('npt', f"ised(npt=True) dump: {n_frames} frames of 16 atoms; launches {proj.launches}")
+    check(n_frames == 32 and proj.counters['launch.parity'] > 0, f"NPT iSED dump frames {n_frames}")
+    log('npt', f"ised(npt=True) dump: {n_frames} frames of 16 atoms; launches {proj.counters['launch.parity']}")
     return launches
 
 
@@ -1347,19 +1347,19 @@ def npt_working_size(dev, proj, velocities, host_vel, host_pos):
     walls, launches = [], []
     for _ in range(2):                                       # the first call sums s̄ and uploads
         torch.cuda.synchronize()
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         t0 = time.perf_counter()
         pf, ph, _, k_cart = ncalc.calculate_npt_peaks(miller, n_peaks=N_PEAKS,
                                                        k_chunk_size=K_CHUNK_GRID)
         walls.append(time.perf_counter() - t0)
-        launches.append(proj.launches)
+        launches.append(proj.counters['launch.parity'])
     check(launches == [-(-n_k // K_CHUNK_GRID)] * 2, f"npt_peaks launches {launches}")
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sed = ncalc.calculate_npt(miller, k_chunk_size=K_CHUNK)
     npt_wall = time.perf_counter() - t0
-    npt_launches = proj.launches
+    npt_launches = proj.counters['launch.parity']
     peak_mem = torch.cuda.max_memory_allocated() / 1e9
     check(npt_launches == -(-n_k // K_CHUNK) and sed.sed.shape == (N_T, n_k, 3)
           and bool(np.isfinite(sed.sed).all()), f"calculate_npt launches {npt_launches}")
@@ -1567,7 +1567,7 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     n_lags = N_T // 2
 
     walls, peaks = {}, {}
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     runs = (('dsf', lambda: dcalc.calculate_dsf(kv)), ('dsf_warm', lambda: dcalc.calculate_dsf(kv)),
             ('sk', lambda: dcalc.calculate_sk(kv)), ('isf', lambda: dcalc.calculate_isf(kv)),
             ('dsf_self', lambda: dcalc.calculate_dsf_self(self_kv)),
@@ -1580,7 +1580,7 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
         out[name] = run()
         walls[name] = time.perf_counter() - t0
         peaks[name] = torch.cuda.max_memory_allocated() / 1e9
-    check(proj.launches == 0, "the instantaneous-phase family launched the projection kernel")
+    check(proj.counters['launch.parity'] == 0, "the instantaneous-phase family launched the projection kernel")
     freqs, s_pl, cl_pl, ct_pl = out['dsf_warm']
     check(all(np.array_equal(a, b) for a, b in zip(out['dsf'], out['dsf_warm'])),
           "the warm DSF differs from the first")
@@ -1619,7 +1619,7 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     factored_dsf, engine_walls = phase_engines(
         dev, dcalc, kv, length, pos_dev, vel_dev, cols,
         (o_s[keep], o_cl[keep], o_sk))
-    check(proj.launches == 0, "a phase engine launched the projection kernel")
+    check(proj.counters['launch.parity'] == 0, "a phase engine launched the projection kernel")
     del pos_dev, vel_dev
     dcalc.clear_device_cache()
     torch.cuda.empty_cache()
@@ -1654,14 +1654,14 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     f_err = max(float(np.abs(a - b).max() / np.abs(b).max())
                 for a, b in zip(streamed[1:3], factored_dsf[1:3]))
     check(fcalc.factored_chunks and None not in fcalc.factored_chunks and f_err <= TOL_KERNEL
-          and fcalc.streamed_bytes == 2 * host_pos.nbytes and proj.launches == 0,
+          and fcalc.streamed_bytes == 2 * host_pos.nbytes and proj.counters['launch.parity'] == 0,
           f"streamed factored DSF vs resident {f_err:.3e}, chunks {fcalc.factored_chunks}")
     walls['dsf_factored_streamed'] = wall
     log('engines', f"calculate_dsf, phase_mode='factored', at the default max_device_bytes: "
                    f"{wall:.3f} s wall, {fcalc.streamed_bytes / 1e9:.1f} GB host->device, chunks "
                    f"{fcalc.factored_chunks}; S and C_L vs the resident factored planes "
                    f"{f_err:.3e} of max (tol {TOL_KERNEL})")
-    return dict(walls, engines=engine_walls, launches=proj.launches), traj, side
+    return dict(walls, engines=engine_walls, launches=proj.counters['launch.parity']), traj, side
 
 
 def dsf_small(dev):
@@ -1756,7 +1756,7 @@ def timecorr_working_size(dev, proj, traj, side):
     n_lags = N_T // 2
     chunk = (DSF_BUDGET // 4) // timecorr.block_bytes_per_atom(N_T)
     walls, peaks, out = {}, {}, {}
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     for name, run in (('vacf', calc.calculate_vacf), ('vacf_warm', calc.calculate_vacf),
                       ('msd', calc.calculate_msd), ('msd_warm', calc.calculate_msd)):
         out[name], walls[name], peaks[name] = timed(run)
@@ -1789,7 +1789,7 @@ def timecorr_working_size(dev, proj, traj, side):
         errs[kind] = float(excess.max() / scale)
         check(errs[kind] <= TOL_TIMECORR[1],
               f"{kind} of 8 atoms vs the f64 direct sum: {errs[kind]:.3e} of max beyond rtol")
-    check(proj.launches == 0, "the time correlations launched the projection kernel")
+    check(proj.counters['launch.parity'] == 0, "the time correlations launched the projection kernel")
     calc.clear_device_cache()
     torch.cuda.empty_cache()
     log('timecorr', f"{N_ATOMS} atoms x {N_T} frames, n_lags {n_lags}, atom chunks of {chunk} "
@@ -1894,16 +1894,19 @@ def rdf_working_size(dev, proj, traj, side):
     from psa_tpu_torch import SEDCalculator
     calc = SEDCalculator(traj, nx=side, ny=side, nz=side, device=dev)
     kw = dict(r_max=RDF_R_MAX, n_bins=RDF_BINS)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     (r, g_brute), t_brute, peak_brute = timed(lambda: calc.calculate_rdf(
         method='brute', max_frames=RDF_BRUTE_FRAMES, **kw))
     pairs = float(N_ATOMS) ** 2 * RDF_BRUTE_FRAMES
     check(calc._last_rdf_method == 'brute' and np.isfinite(g_brute).all(), "brute g(r)")
     (_, g_cells), t_cells, peak_cells = timed(lambda: calc.calculate_rdf(
         method='cells', max_frames=RDF_CELLS_FRAMES, **kw))
-    t_host = calc._last_rdf_host_seconds
     check(calc._last_rdf_method == 'cells' and np.isfinite(g_cells).all(), "cells g(r)")
-    (_, g_auto), t_auto, _ = timed(lambda: calc.calculate_rdf(max_frames=RDF_CELLS_FRAMES, **kw))
+    # the auto run, profiled on the host: its psa.rdf.host spans are the host's share
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        (_, g_auto), t_auto, _ = timed(lambda: calc.calculate_rdf(max_frames=RDF_CELLS_FRAMES,
+                                                                   **kw))
+    t_host = sum(e.cpu_time_total for e in prof.key_averages() if e.key == 'psa.rdf.host') / 1e6
     check(calc._last_rdf_method == 'cells' and np.array_equal(g_auto, g_cells),
           f"auto took {calc._last_rdf_method} at the working size")
     # the first Si shell (2.35 Å) holds 4 neighbours in the bulk; the sites are a truncated
@@ -1914,10 +1917,10 @@ def rdf_working_size(dev, proj, traj, side):
              for g in (g_brute, g_cells)]
     log('rdf', f"brute: {N_ATOMS} atoms x {RDF_BRUTE_FRAMES} frames = {pairs:.1e} pairs in "
                f"{t_brute:.3f} s, {pairs / t_brute:.3e} pairs/s, peak {peak_brute:.2f} GB; cells: "
-               f"{N_ATOMS} atoms x {RDF_CELLS_FRAMES} frames in {t_cells:.3f} s, of it "
-               f"{t_host:.3f} s host occupancy and bucketing, "
+               f"{N_ATOMS} atoms x {RDF_CELLS_FRAMES} frames in {t_cells:.3f} s, "
                f"{float(N_ATOMS) ** 2 * RDF_CELLS_FRAMES / t_cells:.3e} brute-equivalent pairs/s, "
-               f"peak {peak_cells:.2f} GB; auto took cells ({t_auto:.3f} s); first-shell "
+               f"peak {peak_cells:.2f} GB; auto took cells ({t_auto:.3f} s profiled, of it "
+               f"{t_host:.3f} s host occupancy and bucketing in psa.rdf.host); first-shell "
                f"coordination {coord[0]:.3f} (brute), {coord[1]:.3f} (cells)")
 
     # Cells against brute on a common subsample.  The cells path wraps the
@@ -1965,7 +1968,7 @@ def rdf_working_size(dev, proj, traj, side):
         excess = np.abs(got - want) - 1e-4 * np.abs(want) - slack
         worst[method] = float(excess.max())
         check(worst[method] <= 1e-5, f"{method} g(r) vs the f64 all-pairs count: {worst[method]:.3e}")
-    check(proj.launches == 0, "g(r) launched the projection kernel")
+    check(proj.counters['launch.parity'] == 0, "g(r) launched the projection kernel")
     log('rdf', f"cells == brute bin for bin on {RDF_SUBSAMPLE} atoms x {RDF_BRUTE_FRAMES} frames "
                f"wrapped into the cell, reruns bitwise equal; on the raw positions ({crossed} "
                f"atoms across a face) {moved:.0f} of {counts[0].sum():.0f} pairs changed bin "
@@ -2029,9 +2032,9 @@ def nccl_group():
 
 def mesh_counted(proj, launches, walls, name, fn):
     """``fn()`` with its projection launches and wall kept under ``name``."""
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     out, walls[name], _ = timed(fn)
-    launches[name] = proj.launches
+    launches[name] = proj.counters['launch.parity']
     return out
 
 
@@ -2418,14 +2421,14 @@ def command_line(dev, proj):
         clock = SectionClock()
         logging.getLogger().addHandler(clock)
         logging.getLogger().setLevel(logging.INFO)
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         cli_main(args + ['--output-dir', str(tmp / 'out')])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         logging.getLogger().removeHandler(clock)
-        launches = proj.launches
+        launches = proj.counters['launch.parity']
         check(launches > 0, "the command line launched no projection kernel")
         check_cli_output(tmp / 'out', 'regular')
         sections = clock.sections(t0)
@@ -2441,11 +2444,11 @@ def command_line(dev, proj):
         check(all(same), f"the command line's saved SED differs from the library's: {same}")
         loop = cli_chunk_errors(dev, proj, calc, traj, config, launches)
 
-        proj.launches = 0
+        proj.counters['launch.parity'] = 0
         t0 = time.perf_counter()
         cli_main(args + ['--output-dir', str(tmp / 'out')])
         torch.cuda.synchronize()
-        rerun_wall, rerun_launches = time.perf_counter() - t0, proj.launches
+        rerun_wall, rerun_launches = time.perf_counter() - t0, proj.counters['launch.parity']
         check(0 < rerun_launches < launches,
               f"the rerun launched {rerun_launches} kernels, the first run {launches}")
 
@@ -2522,7 +2525,7 @@ class SessionSteps:
         from psa_tpu_torch.utils.profiling import sync
         if self.dev.type == 'cuda':
             torch.cuda.reset_peak_memory_stats()
-        self.proj.launches = 0
+        self.proj.counters['launch.parity'] = 0
 
         def timed_step():
             with self.timer.section(name):
@@ -2530,7 +2533,7 @@ class SessionSteps:
                 sync(self.fence)
             return out
         out = in_thread(self.dev, timed_step)      # joined: the count is read after the thread
-        self.launches[name] = self.proj.launches
+        self.launches[name] = self.proj.counters['launch.parity']
         if self.dev.type == 'cuda':
             self.peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
         return out
@@ -3131,9 +3134,9 @@ def bench_sweep(proj, velocities, hi_dev, lo_dev, k_vecs, oracle, cols):
     import bench_torch
     n_k = len(k_vecs)
     k_dev = torch.from_numpy(np.ascontiguousarray(k_vecs, dtype=np.float32)).to(velocities.device)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     sweep = bench_torch.op_sweep(velocities, hi_dev, lo_dev, k_dev, BENCH_KBLOCK, keep=cols)
-    launches = proj.launches
+    launches = proj.counters['launch.parity']
     err = rel(sweep.kept.to(torch.complex128), oracle)
     check(launches == sweep.launches == 1 + -(-n_k // BENCH_KBLOCK),
           f"op sweep launched {launches} kernels, counted {sweep.launches}")
@@ -3597,26 +3600,26 @@ def main():
                                   omega_max_thz=nu_max, seed=0)
     ccalc = SEDCalculator(chain, nx=n_cells, ny=1, nz=1, device=dev)
     k_mags, k_path = ccalc.get_k_path('x', bz_coverage=0.5, n_k=n_cells // 2 + 1)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     sed = ccalc.calculate(k_mags, k_path)
     pos = sed.freqs >= 0
     peaks = sed.freqs[pos][np.argmax(sed.intensity[pos], axis=0)]
     miss = float(np.max(np.abs(peaks[1:] - nu_max * np.abs(np.sin(k_mags[1:] * a / 2)))))
     df = 1.0 / (chain.n_frames * chain.dt_ps)
-    check(proj.launches > 0, "chain calculate launched no kernel")
+    check(proj.counters['launch.parity'] > 0, "chain calculate launched no kernel")
     check(miss <= df + 1e-6, f"chain peaks off the analytic curve by {miss} THz > {df}")
     log('physics', f"chain peaks on nu = {nu_max}|sin(ka/2)|: max miss {miss:.4f} THz "
-                   f"<= resolution {df:.4f} THz; launches {proj.launches}")
+                   f"<= resolution {df:.4f} THz; launches {proj.counters['launch.parity']}")
 
     # -- 5. main path at the working size ---------------------------------
     calc.preload_device_group_data(velocities, hi_dev, lo_dev)
     torch.cuda.reset_peak_memory_stats()
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     t0 = time.perf_counter()
     sed = calc.calculate(np.array([], np.float32), k_vecs, summation_mode='coherent',
                          k_grid_shape=grid_shape)
     wall = time.perf_counter() - t0
-    main_launches = proj.launches
+    main_launches = proj.counters['launch.parity']
     n_k = len(k_vecs)
     check(main_launches > 0, "the working-size calculate launched no projection kernel")
     check(sed.sed.shape == (N_T, n_k, 3), f"SED shape {sed.sed.shape}")
@@ -3736,7 +3739,7 @@ def main():
                                              seed=SEED, n_types=2)
     xcalc = SEDCalculator(crystal, nx=6, ny=6, nz=6, device=dev)
     k_mags, k_path = xcalc.get_k_path('x', bz_coverage=1.0, n_k=33)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     inc = xcalc.calculate(k_mags, k_path, basis_atom_types=[1, 2], summation_mode='incoherent',
                           k_chunk_size=16)
     mean = crystal.positions.astype(np.float64).mean(axis=0)
@@ -3748,37 +3751,37 @@ def main():
                                     ph), axis=0) / crystal.n_frames
         want = want + np.sum(np.abs(spec) ** 2, axis=-1)
     inc_err = float(np.max(np.abs(inc.sed - want)) / np.max(want))
-    check(not inc.is_complex and proj.launches > 0, "incoherent run shape/launches")
+    check(not inc.is_complex and proj.counters['launch.parity'] > 0, "incoherent run shape/launches")
     check(inc_err < TOL_PARITY, f"incoherent vs f64 oracle {inc_err:.3e}")
     log('slice', f"incoherent, 2 type groups, {crystal.n_atoms} atoms: rel err {inc_err:.3e} "
-                 f"(tol {TOL_PARITY}); launches {proj.launches}")
+                 f"(tol {TOL_PARITY}); launches {proj.counters['launch.parity']}")
 
     chiral = make_chiral_chain_trajectory(n_cells=32, n_frames=250, dt_ps=0.02, a=2.5,
                                           nu_thz=5.0, mode_index=8, handedness=+1, seed=3)
     hcalc = SEDCalculator(chiral, nx=32, ny=1, nz=1, device=dev)
     kv = np.array([[2 * np.pi * 8 / (32 * 2.5), 0.0, 0.0]], dtype=np.float32)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     csed = hcalc.calculate(np.linalg.norm(kv, axis=1), kv)
     phase = hcalc.calculate_chiral_phase(csed.sed[:, :, 1], csed.sed[:, :, 2], angle_range_opt='C')
     pos = csed.freqs >= 0
     row = int(np.argmax(csed.intensity[pos][:, 0]))
     got_phase = float(phase[pos][row, 0])
-    check(proj.launches > 0, "chiral run launched no kernel")
+    check(proj.counters['launch.parity'] > 0, "chiral run launched no kernel")
     check(abs(got_phase - np.pi / 2) < 0.05, f"chiral phase {got_phase} != pi/2")
     log('slice', f"chiral phase (option C) at the mode peak {csed.freqs[pos][row]:.3f} THz: "
-                 f"{got_phase:.5f} rad (expect pi/2 = {np.pi / 2:.5f}); launches {proj.launches}")
+                 f"{got_phase:.5f} rad (expect pi/2 = {np.pi / 2:.5f}); launches {proj.counters['launch.parity']}")
 
     ichain = make_chain_trajectory(n_cells=16, n_frames=64, dt_ps=0.05)
     icalc = SEDCalculator(ichain, nx=16, ny=1, nz=1, device=dev)
-    proj.launches = 0
+    proj.counters['launch.parity'] = 0
     with tempfile.TemporaryDirectory() as tmp:
         dump = f"{tmp}/recon.dump"
         icalc.ised(k_dir_spec='x', k_target=0.6, w_target=5.0, char_len_k_path=2.5,
                    nk_on_path=20, rescale_factor='auto', n_recon_frames=10, dump_filepath=dump)
         with open(dump) as f:
             n_frames = f.read().count("ITEM: TIMESTEP")
-    check(n_frames == 10 and proj.launches > 0, f"iSED dump frames {n_frames}")
-    log('slice', f"iSED dump: {n_frames} frames of {ichain.n_atoms} atoms; launches {proj.launches}")
+    check(n_frames == 10 and proj.counters['launch.parity'] > 0, f"iSED dump frames {n_frames}")
+    log('slice', f"iSED dump: {n_frames} frames of {ichain.n_atoms} atoms; launches {proj.counters['launch.parity']}")
 
     # Least time for the working chunk: the function's products (2 (3 n_t)
     # (2K) A flop) at the dense TF32 peak, the card's fastest float32-input

@@ -7,8 +7,9 @@ the JAX package's CLI, with these differences:
   * ``--device`` (default ``cuda``) is handed to the calculator as the
     library takes it; without a CUDA device the library's
     error ends the run, nothing moves to the CPU by itself;
-  * ``--profile`` writes a ``torch.profiler`` chrome trace to
-    ``<output-dir>/profile``;
+  * ``--profile`` writes a ``torch.profiler`` chrome trace, with the
+    program's ``psa.*`` spans, and the counters' change over the run
+    (bytes moved each way, kernel launches) to ``<output-dir>/profile``;
   * the config file is YAML (``.yaml``/``.yml``, needs PyYAML) or JSON;
   * every section writes its data files first and its figures after; where
     matplotlib is not installed the figures are skipped (logged once) and
@@ -60,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Device the spectra are computed on: 'cuda' (default; fails "
                              "when no CUDA device is present) or 'cpu'.")
     parser.add_argument('--profile', action='store_true',
-                        help='Write a torch.profiler chrome trace to <output-dir>/profile.')
+                        help='Write a torch.profiler chrome trace (trace.json, with the '
+                             "program's psa.* spans) and the counters' change over the run "
+                             '(counters.json: bytes moved each way, kernel launches) to '
+                             '<output-dir>/profile.')
     return parser
 
 

@@ -55,6 +55,7 @@ from ..ops import instantaneous, spectral
 from ..ops.sed_projection import sed_projection
 from ..utils import debug
 from ..utils.helpers import DirectionSpec, miller_line, parse_direction
+from ..utils.profiling import count, span
 from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows
 from .sed import SED
 from .trajectory import Trajectory
@@ -72,7 +73,10 @@ FRAC_MEAN_CHUNK_ELEMS = int(2e8)
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """Copy a result tensor to a host NumPy array (waits for the device)."""
-    host = t.cpu().numpy()
+    if t.is_cuda:
+        count('dtoh_bytes', t.nbytes)
+    with span('psa.readback.wait'):
+        host = t.cpu().numpy()
     if debug.active:
         debug.check_arrays(debug.caller(), (host,))
     return host
@@ -531,8 +535,10 @@ class SEDCalculator:
     def _to_device(self, host: np.ndarray, dtype=np.float32) -> torch.Tensor:
         # An upload from pageable memory is staged before the call returns, so
         # non_blocking never reads a freed buffer; it only skips a stream sync.
-        return torch.from_numpy(np.array(host, dtype=dtype, order='C')).to(
-            self.device, non_blocking=True)
+        host = np.array(host, dtype=dtype, order='C')
+        if self.device.type == 'cuda':
+            count('htod_bytes', host.nbytes)
+        return torch.from_numpy(host).to(self.device, non_blocking=True)
 
     def clear_device_cache(self) -> None:
         """Drop cached device-resident group data (frees device memory)."""
@@ -729,10 +735,11 @@ class SEDCalculator:
         groups, is_complex_output = self._spectrum_groups(atom_groups, summation_mode)
 
         num_k = len(k_vectors_3d)
-        if is_complex_output:
-            full_sed = np.zeros((len(freqs), num_k, 3), dtype=np.complex64)
-        else:
-            full_sed = np.zeros((len(freqs), num_k), dtype=np.float32)
+        with span('psa.host.assemble'):
+            if is_complex_output:
+                full_sed = np.zeros((len(freqs), num_k, 3), dtype=np.complex64)
+            else:
+                full_sed = np.zeros((len(freqs), num_k), dtype=np.float32)
         if num_k == 0:
             logger.warning("k_vectors_3d is empty. Returning SED object with empty SED data.")
 
@@ -770,12 +777,16 @@ class SEDCalculator:
             s, e = bounds[ci]
             logger.debug("Processing k-chunk %d/%d (indices %d-%d)", ci + 1, len(bounds), s, e - 1)
             if is_complex_output:
-                out = spectral.finalize_spectrum(*proj.get(0, ci)).contiguous()
+                re, im = proj.get(0, ci)
+                with span('psa.spectrum'):
+                    out = spectral.finalize_spectrum(re, im).contiguous()
             else:
                 out = None
                 for gi in range(len(groups)):
-                    inten = spectral._power(spectral.finalize_spectrum(*proj.get(gi, ci)))
-                    out = inten if out is None else out + inten
+                    re, im = proj.get(gi, ci)
+                    with span('psa.spectrum'):
+                        inten = spectral._power(spectral.finalize_spectrum(re, im))
+                        out = inten if out is None else out + inten
             readback.push([out], functools.partial(sink, ci=ci, s=s, e=e))
         readback.finish()
 
@@ -915,7 +926,8 @@ class SEDCalculator:
         groups, _ = self._spectrum_groups(
             self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
             summation_mode)
-        full = np.zeros((seg, len(k_vectors_3d)), dtype=np.float32)
+        with span('psa.host.assemble'):
+            full = np.zeros((seg, len(k_vectors_3d)), dtype=np.float32)
         bounds = self._chunk_bounds(len(k_vectors_3d), k_chunk_size)
         todo = list(range(len(bounds))) if groups else []
         proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
@@ -924,8 +936,10 @@ class SEDCalculator:
             s, e = bounds[ci]
             inten = None
             for gi in range(len(groups)):
-                iv = spectral.welch_intensity_reduce(*proj.get(gi, ci), segments, window)
-                inten = iv if inten is None else inten + iv
+                re, im = proj.get(gi, ci)
+                with span('psa.spectrum'):
+                    iv = spectral.welch_intensity_reduce(re, im, segments, window)
+                    inten = iv if inten is None else inten + iv
             readback.push([inten], lambda a, s=s, e=e: full.__setitem__(np.s_[:, s:e], a[0]))
         readback.finish()
         return SED(full, freqs, k_points_mags, k_vectors_3d,
@@ -943,12 +957,13 @@ class SEDCalculator:
         """Device (intensity, phase or None) planes of one group's (n_t, 3, K)
         projection pair; ``segments`` > 1 runs the Welch estimator
         (``freq_idx_dev`` then indexes the segment spectrum)."""
-        if segments > 1:
-            return spectral.welch_browse_reduce(re, im, freq_idx_dev, segments, window,
-                                                comp_pair=comp_pair,
-                                                angle_range_opt=angle_range_opt)
-        return spectral.browse_reduce(spectral.finalize_spectrum(re, im), freq_idx_dev,
-                                      comp_pair=comp_pair, angle_range_opt=angle_range_opt)
+        with span('psa.spectrum'):
+            if segments > 1:
+                return spectral.welch_browse_reduce(re, im, freq_idx_dev, segments, window,
+                                                    comp_pair=comp_pair,
+                                                    angle_range_opt=angle_range_opt)
+            return spectral.browse_reduce(spectral.finalize_spectrum(re, im), freq_idx_dev,
+                                          comp_pair=comp_pair, angle_range_opt=angle_range_opt)
 
     def calculate_kgrid_browse(self, k_vectors_3d: np.ndarray,
                                basis_atom_indices=None, basis_atom_types=None,
@@ -1024,8 +1039,9 @@ class SEDCalculator:
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
 
         num_k = len(k_vectors_3d)
-        intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
-        phase = np.zeros_like(intensity) if comp_pair is not None else None
+        with span('psa.host.assemble'):
+            intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
+            phase = np.zeros_like(intensity) if comp_pair is not None else None
         bounds = self._chunk_bounds(num_k, k_chunk_size)
         cache = self._chunk_cache(
             cache_dir, 'browse', k_vectors_3d, bounds[0][1] - bounds[0][0] if bounds else 1,
@@ -1111,8 +1127,9 @@ class SEDCalculator:
             self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
             summation_mode)
         num_k = len(k_vectors_3d)
-        i_long = np.zeros((len(freq_idx), num_k), dtype=np.float32)
-        i_trans = np.zeros_like(i_long)
+        with span('psa.host.assemble'):
+            i_long = np.zeros((len(freq_idx), num_k), dtype=np.float32)
+            i_trans = np.zeros_like(i_long)
         bounds = self._chunk_bounds(num_k, k_chunk_size)
         todo = list(range(len(bounds))) if groups else []
         freq_idx_dev = self._to_device(freq_idx, np.int64)
@@ -1127,9 +1144,11 @@ class SEDCalculator:
             s, e = bounds[ci]
             i_l = i_t = None
             for gi in range(len(groups)):
-                spec = spectral.finalize_spectrum(*proj.get(gi, ci))
-                l_g, t_g = spectral.lt_reduce(spec, ku_dev[s:e], freq_idx_dev)
-                i_l, i_t = (l_g, t_g) if i_l is None else (i_l + l_g, i_t + t_g)
+                re, im = proj.get(gi, ci)
+                with span('psa.spectrum'):
+                    l_g, t_g = spectral.lt_reduce(spectral.finalize_spectrum(re, im),
+                                                  ku_dev[s:e], freq_idx_dev)
+                    i_l, i_t = (l_g, t_g) if i_l is None else (i_l + l_g, i_t + t_g)
             readback.push([i_l, i_t], functools.partial(sink, s=s, e=e))
         readback.finish()
         return freqs_kept, i_long, i_trans
@@ -1227,7 +1246,8 @@ class SEDCalculator:
             return tuple(np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out))
 
         bounds = self._chunk_bounds(num_k, k_chunk_size)
-        out = [np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out)]
+        with span('psa.host.assemble'):
+            out = [np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out)]
         cache = self._chunk_cache(
             cache_dir, 'peaks', k_vectors_3d, bounds[0][1] - bounds[0][0],
             {'groups': [g.tolist() for g in groups], 'mode': summation_mode,
@@ -1256,9 +1276,10 @@ class SEDCalculator:
                 iv, phase = self._browse_planes(*proj.get(gi, ci), freq_idx_dev, comp_pair,
                                                 angle_range_opt, segments, welch_window)
                 inten = iv if inten is None else inten + iv
-            res = torch.stack(spectral.peak_reduce(
-                inten, freqs_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
-                phase=phase, width_method=width_method))
+            with span('psa.spectrum'):
+                res = torch.stack(spectral.peak_reduce(
+                    inten, freqs_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                    phase=phase, width_method=width_method))
             if readback is not None:
                 readback.push([res], lambda a, ci=ci, s=s, e=e: store(a[0], ci, s, e))
             else:
@@ -1377,8 +1398,10 @@ class SEDCalculator:
         the CPU."""
         if self.device.type != 'cuda':
             return None
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        with span('psa.gridded.budget'):
+            free, _ = torch.cuda.mem_get_info(self.device)
+            free += (torch.cuda.memory_reserved(self.device)
+                     - torch.cuda.memory_allocated(self.device))
         return int(free) // 4
 
     def _gridded_sweep(self, k_vectors_3d, k_grid_shape, groups: List[np.ndarray],
@@ -1768,8 +1791,9 @@ class SEDCalculator:
                                  device=self.device).index_copy_(0, col_idx, ku)
             acc = [torch.zeros((n_t, n_cols, n_ch), dtype=torch.float32, device=self.device)
                    for _ in range(2)]
-            for pos, vel in self._dsf_blocks(group_idx, atom_chunk, not density_only):
-                instantaneous.accumulate_modes(*acc, pos, vel, k_arg, t_chunk, ph_box, mode)
+            with span('psa.phases'):             # closed before the yield
+                for pos, vel in self._dsf_blocks(group_idx, atom_chunk, not density_only):
+                    instantaneous.accumulate_modes(*acc, pos, vel, k_arg, t_chunk, ph_box, mode)
             yield ci, s, e, acc[0], acc[1], ku, col_idx
 
     @staticmethod
@@ -1834,7 +1858,8 @@ class SEDCalculator:
         freqs_kept, freq_idx = self._dsf_freqs(max_freq, segments)
         group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
         num_k = len(k_vectors_3d)
-        planes = np.zeros((3, len(freq_idx), num_k), dtype=np.float32)
+        with span('psa.host.assemble'):
+            planes = np.zeros((3, len(freq_idx), num_k), dtype=np.float32)
         if num_k == 0 or group_idx.size == 0:
             return (freqs_kept,) + tuple(planes)
         inv_n = 1.0 / float(group_idx.size)
@@ -1866,7 +1891,8 @@ class SEDCalculator:
         self._dsf_commensurate_warn(k_vectors_3d)
         group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
         num_k = len(k_vectors_3d)
-        out = np.zeros((num_k,) if rows is None else (rows, num_k), dtype=np.float32)
+        with span('psa.host.assemble'):
+            out = np.zeros((num_k,) if rows is None else (rows, num_k), dtype=np.float32)
         if num_k == 0 or group_idx.size == 0:
             return out
         inv_n = 1.0 / float(group_idx.size)
@@ -1949,7 +1975,8 @@ class SEDCalculator:
         self._dsf_commensurate_warn(k_vectors_3d)
         group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
         num_k = len(k_vectors_3d)
-        out = np.zeros((rows, num_k), dtype=np.float32)
+        with span('psa.host.assemble'):
+            out = np.zeros((rows, num_k), dtype=np.float32)
         if num_k == 0 or group_idx.size == 0:
             return out
         block = min(max(1, k_chunk_size), num_k)
@@ -2255,8 +2282,6 @@ class SEDCalculator:
             raise ValueError("method='cells' is single-device; drop mesh= "
                              "(the mesh path shards the brute sweep)")
         self._last_rdf_method = None   # set at the start of whichever path runs
-        # host seconds the cells path spends on occupancy and bucketing
-        self._last_rdf_host_seconds = 0.0
         counts = None
         if method != 'brute' and mesh is None:
             counts = self._rdf_counts_cells(
@@ -2330,9 +2355,7 @@ class SEDCalculator:
         host pre-pass, and, unless ``force``, gives way to the brute sweep
         when the padded cell pair count is more than half of N_A · N_B.
         """
-        import time
         from ..ops import structure
-        t_host = time.perf_counter()
         n_xyz = [max(1, int(w / r_max)) for w in self._cell_widths(h)]
         # a very short r_max can make the grid far finer than the atom
         # count: coarsen (wider cells keep the stencil exact) until the
@@ -2355,14 +2378,16 @@ class SEDCalculator:
             """Max per-cell bucket occupancy over the given frames (host)."""
             cap_a = cap_b = 0
             chunk = max(1, (1 << 22) // max(1, group_a.size))
-            for f0 in range(0, len(frame_sel), chunk):
-                pos_t = self.traj.positions[frame_sel[f0:f0 + chunk]]
-                lin = structure.cell_counts(frac_of(pos_t[:, group_a, :]), n_xyz)
-                cap_a = max(cap_a, max(int(np.bincount(l, minlength=nc).max()) for l in lin))
-                if not same:
-                    lin = structure.cell_counts(frac_of(pos_t[:, group_b, :]), n_xyz)
-                    cap_b = max(cap_b, max(int(np.bincount(l, minlength=nc).max())
+            with span('psa.rdf.host'):
+                for f0 in range(0, len(frame_sel), chunk):
+                    pos_t = self.traj.positions[frame_sel[f0:f0 + chunk]]
+                    lin = structure.cell_counts(frac_of(pos_t[:, group_a, :]), n_xyz)
+                    cap_a = max(cap_a, max(int(np.bincount(l, minlength=nc).max())
                                            for l in lin))
+                    if not same:
+                        lin = structure.cell_counts(frac_of(pos_t[:, group_b, :]), n_xyz)
+                        cap_b = max(cap_b, max(int(np.bincount(l, minlength=nc).max())
+                                               for l in lin))
             cap_a = -(-max(cap_a, 1) // 8) * 8
             cap_b = cap_a if same else -(-max(cap_b, 1) // 8) * 8
             return cap_a, cap_b
@@ -2396,7 +2421,6 @@ class SEDCalculator:
         logger.info("RDF cells: grid %s, caps (%d, %d), t_chunk=%d: %.1fx fewer padded "
                     "pairs than brute.", n_xyz, cap_a, cap_b, t_chunk,
                     brute_pairs / max(cell_pairs, 1.0))
-        self._last_rdf_host_seconds += time.perf_counter() - t_host
 
         def buckets(pos_t, group, cap):
             fr = frac_of(pos_t[:, group, :])
@@ -2406,11 +2430,10 @@ class SEDCalculator:
 
         counts = torch.zeros(n_bins, dtype=torch.int64, device=self.device)
         for f0 in range(0, len(frames), t_chunk):
-            t_host = time.perf_counter()
-            pos_t = self.traj.positions[frames[f0:f0 + t_chunk]]
-            pa_host, ia_host = buckets(pos_t, group_a, cap_a)
-            pb_host, ib_host = (pa_host, ia_host) if same else buckets(pos_t, group_b, cap_b)
-            self._last_rdf_host_seconds += time.perf_counter() - t_host
+            with span('psa.rdf.host'):
+                pos_t = self.traj.positions[frames[f0:f0 + t_chunk]]
+                pa_host, ia_host = buckets(pos_t, group_a, cap_a)
+                pb_host, ib_host = (pa_host, ia_host) if same else buckets(pos_t, group_b, cap_b)
             pa, ia = self._to_device(pa_host), self._to_device(ia_host, np.int32)
             pb, ib = (pa, ia) if same else (self._to_device(pb_host),
                                             self._to_device(ib_host, np.int32))

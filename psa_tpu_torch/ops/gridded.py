@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..parallel.sharded import ArrayBlockSource  # noqa: F401 — the streamed sweep's source
+from ..utils.profiling import span
 from ..utils.transfer import DeviceToHost, HostToDevice, copy_rows, gather_atoms
 from . import spectral
 
@@ -437,13 +438,14 @@ def _spread_gy_block(data: torch.Tensor, plan: GridPlan, packed_tabs, row_starts
     """The full-time (3, C, n_t, gyc) complex64 grid of one ky block from a
     device-resident trajectory.  Rows outer, time chunks inner: each
     row-chunk's weights are built once and serve every time chunk."""
-    grid = torch.zeros((3, plan.n_cells, n_t, len(ky)), dtype=torch.complex64,
-                       device=data.device)
-    for r0 in row_starts:
-        weights = _device_weights(packed_tabs[r0], ky)
-        _spread_chunk(grid, data, packed_tabs[r0], weights, plan, t_chunk)
-        del weights
-    return grid
+    with span('psa.gridded.spread'):
+        grid = torch.zeros((3, plan.n_cells, n_t, len(ky)), dtype=torch.complex64,
+                           device=data.device)
+        for r0 in row_starts:
+            weights = _device_weights(packed_tabs[r0], ky)
+            _spread_chunk(grid, data, packed_tabs[r0], weights, plan, t_chunk)
+            del weights
+        return grid
 
 
 def _spread_gy_blocks_streamed(src, plan: GridPlan, targets, row_starts, chunk_cols,
@@ -462,40 +464,41 @@ def _spread_gy_blocks_streamed(src, plan: GridPlan, targets, row_starts, chunk_c
     across superchunks when they all fit ``weight_cache_bytes`` (they do not
     depend on time), else rebuilt.  Returns (grids, bytes moved to the
     devices)."""
-    grids = [torch.zeros((3, plan.n_cells, n_t, len(ky)), dtype=torch.complex64,
-                         device=ky.device) for ky, _ in targets]
-    keep = [plan.n_rows * plan.bucket_size * plan.w * len(ky) * 8 <= weight_cache_bytes
-            for ky, _ in targets]
-    caches: List[Dict[int, torch.Tensor]] = [{} for _ in targets]
-    a_max = max(max((c.size for c in chunk_cols.values()), default=1), 1)
-    stagers: Dict[torch.device, HostToDevice] = {}
-    for ky, _ in targets:
-        if ky.device not in stagers:
-            stagers[ky.device] = HostToDevice(ky.device, min(t_superchunk, n_t) * a_max * 3)
-    for ts0 in range(0, n_t, t_superchunk):
-        ts1 = min(ts0 + t_superchunk, n_t)
-        slab = src.read_block(ts0, ts1, 0, src.n_atoms)                # (ts, N, 3) host
-        for r0 in row_starts:
-            cols, shape = chunk_cols[r0], (ts1 - ts0, chunk_cols[r0].size, 3)
-            gathered, data = [], {}
-            for dev, stager in stagers.items():
-                def fill(dst):
-                    if gathered:                    # gathered once, copied to the others
-                        copy_rows(dst, gathered[0])
-                    else:
-                        gather_atoms(dst, slab, cols)
-                        gathered.append(dst)
-                data[dev] = stager.put(fill, shape)
-            for j, (ky, tabs) in enumerate(targets):
-                weights = caches[j].get(r0)
-                if weights is None:
-                    weights = _device_weights(tabs[r0], ky)
-                    if keep[j]:
-                        caches[j][r0] = weights
-                _spread_chunk(grids[j], data[ky.device], tabs[r0], weights, plan, t_chunk,
-                              grid_t0=ts0)
-                del weights
-    return grids, sum(st.bytes_moved for st in stagers.values())
+    with span('psa.gridded.spread'):
+        grids = [torch.zeros((3, plan.n_cells, n_t, len(ky)), dtype=torch.complex64,
+                             device=ky.device) for ky, _ in targets]
+        keep = [plan.n_rows * plan.bucket_size * plan.w * len(ky) * 8 <= weight_cache_bytes
+                for ky, _ in targets]
+        caches: List[Dict[int, torch.Tensor]] = [{} for _ in targets]
+        a_max = max(max((c.size for c in chunk_cols.values()), default=1), 1)
+        stagers: Dict[torch.device, HostToDevice] = {}
+        for ky, _ in targets:
+            if ky.device not in stagers:
+                stagers[ky.device] = HostToDevice(ky.device, min(t_superchunk, n_t) * a_max * 3)
+        for ts0 in range(0, n_t, t_superchunk):
+            ts1 = min(ts0 + t_superchunk, n_t)
+            slab = src.read_block(ts0, ts1, 0, src.n_atoms)                # (ts, N, 3) host
+            for r0 in row_starts:
+                cols, shape = chunk_cols[r0], (ts1 - ts0, chunk_cols[r0].size, 3)
+                gathered, data = [], {}
+                for dev, stager in stagers.items():
+                    def fill(dst):
+                        if gathered:                    # gathered once, copied to the others
+                            copy_rows(dst, gathered[0])
+                        else:
+                            gather_atoms(dst, slab, cols)
+                            gathered.append(dst)
+                    data[dev] = stager.put(fill, shape)
+                for j, (ky, tabs) in enumerate(targets):
+                    weights = caches[j].get(r0)
+                    if weights is None:
+                        weights = _device_weights(tabs[r0], ky)
+                        if keep[j]:
+                            caches[j][r0] = weights
+                    _spread_chunk(grids[j], data[ky.device], tabs[r0], weights, plan, t_chunk,
+                                  grid_t0=ts0)
+                    del weights
+        return grids, sum(st.bytes_moved for st in stagers.values())
 
 
 def _streamed_budgets(plan: GridPlan, src, t_superchunk, data_budget_bytes, cell_chunk):
@@ -622,23 +625,24 @@ class _Sweep:
                width_method: str) -> torch.Tensor:
         """One ky block's grid → (n_out, lead, gx·gyc) float32 on the device:
         the intensity (and chiral phase) at the kept rows, or its peaks."""
-        gx, n_t = self.plan.gx, self.n_t
-        inten, kept = None, {}
-        for pol in range(3):
-            spec = _fft_take(_finish_grid(grid[pol], self.deconv, gx).reshape(n_t, -1),
-                             freq_dev)                                  # (n_f, gx·gyc)
-            part = spec.real ** 2 + spec.imag ** 2
-            inten = part if inten is None else inten + part
-            if comp_pair is not None and pol in comp_pair:
-                kept[pol] = spec
-        if n_peaks is not None:
-            return torch.stack(spectral.peak_reduce(
-                inten, fkept_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
-                width_method=width_method))
-        if comp_pair is not None:
-            return torch.stack([inten, spectral.chiral_phase(
-                kept[comp_pair[0]], kept[comp_pair[1]], angle_range_opt=angle_range_opt)])
-        return inten[None]
+        with span('psa.spectrum'):
+            gx, n_t = self.plan.gx, self.n_t
+            inten, kept = None, {}
+            for pol in range(3):
+                spec = _fft_take(_finish_grid(grid[pol], self.deconv, gx).reshape(n_t, -1),
+                                 freq_dev)                                  # (n_f, gx·gyc)
+                part = spec.real ** 2 + spec.imag ** 2
+                inten = part if inten is None else inten + part
+                if comp_pair is not None and pol in comp_pair:
+                    kept[pol] = spec
+            if n_peaks is not None:
+                return torch.stack(spectral.peak_reduce(
+                    inten, fkept_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                    width_method=width_method))
+            if comp_pair is not None:
+                return torch.stack([inten, spectral.chiral_phase(
+                    kept[comp_pair[0]], kept[comp_pair[1]], angle_range_opt=angle_range_opt)])
+            return inten[None]
 
 
 def gridded_kgrid_browse(data, plan: GridPlan, freq_idx: np.ndarray,
@@ -716,7 +720,8 @@ def gridded_kgrid_browse(data, plan: GridPlan, freq_idx: np.ndarray,
     n_f = int(len(freq_idx))
     lead = n_peaks if n_peaks is not None else n_f
     n_out = 3 if n_peaks is not None else (2 if comp_pair is not None else 1)
-    full = np.zeros((n_out, lead, gx, gy), dtype=np.float32)
+    with span('psa.host.assemble'):
+        full = np.zeros((n_out, lead, gx, gy), dtype=np.float32)
     if not sweep.empty:                       # an empty atom set gives zero spectra
         dev = sweep.device
         freq_dev = torch.from_numpy(np.asarray(freq_idx, dtype=np.int64)).to(dev)
@@ -762,15 +767,17 @@ def gridded_kgrid_spectrum(data, plan: GridPlan,
     sweep = _Sweep(data, plan, device, t_chunk, cell_chunk, gy_chunk,
                    grid_budget_bytes=grid_budget_bytes)
     gx, gy, n_t = plan.gx, plan.gy, sweep.n_t
-    out = np.zeros((n_t, gx, gy, 3), dtype=np.complex64)
+    with span('psa.host.assemble'):
+        out = np.zeros((n_t, gx, gy, 3), dtype=np.complex64)
     if sweep.empty:                           # an empty atom set gives a zero signal
         return out.reshape(n_t, gx * gy, 3)
     readback = DeviceToHost(sweep.device)
     for g0, g1, grid in sweep.blocks():
         for pol in range(3):
-            sig = _finish_grid(grid[pol], sweep.deconv, gx)                # (n_t, gx, gyc)
-            if time_fft:
-                sig = torch.fft.fft(sig, dim=0) / n_t
+            with span('psa.spectrum'):
+                sig = _finish_grid(grid[pol], sweep.deconv, gx)            # (n_t, gx, gyc)
+                if time_fft:
+                    sig = torch.fft.fft(sig, dim=0) / n_t
 
             def sink(arrays, g0=g0, g1=g1, pol=pol):
                 out[:, :, g0:g1, pol] = arrays[0]
@@ -845,7 +852,8 @@ def gridded_kgrid_sharded(data, plan: GridPlan, freq_idx: np.ndarray, devices,
     n_f = int(len(freq_idx))
     lead = n_peaks if n_peaks is not None else n_f
     n_out = 3 if n_peaks is not None else (2 if comp_pair is not None else 1)
-    full = np.zeros((n_out, lead, gx, gy), dtype=np.float32)
+    with span('psa.host.assemble'):
+        full = np.zeros((n_out, lead, gx, gy), dtype=np.float32)
     first = sweeps[devs[0]]
     if not first.empty:
         stripes = [round(i * gy / len(devs)) for i in range(len(devs) + 1)]

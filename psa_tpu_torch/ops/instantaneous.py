@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .spectral import welch_window
 
 #: Device bytes per (t, atom, k-column) element that the mode stacks' tiles
@@ -587,23 +588,24 @@ def dsf_reduce(f_re: torch.Tensor, f_im: torch.Tensor, k_unit: torch.Tensor,
     coherent gain) and normalized FFT/seg.  A zero row of ``k_unit`` (Γ)
     gives C_L = 0.
     """
-    n_t, n_k, n_ch = f_re.shape
-    seg = n_t // segments
-    sig = torch.complex(f_re[:seg * segments], f_im[:seg * segments])
-    sig = sig.reshape(segments, seg, n_k, n_ch)
-    w = welch_window(seg, window, device=f_re.device)
-    if w is not None:
-        sig = sig * w[None, :, None, None]
-    spec = (torch.fft.fft(sig, dim=1) / seg).index_select(1, freq_idx)   # (S, F, K, 4)
-    rho, j = spec[..., 0], spec[..., 1:]
-    s_plane = (rho.real ** 2 + rho.imag ** 2).mean(dim=0)
-    ku = k_unit.float()
-    jl_re = (j.real * ku).sum(dim=-1)
-    jl_im = (j.imag * ku).sum(dim=-1)
-    c_l = (jl_re * jl_re + jl_im * jl_im).mean(dim=0)
-    total = (j.real ** 2 + j.imag ** 2).sum(dim=-1).mean(dim=0)
-    c_t = torch.clamp(total - c_l, min=0.0)                           # Cauchy-Schwarz
-    return s_plane.float(), c_l.float(), c_t.float()
+    with profiling.span('psa.spectrum'):
+        n_t, n_k, n_ch = f_re.shape
+        seg = n_t // segments
+        sig = torch.complex(f_re[:seg * segments], f_im[:seg * segments])
+        sig = sig.reshape(segments, seg, n_k, n_ch)
+        w = welch_window(seg, window, device=f_re.device)
+        if w is not None:
+            sig = sig * w[None, :, None, None]
+        spec = (torch.fft.fft(sig, dim=1) / seg).index_select(1, freq_idx)   # (S, F, K, 4)
+        rho, j = spec[..., 0], spec[..., 1:]
+        s_plane = (rho.real ** 2 + rho.imag ** 2).mean(dim=0)
+        ku = k_unit.float()
+        jl_re = (j.real * ku).sum(dim=-1)
+        jl_im = (j.imag * ku).sum(dim=-1)
+        c_l = (jl_re * jl_re + jl_im * jl_im).mean(dim=0)
+        total = (j.real ** 2 + j.imag ** 2).sum(dim=-1).mean(dim=0)
+        c_t = torch.clamp(total - c_l, min=0.0)                           # Cauchy-Schwarz
+        return s_plane.float(), c_l.float(), c_t.float()
 
 
 def sk_reduce(f_re: torch.Tensor, f_im: torch.Tensor) -> torch.Tensor:

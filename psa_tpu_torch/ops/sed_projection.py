@@ -42,15 +42,8 @@ import torch
 
 from .. import _build
 from ..utils import debug
+from ..utils.profiling import count, counters, span
 
-#: Launches of the fused 'parity' kernel (``csrc/sed_projection.cu``) in this
-#: process (the plain version counts nothing); the other tiers' table and
-#: product kernels count below, and :func:`kernel_launches` sums the three.
-launches = 0
-#: Launches of the table kernel (``csrc/sed_projection_tiers.cu``) in this process.
-table_launches = 0
-#: Launches of the product kernel (``csrc/sed_projection_tiers.cu``) in this process.
-product_launches = 0
 #: Tier name -> the kernels' ``tier`` argument.
 TIERS = {'parity': 0, 'balanced': 1, 'fast': 2}
 #: Data elements per atom block of the tiers' plain versions (bounds their copies).
@@ -80,8 +73,12 @@ def phase_table(mp_hi: torch.Tensor, mp_lo: torch.Tensor,
 
 
 def kernel_launches() -> int:
-    """Launches of every kernel of this module in this process."""
-    return launches + table_launches + product_launches
+    """Launches of every kernel of this module in this process: the counters
+    ``launch.parity`` (the fused kernel, ``csrc/sed_projection.cu``),
+    ``launch.table`` and ``launch.product`` (``csrc/sed_projection_tiers.cu``)
+    of :data:`psa_tpu_torch.utils.profiling.counters`.  The plain versions
+    count nothing."""
+    return counters['launch.parity'] + counters['launch.table'] + counters['launch.product']
 
 
 def tier_split(cs: torch.Tensor, precision: str) -> Tuple[torch.Tensor, ...]:
@@ -309,7 +306,6 @@ def tier_table(mp_hi: torch.Tensor, mp_lo: torch.Tensor, k_vectors: torch.Tensor
     A CPU tensor gets the plain version; a CUDA tensor launches the table
     kernel (``csrc/sed_projection_tiers.cu``) or raises.
     """
-    global table_launches
     _check_table_tier(precision)
     a0, a1 = atoms or (0, mp_hi.shape[0])
     n_k = k_vectors.shape[0]
@@ -332,7 +328,7 @@ def tier_table(mp_hi: torch.Tensor, mp_lo: torch.Tensor, k_vectors: torch.Tensor
             mp_hi.data_ptr(), mp_lo.data_ptr(), k_vectors.data_ptr(), out.data_ptr(), out.numel(),
             a0, a1 - a0, n_k, TIERS[precision], _stream(device))
     _raise_on(err, "sed_projection table")
-    table_launches += 1
+    count('launch.table')
     return out
 
 
@@ -348,7 +344,6 @@ def tier_product(data: torch.Tensor, table: torch.Tensor, n_k: int, precision: s
     raises.  On CUDA ``data`` must be contiguous and start on a 16-byte
     boundary.
     """
-    global product_launches
     _check_table_tier(precision)
     n_t, n_atoms, _ = data.shape
     a0, a1 = atoms or (0, n_atoms)
@@ -364,7 +359,7 @@ def tier_product(data: torch.Tensor, table: torch.Tensor, n_k: int, precision: s
             out[1].data_ptr(), n_t, n_atoms, a0, a1 - a0, n_k, int(accumulate), TIERS[precision],
             _stream(device))
     _raise_on(err, "sed_projection product")
-    product_launches += 1
+    count('launch.product')
     return out
 
 
@@ -392,48 +387,48 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
     start on a 16-byte boundary is copied first (the kernels copy 16-byte
     blocks).
     """
-    global launches
-    _check(data, mp_hi, mp_lo, k_vectors)
-    _check_precision(precision)
-    device = data.device
-    if out is not None:
-        _check_out(out, (data.shape[0], 3, k_vectors.shape[0]), device)
-    elif accumulate:
-        raise ValueError("accumulate=True needs out=")
-    if device.type == 'cpu':
-        out = sed_projection_plain(data, mp_hi, mp_lo, k_vectors, out=out,
-                                   accumulate=accumulate, precision=precision)
+    with span('psa.project'):
+        _check(data, mp_hi, mp_lo, k_vectors)
+        _check_precision(precision)
+        device = data.device
+        if out is not None:
+            _check_out(out, (data.shape[0], 3, k_vectors.shape[0]), device)
+        elif accumulate:
+            raise ValueError("accumulate=True needs out=")
+        if device.type == 'cpu':
+            out = sed_projection_plain(data, mp_hi, mp_lo, k_vectors, out=out,
+                                       accumulate=accumulate, precision=precision)
+            if debug.active:
+                debug.check_tensors('sed_projection', out)
+            return out
+        if device.type != 'cuda':
+            raise ValueError(f"sed_projection runs on cpu or cuda, got {device}")
+        tensors = (data, mp_hi, mp_lo, k_vectors)
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("sed_projection's CUDA kernels take contiguous tensors")
+        if data.data_ptr() % 16:
+            data = data.clone()
+        n_t, n_atoms, _ = data.shape
+        n_k = k_vectors.shape[0]
+        if out is None:
+            out = tuple(torch.empty((n_t, 3, n_k), dtype=torch.float32, device=device)
+                        for _ in range(2))
+        if precision == 'parity':
+            with torch.cuda.device(device):
+                err = _build.load().psa_sed_projection(
+                    data.data_ptr(), mp_hi.data_ptr(), mp_lo.data_ptr(), k_vectors.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(), n_t, n_atoms, n_k, int(accumulate),
+                    _stream(device))
+            _raise_on(err, "sed_projection")
+            count('launch.parity')
+        else:
+            blocks = atom_blocks(n_atoms, n_k)
+            scratch = torch.empty(table_bytes(blocks[0][1] - blocks[0][0], n_k), dtype=torch.uint8,
+                                  device=device)
+            for i, block in enumerate(blocks):
+                tier_table(mp_hi, mp_lo, k_vectors, precision, atoms=block, out=scratch)
+                tier_product(data, scratch, n_k, precision, out, accumulate=accumulate or i > 0,
+                             atoms=block)
         if debug.active:
             debug.check_tensors('sed_projection', out)
         return out
-    if device.type != 'cuda':
-        raise ValueError(f"sed_projection runs on cpu or cuda, got {device}")
-    tensors = (data, mp_hi, mp_lo, k_vectors)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sed_projection's CUDA kernels take contiguous tensors")
-    if data.data_ptr() % 16:
-        data = data.clone()
-    n_t, n_atoms, _ = data.shape
-    n_k = k_vectors.shape[0]
-    if out is None:
-        out = tuple(torch.empty((n_t, 3, n_k), dtype=torch.float32, device=device)
-                    for _ in range(2))
-    if precision == 'parity':
-        with torch.cuda.device(device):
-            err = _build.load().psa_sed_projection(
-                data.data_ptr(), mp_hi.data_ptr(), mp_lo.data_ptr(), k_vectors.data_ptr(),
-                out[0].data_ptr(), out[1].data_ptr(), n_t, n_atoms, n_k, int(accumulate),
-                _stream(device))
-        _raise_on(err, "sed_projection")
-        launches += 1
-    else:
-        blocks = atom_blocks(n_atoms, n_k)
-        scratch = torch.empty(table_bytes(blocks[0][1] - blocks[0][0], n_k), dtype=torch.uint8,
-                              device=device)
-        for i, block in enumerate(blocks):
-            tier_table(mp_hi, mp_lo, k_vectors, precision, atoms=block, out=scratch)
-            tier_product(data, scratch, n_k, precision, out, accumulate=accumulate or i > 0,
-                         atoms=block)
-    if debug.active:
-        debug.check_tensors('sed_projection', out)
-    return out

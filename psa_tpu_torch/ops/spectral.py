@@ -23,6 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .sed_projection import sed_projection
 
 PRECISIONS = ('parity', 'balanced', 'fast')
@@ -284,46 +285,47 @@ def peak_reduce(inten: torch.Tensor, freqs_kept: torch.Tensor, n_peaks: int = 1,
         (peak_freq, peak_height, peak_width[, peak_phase]), each
         (n_peaks, K) float32.
     """
-    if width_method not in ('rms', 'lorentzian'):
-        raise ValueError(f"width_method must be 'rms' or 'lorentzian', got {width_method!r}")
-    n_f = inten.shape[0]
-    fk = freqs_kept.float()[:, None]
-    row = torch.arange(n_f, device=inten.device)[:, None]
-    if width_method == 'lorentzian':
-        df = (fk[-1, 0] - fk[0, 0]) / (n_f - 1) if n_f > 1 else torch.ones_like(fk[0, 0])
-        span = 2.0 * exclusion_bins * df
-    cur = inten.float()
-    outs = []
-    for _ in range(n_peaks):
-        idx = torch.argmax(cur, dim=0)
-        height = cur.gather(0, idx[None])[0]
-        in_win = (row - idx[None]).abs() <= exclusion_bins
-        w = torch.where(in_win, cur, 0.0)
-        peak_f = fk[:, 0].index_select(0, idx)
-        if width_method == 'rms':
-            wsum = torch.clamp(w.sum(dim=0), min=1e-30)
-            mu = (w * fk).sum(dim=0) / wsum
-            var = (w * (fk - mu[None]) ** 2).sum(dim=0) / wsum
-            width = torch.sqrt(torch.clamp(var, min=0.0))
-        else:
-            x = (fk - peak_f[None]) ** 2
-            wn = w / torch.clamp(height, min=1e-30)[None]
-            y = 1.0 / torch.clamp(wn, min=1e-30)
-            wt = torch.where(in_win, wn * wn, 0.0)
-            sw, sx, sy = wt.sum(dim=0), (wt * x).sum(dim=0), (wt * y).sum(dim=0)
-            sxx, sxy = (wt * x * x).sum(dim=0), (wt * x * y).sum(dim=0)
-            det = sw * sxx - sx * sx
-            slope = torch.where(det.abs() > 1e-30, (sw * sxy - sx * sy) / det, 0.0)
-            intercept = torch.where(sw > 1e-30, (sy - slope * sx) / sw, 0.0)
-            gamma_sq = torch.where(slope > 1e-30, torch.clamp(intercept, min=0.0) / slope,
-                                   torch.inf)
-            width = torch.minimum(2.0 * torch.sqrt(gamma_sq), span)
-        found = [peak_f, height, width]
-        if phase is not None:
-            found.append(phase.gather(0, idx[None])[0].float())
-        outs.append(found)
-        cur = torch.where(in_win, 0.0, cur)
-    return tuple(torch.stack(col) for col in zip(*outs))
+    with span('psa.spectrum.peaks'):
+        if width_method not in ('rms', 'lorentzian'):
+            raise ValueError(f"width_method must be 'rms' or 'lorentzian', got {width_method!r}")
+        n_f = inten.shape[0]
+        fk = freqs_kept.float()[:, None]
+        row = torch.arange(n_f, device=inten.device)[:, None]
+        if width_method == 'lorentzian':
+            df = (fk[-1, 0] - fk[0, 0]) / (n_f - 1) if n_f > 1 else torch.ones_like(fk[0, 0])
+            fwhm_cap = 2.0 * exclusion_bins * df
+        cur = inten.float()
+        outs = []
+        for _ in range(n_peaks):
+            idx = torch.argmax(cur, dim=0)
+            height = cur.gather(0, idx[None])[0]
+            in_win = (row - idx[None]).abs() <= exclusion_bins
+            w = torch.where(in_win, cur, 0.0)
+            peak_f = fk[:, 0].index_select(0, idx)
+            if width_method == 'rms':
+                wsum = torch.clamp(w.sum(dim=0), min=1e-30)
+                mu = (w * fk).sum(dim=0) / wsum
+                var = (w * (fk - mu[None]) ** 2).sum(dim=0) / wsum
+                width = torch.sqrt(torch.clamp(var, min=0.0))
+            else:
+                x = (fk - peak_f[None]) ** 2
+                wn = w / torch.clamp(height, min=1e-30)[None]
+                y = 1.0 / torch.clamp(wn, min=1e-30)
+                wt = torch.where(in_win, wn * wn, 0.0)
+                sw, sx, sy = wt.sum(dim=0), (wt * x).sum(dim=0), (wt * y).sum(dim=0)
+                sxx, sxy = (wt * x * x).sum(dim=0), (wt * x * y).sum(dim=0)
+                det = sw * sxx - sx * sx
+                slope = torch.where(det.abs() > 1e-30, (sw * sxy - sx * sy) / det, 0.0)
+                intercept = torch.where(sw > 1e-30, (sy - slope * sx) / sw, 0.0)
+                gamma_sq = torch.where(slope > 1e-30, torch.clamp(intercept, min=0.0) / slope,
+                                       torch.inf)
+                width = torch.minimum(2.0 * torch.sqrt(gamma_sq), fwhm_cap)
+            found = [peak_f, height, width]
+            if phase is not None:
+                found.append(phase.gather(0, idx[None])[0].float())
+            outs.append(found)
+            cur = torch.where(in_win, 0.0, cur)
+        return tuple(torch.stack(col) for col in zip(*outs))
 
 
 def displacement_data(positions: torch.Tensor, mp_hi: torch.Tensor,

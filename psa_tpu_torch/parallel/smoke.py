@@ -96,7 +96,7 @@ def worker(rank: int, world: int, port: int, workdir: Path, device: str = 'cuda'
                          devices=[dev] * (positions * world), group=group)
         out = run_sweeps(mesh, pos_src, vel_src, inp)
         np.savez(workdir / f'rank{rank}.npz', pos_elements=pos_src.elements,
-                 vel_elements=vel_src.elements, launches=sed_projection.launches, **out)
+                 vel_elements=vel_src.elements, launches=sed_projection.kernel_launches(), **out)
         dist.barrier()
     finally:
         dist.destroy_process_group()

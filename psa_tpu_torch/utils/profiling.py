@@ -9,24 +9,104 @@ arguments:
     holds a tensor of the tree; CPU tensors and NumPy arrays need nothing);
   * :func:`trace` — context manager around ``torch.profiler`` writing a
     chrome trace, ``trace.json``, into a directory (``chrome://tracing`` or
-    Perfetto open it; the command line's ``--profile`` goes through it);
+    Perfetto open it; the command line's ``--profile`` goes through it),
+    and beside it ``counters.json``, the change in :data:`counters` over
+    the block;
   * :func:`throughput_report` — normalizes a run into k-points/sec,
     spectra/sec and effective TFLOP/s (the same FLOP model: arithmetic).
+
+The port's own tracing is :func:`span` and :data:`counters`.  A span is a
+``torch.profiler.record_function`` range, opened only while a profiler
+records; it lies on the profiler's clock beside the device's events, so a
+trace puts each kernel and each idle gap of the device down to a stage of
+the program.  The spans, each named where the work of its layer happens:
+
+  ====================== ==================================================
+  ``psa.project``        each call of ``ops/sed_projection.sed_projection``:
+                         the projection kernels' launches (or plain version)
+  ``psa.spectrum``       FFT, power and gather of a projection or mode stack:
+                         the calculator's reductions, ``_browse_planes``,
+                         ``instantaneous.dsf_reduce``, the gridded
+                         ``_Sweep.reduce``
+  ``psa.spectrum.peaks`` each ``spectral.peak_reduce``, inside ``psa.spectrum``
+  ``psa.phases``         the atom-block loop of the DSF family's mode
+                         accumulation (angles, cos/sin, contraction)
+  ``psa.gridded.spread`` the gridded engine's spread of one ky block
+                         (weights, copies, GEMM, ``index_add``), resident or
+                         streamed
+  ``psa.gridded.budget`` the gridded grid budget (``cudaMemGetInfo``)
+  ``psa.readback.wait``  the host waiting for a result: ``DeviceToHost``'s
+                         drain and the calculator's ``_to_host``
+  ``psa.host.assemble``  a surface's host result arrays: their allocation,
+                         and every readback sink that fills them
+  ``psa.stage``          ``HostToDevice.put``: the pinned slot's wait, the
+                         host fill and the copy's enqueue
+  ``psa.rdf.host``       the cells pair histogram's host passes (occupancy
+                         caps, bucketing)
+  ====================== ==================================================
+
+:data:`counters` is a process-wide :class:`collections.Counter`, raised by
+:func:`count` (an integer add under a lock, on without a profiler) and read
+whole by :func:`snapshot`:
+
+  * ``dtoh_bytes``: bytes read back from the device (``DeviceToHost.push``,
+    the calculator's ``_to_host``);
+  * ``htod_bytes``: bytes sent to the device (``HostToDevice.put``, the
+    calculator's ``_to_device``);
+  * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the
+    projection's kernels (``ops/sed_projection.kernel_launches`` sums them).
 
 ``torch`` is imported inside the functions that need it, so a loader or a
 view that only wants :func:`progress_iter` imports nothing heavy.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import json
 import logging
 import math
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 logger = logging.getLogger(__name__)
+
+#: Process-wide counts of what the program moved and launched (module docstring).
+counters: collections.Counter = collections.Counter()
+_counters_lock = threading.Lock()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records in
+    this thread, else one shared no-op context (a check of well under a
+    microsecond).  Use as ``with span('psa.project'): ...``; never keep one
+    open across a ``yield``."""
+    import torch
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``; threads that count at once lose nothing."""
+    with _counters_lock:
+        counters[name] += n
+
+
+def snapshot() -> Dict[str, int]:
+    """A copy of :data:`counters` as they stand."""
+    with _counters_lock:
+        return dict(counters)
+
+
+def counted_since(before: Dict[str, int]) -> Dict[str, int]:
+    """What each counter gained since the :func:`snapshot` ``before``."""
+    return {k: v - before.get(k, 0) for k, v in sorted(snapshot().items())
+            if v != before.get(k, 0)}
 
 
 def progress_iter(iterable, total: Optional[int] = None, desc: str = "",
@@ -128,13 +208,15 @@ def timed(name: str, sync_tree: Any = None):
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Write a ``torch.profiler`` chrome trace of the enclosed block to
-    ``<log_dir>/trace.json`` (host activity, and the device's when CUDA is
-    present)."""
+    ``<log_dir>/trace.json`` (host activity with the program's spans, and
+    the device's when CUDA is present), and what each of :data:`counters`
+    gained over the block to ``<log_dir>/counters.json``."""
     import torch
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     profiler = torch.profiler.profile(activities=activities)
+    before = snapshot()
     profiler.start()
     try:
         yield
@@ -143,7 +225,8 @@ def trace(log_dir: str):
         log_dir = Path(log_dir)
         log_dir.mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(log_dir / 'trace.json'))
-        logger.info("Profiler trace written to %s", log_dir)
+        (log_dir / 'counters.json').write_text(json.dumps(counted_since(before), indent=1))
+        logger.info("Profiler trace and counters written to %s", log_dir)
 
 
 def throughput_report(n_k: int, seconds: float, n_atoms: int, n_t: int,

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from . import debug
+from .profiling import count, span
 
 _pool: Optional[ThreadPoolExecutor] = None
 
@@ -79,7 +80,9 @@ class HostToDevice:
     pinned buffers, the copy runs ``non_blocking`` on a side stream, and
     events order it after the kernels that read the same slot two blocks
     earlier; the device tensor stays valid until the next-but-one ``put``.
-    ``bytes_moved`` counts the bytes put.
+    ``bytes_moved`` counts the bytes put; on CUDA they also raise the
+    ``htod_bytes`` counter (:mod:`~psa_tpu_torch.utils.profiling`), and each
+    put is a ``psa.stage`` span.
     """
 
     def __init__(self, device: torch.device, max_elems: int):
@@ -101,25 +104,27 @@ class HostToDevice:
         if numel > self.max_elems:
             raise ValueError(f"block of {numel} floats exceeds the staging size {self.max_elems}")
         self.bytes_moved += 4 * numel
-        if self.device.type != 'cuda':
-            host = np.empty(shape, dtype=np.float32)
-            fill(host)
-            return torch.from_numpy(host)
-        slot, current = self._n % 2, torch.cuda.current_stream(self.device)
-        # everything enqueued so far, the kernels on the previous block
-        # included, comes before the copy that reuses that block's slot
-        self._used[(self._n + 1) % 2].record(current)
-        self._copied[slot].synchronize()          # the pinned slot's last copy has left it
-        host = self._host[slot][:numel].view(shape)
-        fill(host.numpy())
-        dev = self._dev[slot][:numel].view(shape)
-        with torch.cuda.stream(self._stream):
-            self._stream.wait_event(self._used[slot])
-            dev.copy_(host, non_blocking=True)
-            self._copied[slot].record(self._stream)
-        current.wait_event(self._copied[slot])
-        self._n += 1
-        return dev
+        with span('psa.stage'):
+            if self.device.type != 'cuda':
+                host = np.empty(shape, dtype=np.float32)
+                fill(host)
+                return torch.from_numpy(host)
+            count('htod_bytes', 4 * numel)
+            slot, current = self._n % 2, torch.cuda.current_stream(self.device)
+            # everything enqueued so far, the kernels on the previous block
+            # included, comes before the copy that reuses that block's slot
+            self._used[(self._n + 1) % 2].record(current)
+            self._copied[slot].synchronize()          # the pinned slot's last copy has left it
+            host = self._host[slot][:numel].view(shape)
+            fill(host.numpy())
+            dev = self._dev[slot][:numel].view(shape)
+            with torch.cuda.stream(self._stream):
+                self._stream.wait_event(self._used[slot])
+                dev.copy_(host, non_blocking=True)
+                self._copied[slot].record(self._stream)
+            current.wait_event(self._copied[slot])
+            self._n += 1
+            return dev
 
 
 class DeviceToHost:
@@ -131,6 +136,9 @@ class DeviceToHost:
     i while the device works on chunk i+1.  ``finish()`` drains the last.
     A sink must copy what it keeps: the arrays are reused after it returns.
     On the CPU, ``push`` calls ``sink`` at once with the tensors' arrays.
+    On CUDA the bytes pushed raise the ``dtoh_bytes`` counter
+    (:mod:`~psa_tpu_torch.utils.profiling`); the wait for a copy is a
+    ``psa.readback.wait`` span, each sink a ``psa.host.assemble`` span.
     """
 
     def __init__(self, device: torch.device):
@@ -145,6 +153,7 @@ class DeviceToHost:
         if self.device.type != 'cuda':
             self._hand_over([t.numpy() for t in tensors], sink, where)
             return
+        count('dtoh_bytes', sum(t.nbytes for t in tensors))
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
         hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
@@ -167,12 +176,14 @@ class DeviceToHost:
         names the sweep that pushed them), checked first."""
         if where is not None:
             debug.check_arrays(where, arrays)
-        sink(arrays)
+        with span('psa.host.assemble'):
+            sink(arrays)
 
     @classmethod
     def _drain(cls, entry) -> None:
         if entry is None:
             return
         done, hosts, _sources, sink, where = entry    # the sources stay alive until copied
-        done.synchronize()
+        with span('psa.readback.wait'):
+            done.synchronize()
         cls._hand_over([h.numpy() for h in hosts], sink, where)

@@ -293,6 +293,6 @@ def test_preload_and_lru(small_trajectory):
 
 def test_cpu_calculate_counts_no_launch(small_trajectory):
     _, port = pair(small_trajectory)
-    before = tproj.launches
+    before = tproj.kernel_launches()
     port.calculate(*port.get_k_path('x', 1.0, 4))
-    assert tproj.launches == before == 0
+    assert tproj.kernel_launches() == before == 0

@@ -159,6 +159,6 @@ def test_shard_cache_keys_the_tier(crystal, kv, tmp_path):
 def test_cpu_tensor_takes_the_plain_version(tier):
     """A CPU tensor runs the tier's plain version and counts no launch."""
     x = torch.zeros((2, 4, 3))
-    before = tproj.launches
+    before = tproj.kernel_launches()
     tproj.sed_projection(x, x[0], x[0], x[0, :3], precision=tier)
-    assert tproj.launches == before
+    assert tproj.kernel_launches() == before

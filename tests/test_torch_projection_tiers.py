@@ -193,12 +193,13 @@ def test_table_stages_take_balanced_or_fast_only(stage, precision):
 
 def test_cpu_stages_count_no_launch():
     data, hi, lo, kv = problem(2, 40, 5)
-    before = (tproj.launches, tproj.table_launches, tproj.product_launches)
+    names = ('launch.parity', 'launch.table', 'launch.product')
+    before = tuple(tproj.counters[n] for n in names)
     for precision in ('balanced', 'fast'):
         table = tproj.tier_table(hi, lo, kv, precision)
         tproj.tier_product(data, table, 5, precision, tuple(torch.zeros((2, 3, 5)) for _ in range(2)))
         tproj.sed_projection(data, hi, lo, kv, precision=precision)
-    assert (tproj.launches, tproj.table_launches, tproj.product_launches) == before
+    assert tuple(tproj.counters[n] for n in names) == before
     assert tproj.kernel_launches() == sum(before)
 
 

@@ -277,11 +277,17 @@ def test_auto_chooses_each_way(n_a, r_max, want):
 
 
 def test_cells_records_its_host_time():
+    """The cells path's host blocks are ``psa.rdf.host`` spans under a
+    profiler; the brute sweep has none."""
     _, port = pair(_traj(positions(16, CUBE, 2, 300), CUBE))
-    port.calculate_rdf(r_max=2.0, n_bins=10, method='cells')
-    assert port._last_rdf_host_seconds > 0
-    port.calculate_rdf(r_max=2.0, n_bins=10, method='brute')
-    assert port._last_rdf_host_seconds == 0
+
+    def host_spans(method):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            port.calculate_rdf(r_max=2.0, n_bins=10, method=method)
+        return [e for e in prof.events() if e.name == 'psa.rdf.host']
+    cells = host_spans('cells')
+    assert len(cells) >= 2 and sum(e.cpu_time_total for e in cells) > 0
+    assert host_spans('brute') == []
 
 
 @pytest.mark.parametrize("kwargs,error,match", [

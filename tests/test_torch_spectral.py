@@ -203,9 +203,9 @@ def test_wrapper_rejects_bad_inputs(case):
 
 def test_cpu_path_never_counts_a_launch():
     data, hi, lo, kv, _ = make_problem(4, 20, 6)
-    before = tproj.launches
+    before = tproj.kernel_launches()
     tspec.sed_spectrum(t(data), t(hi), t(lo), t(kv))
-    assert tproj.launches == before == 0
+    assert tproj.kernel_launches() == before == 0
 
 
 def test_build_module_imports_without_nvcc():

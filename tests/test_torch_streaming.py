@@ -161,9 +161,9 @@ def test_calculate_streamed(crystal, kv, case):
     kw = {'incoherent': dict(summation_mode='incoherent', basis_atom_types=[1, 2]),
           'index_groups': dict(basis_atom_indices=[[0, 3, 5, 9, 2], [11, 12, 13]])}.get(case, {})
     ref, port, resident = trio(crystal, **calc_kw)
-    before = tproj.launches
+    before = tproj.kernel_launches()
     got = port.calculate(np.zeros(len(kv)), kv, k_chunk_size=7, **kw)
-    assert tproj.launches == before           # the CPU runs the plain version
+    assert tproj.kernel_launches() == before           # the CPU runs the plain version
     assert port.streamed_bytes > 0 and resident.calculate(
         np.zeros(len(kv)), kv, k_chunk_size=7, **kw) is not None and resident.streamed_bytes == 0
     want = ref.calculate(np.zeros(len(kv)), kv, k_chunk_size=7, **kw)
