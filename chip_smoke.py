@@ -87,7 +87,15 @@ any result.  About 9 minutes on an H100 machine.
 
     python3 chip_smoke.py --phase 17
 
-runs phase 17 alone (with the build and the working data it needs).
+runs phase 17 alone (with the build and the working data it needs), and
+
+    python3 chip_smoke.py --phase 18
+
+phase 18 alone: ``calculate``'s pinned host result at the click's shape
+(10^5 atoms x 10^4 steps, a 250-k path: one chunk, read back straight into
+it; then three chunks), each bit for bit against the staging path that
+``PINNED_RESULT_BYTES = 0`` restores, the readback counters, the two paths'
+walls in turns, and the host allocations behind the cap.
 """
 import contextlib
 import json
@@ -165,6 +173,11 @@ MESH_DEPTH = 2_000                    # frames of phase 16c (CUT from N_T)
 TOL_MESH_PLANES = 1e-5                # a mesh sweep's planes vs the one-device sweep's, of max
 RANK_ATOMS, RANK_FRAMES = 10_000, 2_000   # phase 16d's two-process trajectory
 RANK_SUPERCHUNK, RANK_LAGS = 1_000, 64
+KPATH_K, KPATH_COVERAGE = 250, 4.0    # phase 18: the click's k-path along x (the kpath cell's)
+KPATH_CHUNK = 100                     # k_chunk_size that cuts it into three chunks
+KPATH_ROUNDS = 8                      # rounds of (pinned, staging, staging, pinned) walls
+HOST_SIZES = (60_000_000, 256_000_000, 1_000_000_000)   # bytes of the host allocations timed
+HOST_TRIALS = 3
 
 
 def log(phase, msg):
@@ -3454,6 +3467,157 @@ def bench_phase(dev, proj, smi):
             entries + example_entries + graft_entries)
 
 
+def host_allocations(dev, n_bytes):
+    """Median ms over HOST_TRIALS, at ``n_bytes``, of a fresh pinned block
+    (``cudaHostAlloc``: blocks are kept until the cache has none free and
+    makes new ones), a block the cache hands back, a fresh ``np.zeros`` filled from a
+    warm array (its pages fault on first touch), the same fill into a reused
+    array, and the DtoH copy into a warm pinned block."""
+    src = np.ones(n_bytes, np.uint8)
+    kept, fresh, cached, faulted, reused = [], [], [], [], []
+    while len(fresh) < HOST_TRIALS:     # past the blocks the cache has free
+        n_alloc = torch.cuda.host_memory_stats()['num_host_alloc']
+        t0 = time.perf_counter()
+        kept.append(torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True))
+        if torch.cuda.host_memory_stats()['num_host_alloc'] > n_alloc:
+            fresh.append(time.perf_counter() - t0)
+    del kept[:]
+    for _ in range(HOST_TRIALS):
+        t0 = time.perf_counter()
+        block = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+        cached.append(time.perf_counter() - t0)
+        del block
+    for _ in range(HOST_TRIALS):
+        t0 = time.perf_counter()
+        arr = np.zeros(n_bytes, np.uint8)
+        arr[...] = src
+        faulted.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        arr[...] = src
+        reused.append(time.perf_counter() - t0)
+        del arr
+    on_dev = torch.ones(n_bytes, dtype=torch.uint8, device=dev)
+    block = torch.empty(n_bytes, dtype=torch.uint8, pin_memory=True)
+    dtoh = cuda_ms(lambda: block.copy_(on_dev, non_blocking=True), HOST_TRIALS)
+    ms = lambda xs: float(np.median(xs)) * 1e3   # noqa: E731
+    return {"bytes": n_bytes, "pinned_fresh_ms": ms(fresh), "pinned_cached_ms": ms(cached),
+            "zeros_fill_ms": ms(faulted), "reused_fill_ms": ms(reused), "dtoh_pinned_ms": dtoh}
+
+
+def pinned_result(dev, calc):
+    """Phase 18: ``calculate``'s pinned host result at the click's shape."""
+    from psa_tpu_torch.core import calculator
+    from psa_tpu_torch.utils import profiling
+    mags, k = calc.get_k_path('x', KPATH_COVERAGE, KPATH_K, SI_A0)
+
+    def click(pinned, **kw):
+        cap = calculator.PINNED_RESULT_BYTES
+        calculator.PINNED_RESULT_BYTES = cap if pinned else 0
+        try:
+            before, t0 = profiling.snapshot(), time.perf_counter()
+            phi = calc.calculate(mags, k, **kw).sed
+            return phi, time.perf_counter() - t0, profiling.counted_since(before)
+        finally:
+            calculator.PINNED_RESULT_BYTES = cap
+
+    for chunk in (None, KPATH_CHUNK):
+        kw = {} if chunk is None else {'k_chunk_size': chunk}
+        (new, _, moved), (old, _, moved_old) = click(True, **kw), click(False, **kw)
+        direct = moved.get('readback.direct_bytes', 0)
+        check(torch.from_numpy(new).is_pinned() and not torch.from_numpy(old).is_pinned(),
+              "the pinned path's result is not pinned, or the staging path's is")
+        check(np.array_equal(new, old), f"pinned and staging Φ differ ({kw})")
+        check(direct == (new.nbytes if chunk is None else 0)
+              and moved_old.get('readback.direct_bytes', 0) == 0,
+              f"readback.direct_bytes {direct} of {new.nbytes} bytes ({kw})")
+        log('pinned', f"{N_ATOMS} atoms x {N_T} steps x {KPATH_K} k, "
+                      f"{'one chunk' if chunk is None else f'chunks of {chunk}'}: Φ {new.shape} "
+                      f"pinned, bit for bit the staging path's; readback.direct_bytes {direct}, "
+                      f"dtoh_bytes {moved.get('dtoh_bytes', 0)}")
+        del new, old
+
+    walls = {True: [], False: []}
+    for _ in range(KPATH_ROUNDS):
+        for pinned in (True, False, False, True):
+            walls[pinned].append(click(pinned)[1])
+    log('pinned', f"one-chunk click walls over {KPATH_ROUNDS} rounds in turns: pinned median "
+                  f"{np.median(walls[True]) * 1e3:.3f} ms (min {min(walls[True]) * 1e3:.3f}, max "
+                  f"{max(walls[True]) * 1e3:.3f}), staging median {np.median(walls[False]) * 1e3:.3f} "
+                  f"ms (min {min(walls[False]) * 1e3:.3f}, max {max(walls[False]) * 1e3:.3f})")
+
+    # a chunk of the three-chunk path into its (strided) slice of a warm pinned Φ:
+    # a staging block, then the host's copy, against torch's strided DtoH copy.
+    # Each is timed whole on an idle card, and by when it hands the host back
+    # after ~0.1 s of queued work (the pipeline enqueues the next chunk then).
+    out = torch.empty((N_T, KPATH_CHUNK, 3), dtype=torch.complex64, device=dev)
+    full = torch.empty((N_T, KPATH_K, 3), dtype=torch.complex64, pin_memory=True)
+    full_np, busy = full.numpy(), torch.randn((8192, 8192), device=dev)
+
+    def staged():
+        block = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        block.copy_(out, non_blocking=True)
+        return lambda: (torch.cuda.synchronize(),
+                        full_np.__setitem__(np.s_[:, :KPATH_CHUNK], block.numpy()))
+
+    def strided():
+        full[:, :KPATH_CHUNK].copy_(out, non_blocking=True)
+        return torch.cuda.synchronize
+
+    whole, handed = {staged: [], strided: []}, {staged: [], strided: []}
+    right = {staged: True, strided: True}
+    for r in range(KPATH_ROUNDS):
+        for fn in (staged, strided, strided, staged):
+            for _ in range(4):
+                busy @ busy
+            out.fill_(r + 1)
+            t0 = time.perf_counter()
+            finish = fn()
+            handed[fn].append(time.perf_counter() - t0)
+            finish()
+            right[fn] &= bool((full_np[:, :KPATH_CHUNK] == r + 1).all())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()()
+            whole[fn].append(time.perf_counter() - t0)
+    check(right[staged], "a chunk's slice of Φ differs after the staging copy")
+    ms = lambda xs: f"{np.median(xs) * 1e3:.3f} ms"   # noqa: E731
+    log('pinned', f"a ({N_T}, {KPATH_CHUNK}, 3) complex64 chunk into its slice of a warm pinned "
+                  f"Φ, medians: staging block + host copy {ms(whole[staged])} whole, host handed "
+                  f"back after {ms(handed[staged])} behind queued work, values right "
+                  f"{right[staged]}; torch's strided copy_ {ms(whole[strided])} whole, "
+                  f"{ms(handed[strided])} behind queued work, values right {right[strided]}")
+    del out, full, full_np, busy
+
+    stats = torch.cuda.host_memory_stats()
+    log('pinned', "pinned cache after the clicks " + json.dumps(
+        {key: stats.get(key) for key in ('allocations.current', 'allocated_bytes.current',
+                                          'num_host_alloc', 'host_alloc_time.total')}))
+    for n_bytes in HOST_SIZES:
+        log('pinned', "host allocation " + json.dumps(host_allocations(dev, n_bytes)))
+    getattr(torch._C, '_host_emptyCache', lambda: None)()   # the timings' blocks, where torch can
+
+
+def phase18_alone():
+    """``python3 chip_smoke.py --phase 18``: the build, the working velocities
+    preloaded into the working calculator, then phase 18."""
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops.spectral import split_f64
+    t_start = time.perf_counter()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    _build.build()
+    _build.load()
+    dev = torch.device('cuda')
+    velocities = torch.randn((N_T, N_ATOMS, 3), generator=torch.Generator(dev).manual_seed(SEED),
+                             device=dev)
+    calc, _, _ = working_calculator(dev)
+    hi, lo = (torch.from_numpy(x).to(dev) for x in split_f64(calc.mean_positions64))
+    calc.preload_device_group_data(velocities, hi, lo)
+    pinned_result(dev, calc)
+    log('done', f"phase 18 took {time.perf_counter() - t_start:.1f} s")
+
+
 def phase17_alone():
     """``python3 chip_smoke.py --phase 17``: phase 17 by itself, as the
     whole script runs it (the build, the working velocities and the oracle
@@ -3637,6 +3801,11 @@ def main():
                 f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     resident_sed = sed.sed
     del sed, got
+
+    # -- 18. calculate's pinned host result at the click's shape -------------
+    t0 = time.perf_counter()
+    pinned_result(dev, calc)
+    log('pinned', f"pinned-result phase took {time.perf_counter() - t0:.2f} s")
 
     # -- 5b/5c. on-device grid reductions ----------------------------------
     t0 = time.perf_counter()
@@ -3828,8 +3997,10 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == ['--phase', '17']:
         phase17_alone()
+    elif sys.argv[1:] == ['--phase', '18']:
+        phase18_alone()
     elif sys.argv[1:]:
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 17]")
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 17 | --phase 18]")
     else:
         main()
     sys.exit(0)

@@ -65,6 +65,16 @@ logger = logging.getLogger(__name__)
 _DEFAULT_MAX_DEVICE_BYTES = int(8e9)
 #: Largest atom block, in bytes, of a group streamed from the host (two are staged).
 STREAM_BLOCK_BYTES = 1 << 28
+#: Largest host result of ``calculate``, in bytes, held in pinned pages on CUDA.
+#: PyTorch's pinned cache keeps a dropped result's block (rounded up to a power
+#: of two) mapped and resident for the next call, so the call neither faults a
+#: fresh array's pages in nor copies out of a staging block.  But the cache
+#: never gives its page-locked blocks back to the OS, so the cap bounds what one
+#: result size leaves locked.  It holds one chunk of the default 500 k up to
+#: ~22,000 frames; a larger result is several chunks, whose assembly the
+#: readback pipeline already overlaps with the next chunk's kernel, all but the
+#: last's.  (H100 host: a fresh 256 MB pinned block 54 ms, np.zeros + fill 109.)
+PINNED_RESULT_BYTES = 1 << 28
 #: Instantaneous-phase engines; 'auto' resolves to 'exact' in every family.
 PHASE_MODES = ('auto', 'incremental', 'exact', 'factored')
 #: Frames per chunk of the fractional mean, in position elements.
@@ -711,7 +721,11 @@ class SEDCalculator:
         bounds device memory; the last chunk is ragged (the kernel masks it).
         Chunk i+1's kernel is enqueued before chunk i is read back (into
         pinned memory, on a side stream), so the host assembles chunk i while
-        the device computes chunk i+1.  A group over ``max_device_bytes``
+        the device computes chunk i+1.  On CUDA a result of at most
+        ``PINNED_RESULT_BYTES`` is itself pinned, drawn from PyTorch's pinned
+        cache (a dropped result's pages come back warm), and a chunk that
+        spans the k axis is read back straight into it; each call still
+        returns an array of its own.  A group over ``max_device_bytes``
         streams from the host in atom blocks (:meth:`_stream_group`).
 
         ``cache_dir`` checkpoints each finished chunk under a content-derived
@@ -735,11 +749,15 @@ class SEDCalculator:
         groups, is_complex_output = self._spectrum_groups(atom_groups, summation_mode)
 
         num_k = len(k_vectors_3d)
+        shape = (len(freqs), num_k, 3) if is_complex_output else (len(freqs), num_k)
+        dtype = torch.complex64 if is_complex_output else torch.float32
         with span('psa.host.assemble'):
-            if is_complex_output:
-                full_sed = np.zeros((len(freqs), num_k, 3), dtype=np.complex64)
-            else:
-                full_sed = np.zeros((len(freqs), num_k), dtype=np.float32)
+            # pinned only where a chunk or the cache's resume writes every element
+            pinned = (bool(groups) and self.device.type == 'cuda'
+                      and 0 < dtype.itemsize * int(np.prod(shape)) <= PINNED_RESULT_BYTES)
+            full_t = torch.empty(shape, dtype=dtype, pin_memory=True) if pinned else None
+            full_sed = (full_t.numpy() if pinned
+                        else np.zeros(shape, dtype=np.complex64 if is_complex_output else np.float32))
         if num_k == 0:
             logger.warning("k_vectors_3d is empty. Returning SED object with empty SED data.")
 
@@ -766,8 +784,9 @@ class SEDCalculator:
                        k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
                        dt_ps=self.dt_ps)
 
-        def sink(arrays, ci, s, e):
-            full_sed[:, s:e] = arrays[0]
+        def sink(arrays, ci, s, e, landed):
+            if not landed:
+                full_sed[:, s:e] = arrays[0]
             if cache is not None:
                 cache.store(ci, full_sed[:, s:e])
 
@@ -787,7 +806,11 @@ class SEDCalculator:
                     with span('psa.spectrum'):
                         inten = spectral._power(spectral.finalize_spectrum(re, im))
                         out = inten if out is None else out + inten
-            readback.push([out], functools.partial(sink, ci=ci, s=s, e=e))
+            # a chunk that spans the k axis is read back straight into the pinned Φ
+            dst = None if full_t is None else full_t[:, s:e]
+            into = [dst] if dst is not None and dst.is_contiguous() else None
+            readback.push([out], functools.partial(sink, ci=ci, s=s, e=e, landed=into is not None),
+                          into=into)
         readback.finish()
 
         return SED(full_sed, freqs, k_points_mags, k_vectors_3d,

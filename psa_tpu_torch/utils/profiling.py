@@ -51,6 +51,9 @@ whole by :func:`snapshot`:
 
   * ``dtoh_bytes``: bytes read back from the device (``DeviceToHost.push``,
     the calculator's ``_to_host``);
+  * ``readback.direct_bytes``: of those, the bytes read back straight into
+    a caller's pinned result (``DeviceToHost.push`` with ``into``: a
+    ``calculate`` chunk that spans the k axis), not into a staging block;
   * ``htod_bytes``: bytes sent to the device (``HostToDevice.put``, the
     calculator's ``_to_device``);
   * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the

@@ -4,9 +4,9 @@
 than ``max_device_bytes``, frame blocks of a dump) to the device through two
 pinned staging buffers: block b+1 is filled on the host and copied on a side
 stream while the kernels of block b run.  :class:`DeviceToHost` reads
-per-chunk results back the other way: chunk i's copy into pinned memory runs
-on a side stream, and the host assembles chunk i while the device computes
-chunk i+1.
+per-chunk results back the other way: chunk i's copy into pinned memory (staging
+blocks, or the caller's own pinned result) runs on a side stream, and the
+host assembles chunk i while the device computes chunk i+1.
 
 Both are the identity on the CPU (a CPU-only torch cannot pin memory): a
 block is handed over as it is, a result is read where it lies.
@@ -130,15 +130,22 @@ class HostToDevice:
 class DeviceToHost:
     """One-deep device→host pipeline of per-chunk results.
 
-    ``push(tensors, sink)`` enqueues the copy of ``tensors`` (results of the
-    current stream) into pinned host memory on a side stream, then hands the
-    previous push's host arrays to its ``sink``, so the host assembles chunk
-    i while the device works on chunk i+1.  ``finish()`` drains the last.
-    A sink must copy what it keeps: the arrays are reused after it returns.
-    On the CPU, ``push`` calls ``sink`` at once with the tensors' arrays.
-    On CUDA the bytes pushed raise the ``dtoh_bytes`` counter
-    (:mod:`~psa_tpu_torch.utils.profiling`); the wait for a copy is a
-    ``psa.readback.wait`` span, each sink a ``psa.host.assemble`` span.
+    ``push(tensors, sink, into=None)`` enqueues the copy of ``tensors``
+    (results of the current stream) into pinned host memory on a side
+    stream, then hands the previous push's host arrays to its ``sink``, so
+    the host assembles chunk i while the device works on chunk i+1.
+    ``finish()`` drains the last.  Without ``into`` the copy lands in fresh
+    staging blocks of PyTorch's pinned cache, which are reused once the sink
+    returns: a sink must copy what it keeps of them.  ``into`` names the
+    caller's own host tensors (contiguous, pinned on CUDA, each of its
+    tensor's shape and dtype) for the copy to land in; the sink then gets
+    their arrays, which stay the caller's.  On the CPU, ``push`` calls
+    ``sink`` at once with the tensors' arrays, or with ``into``'s once the
+    tensors are copied there.  On CUDA the bytes pushed raise the
+    ``dtoh_bytes`` counter, those that land in ``into`` also
+    ``readback.direct_bytes`` (:mod:`~psa_tpu_torch.utils.profiling`); the
+    wait for a copy is a ``psa.readback.wait`` span, each sink a
+    ``psa.host.assemble`` span.
     """
 
     def __init__(self, device: torch.device):
@@ -148,15 +155,25 @@ class DeviceToHost:
             self._stream = torch.cuda.Stream(device=self.device)
 
     def push(self, tensors: Sequence[torch.Tensor],
-             sink: Callable[[List[np.ndarray]], None]) -> None:
+             sink: Callable[[List[np.ndarray]], None],
+             into: Optional[Sequence[torch.Tensor]] = None) -> None:
         where = debug.caller() if debug.active else None
         if self.device.type != 'cuda':
+            if into is not None:
+                for h, t in zip(into, tensors):
+                    h.copy_(t)
+                tensors = into
             self._hand_over([t.numpy() for t in tensors], sink, where)
             return
-        count('dtoh_bytes', sum(t.nbytes for t in tensors))
+        n_bytes = sum(t.nbytes for t in tensors)
+        count('dtoh_bytes', n_bytes)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(self.device))
-        hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        if into is None:
+            hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        else:
+            count('readback.direct_bytes', n_bytes)
+            hosts = list(into)
         done = torch.cuda.Event()
         with torch.cuda.stream(self._stream):
             self._stream.wait_event(ready)

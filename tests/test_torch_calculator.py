@@ -296,3 +296,34 @@ def test_cpu_calculate_counts_no_launch(small_trajectory):
     before = tproj.kernel_launches()
     port.calculate(*port.get_k_path('x', 1.0, 4))
     assert tproj.kernel_launches() == before == 0
+
+
+@pytest.mark.parametrize('cached', [False, True], ids=['no_cache', 'cache_dir'])
+@pytest.mark.parametrize('mode', ['coherent', 'incoherent'])
+def test_ragged_chunks_equal_one_chunk_bit_for_bit(small_trajectory, tmp_path, mode, cached):
+    """11 k in chunks of 4, each read back into its slice of Φ (stored to and
+    resumed from the shard cache under ``cache_dir``), equal one chunk of 11
+    bit for bit."""
+    _, port = pair(small_trajectory)
+    k_mags, k_vecs = port.get_k_path('x', bz_coverage=1.0, n_k=11)
+    kw = dict(summation_mode=mode,
+              basis_atom_types=[1, 2] if mode == 'incoherent' else None)
+    one = port.calculate(k_mags, k_vecs, k_chunk_size=1000, **kw)
+    cache_dir = tmp_path / 'shards' if cached else None
+    runs = [port.calculate(k_mags, k_vecs, k_chunk_size=4, cache_dir=cache_dir, **kw)
+            for _ in range(2 if cached else 1)]           # the second resumes every chunk
+    assert one.sed.dtype == (np.complex64 if mode == 'coherent' else np.float32)
+    for got in runs:
+        assert got.sed.dtype == one.sed.dtype and np.array_equal(got.sed, one.sed)
+
+
+def test_each_call_returns_an_array_of_its_own(small_trajectory):
+    """Two calls in a row share no memory: writing into one leaves the other."""
+    _, port = pair(small_trajectory)
+    k_mags, k_vecs = port.get_k_path('x', bz_coverage=1.0, n_k=5)
+    first = port.calculate(k_mags, k_vecs).sed
+    second = port.calculate(k_mags, k_vecs).sed
+    assert not np.shares_memory(first, second)
+    kept = second.copy()
+    first[...] = 0
+    assert np.array_equal(second, kept) and np.any(second != 0)

@@ -165,6 +165,23 @@ def count_checks(monkeypatch):
     return calls
 
 
+def test_push_into_a_destination_lands_there():
+    """``into`` receives the values and the sink gets its arrays; the CPU
+    moves nothing over a bus, so no counter rises (on CUDA the copy
+    raises ``dtoh_bytes`` and ``readback.direct_bytes``)."""
+    readback, seen = DeviceToHost(torch.device('cpu')), []
+    src = [torch.arange(6, dtype=torch.float32).reshape(2, 3),
+           torch.tensor([1 + 2j, 3 - 4j], dtype=torch.complex64)]
+    dst = [torch.zeros_like(t) for t in src]
+    before = profiling.snapshot()
+    readback.push(src, seen.append, into=dst)
+    readback.finish()
+    assert all(torch.equal(d, s) for d, s in zip(dst, src))
+    assert len(seen) == 1 and all(np.shares_memory(a, d.numpy())
+                                  for a, d in zip(seen[0], dst))
+    assert profiling.counted_since(before) == {}
+
+
 class TestDebug:
     def test_modes_switch_on_and_off(self):
         assert not debug.active
