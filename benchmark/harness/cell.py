@@ -10,7 +10,13 @@ files that belong to each are found by name:
   its ``kset`` the k-set of each call (:mod:`benchmark.harness.ksets`);
 - ``checks/<cell>.json``: how many calls and k-columns are checked, the
   control, the scale of the numbers compared and the limit of each;
-- ``metrics/<metric>.py``: one per-layer reader, ``read(trace, record)``.
+- ``metrics/<metric>.py``: one per-layer reader, ``read(trace, record)``;
+  ``record`` holds the window's ``n_calls``, each call's ``work`` and
+  ``counters``, what each of the program's counters gained over the window.
+
+A cell may ask for 1 or 4 cards; its system module places the work on them.
+The peak memory is that of the fullest card, the busy time the mean of the
+cards'.
 
 The loop is closed, with one caller: each call starts when the last one
 has returned its host-resident answer, for ``seconds`` and then until the
@@ -93,6 +99,24 @@ class Reservoir:
                 self.items[j] = item
 
 
+def program_counters():
+    """The program's counters (``snapshot()``, ``counted_since(before)``, of
+    ``psa_tpu_torch.utils.profiling``), or None for a program that keeps none."""
+    try:
+        profiling = importlib.import_module('psa_tpu_torch.utils.profiling')
+    except ImportError:
+        return None
+    return profiling if hasattr(profiling, 'counted_since') else None
+
+
+def cards(dev, chips: int) -> list:
+    """The CUDA devices a run on ``chips`` cards uses: ``dev`` alone, or cards 0 … chips − 1."""
+    import torch
+    if chips == 1:
+        return [dev]
+    return [torch.device('cuda', i) for i in range(chips)]
+
+
 def _sync(device) -> None:
     import torch
     if device.type == 'cuda':
@@ -137,9 +161,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = 'c
     _sync(dev)
     setup_s = time.perf_counter() - t_start
     cuda = dev.type == 'cuda'
-    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+    used = cards(dev, cell['chips']) if cuda else []
+    setup_peak = max((torch.cuda.max_memory_allocated(d) for d in used), default=0)
+    for d in used:
+        torch.cuda.reset_peak_memory_stats(d)
 
     sample = Reservoir(check['calls'], seed)
     walls, kpoints, failed, work = [], 0, 0, []
@@ -151,6 +176,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = 'c
         span = record_function
     else:
         span = lambda _name: contextlib.nullcontext()  # noqa: E731
+    counters = program_counters()
+    before = counters.snapshot() if counters else None
     with prof if prof is not None else contextlib.nullcontext():
         with span('bench.window'):
             t0 = time.perf_counter()
@@ -175,9 +202,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = 'c
                     sample.offer(i, (i, k, out))
                     work.append(surface.work(inputs, k, traffic))
                 i += 1
+    counted = counters.counted_since(before) if counters else {}
     window_s = t_end - t0
     attempted = len(walls)
-    window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    window_peak = max((torch.cuda.max_memory_allocated(d) for d in used), default=0)
     memory_peak = max(setup_peak, window_peak)
 
     del calc
@@ -212,14 +240,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = 'c
     else:
         from benchmark.harness.trace import from_profiler
         tr = from_profiler(prof)
-        record = {'n_calls': len(tr.calls), 'work': work}
+        record = {'n_calls': len(tr.calls), 'work': work, 'counters': counted}
         metrics = {}
         for m in cell_metrics(spec, name, 'per_layer'):
             value = module('metrics', m['name']).read(tr, record)
             if value is not None:
                 metrics[m['name']] = {'value': float(value), 'unit': m['unit']}
         result['metrics'] = metrics
-        device_info['busy_s'] = tr.busy_ns() / 1e9
+        busy = (tr.busy_ns() if len(used) <= 1
+                else sum(tr.busy_ns(card=d.index) for d in used) / len(used))
+        device_info['busy_s'] = busy / 1e9
         device_info['window_s'] = tr.window_ns() / 1e9
         result['breakdown'] = {'device_ops': tr.top_device_ops(), 'idle_gaps': tr.idle_gaps()}
     result['device'] = device_info

@@ -57,12 +57,15 @@ class Trace:
 
     ``device``: (kind, name, start, end) of each kernel, copy and memset;
     ``host``: (name, start, end) of each host event; ``window``: (start, end)
-    of the ``bench.window`` span; ``calls``: (start, end) of each call.
+    of the ``bench.window`` span; ``calls``: (start, end) of each call;
+    ``cards``: the CUDA device index of each ``device`` event, in its order
+    (empty for a trace made by hand: one card).
     """
     window: Tuple[float, float]
     device: List[Tuple[str, str, float, float]] = field(default_factory=list)
     host: List[Tuple[str, float, float]] = field(default_factory=list)
     calls: List[Tuple[float, float]] = field(default_factory=list)
+    cards: List[int] = field(default_factory=list)
 
     def window_ns(self) -> float:
         return self.window[1] - self.window[0]
@@ -74,9 +77,12 @@ class Trace:
             if e > s:
                 yield ev, s, e
 
-    def busy_ns(self) -> float:
-        """Length of the union of the device's intervals inside the window."""
-        return sum(e - s for s, e in merged((s, e) for _, s, e in self._clipped(self.device)))
+    def busy_ns(self, card: Optional[int] = None) -> float:
+        """Length of the union of the device's intervals inside the window;
+        with ``card``, of that card's intervals alone."""
+        events = self.device if card is None else [
+            ev for ev, c in zip(self.device, self.cards) if c == card]
+        return sum(e - s for s, e in merged((s, e) for _, s, e in self._clipped(events)))
 
     def _matching(self, kinds, classes, name_has):
         for (kind, name, _, _), s, e in self._clipped(self.device):
@@ -166,7 +172,7 @@ def from_profiler(prof) -> Trace:
     """The :class:`Trace` of a finished ``torch.profiler.profile`` whose
     recording held one ``bench.window`` span."""
     from torch.autograd import DeviceType
-    device, host, calls, window = [], [], [], None
+    device, cards, host, calls, window = [], [], [], [], None
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
         start = _ns(ev, 'start')
@@ -175,6 +181,7 @@ def from_profiler(prof) -> Trace:
             # a span's copy on the device's timeline is no device work
             if name not in (WINDOW_SPAN, CALL_SPAN) and not _annotation(ev):
                 device.append((device_kind(name), name, start, end))
+                cards.append(int(ev.device_index()))
             continue
         host.append((name, start, end))
         if name == WINDOW_SPAN:
@@ -183,4 +190,4 @@ def from_profiler(prof) -> Trace:
             calls.append((start, end))
     if window is None:
         raise RuntimeError(f"the profile holds no {WINDOW_SPAN!r} span")
-    return Trace(window=window, device=device, host=host, calls=sorted(calls))
+    return Trace(window=window, device=device, host=host, calls=sorted(calls), cards=cards)

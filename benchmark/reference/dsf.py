@@ -11,19 +11,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .sed import ieee_matmul, kept_rows, round_tf32
+from .sed import ieee_matmul, kept_rows, on, round_tf32, where
 
 
-def modes(positions: torch.Tensor, velocities: torch.Tensor, k_vectors: np.ndarray,
-          tf32: bool = False, block_elems: int = 1 << 27):
+def modes(positions, velocities, k_vectors: np.ndarray, tf32: bool = False,
+          block_elems: int = 1 << 27, device=None):
     """(re, im), each (n_t, 4, K): the channels [ρ, j_x, j_y, j_z].
 
-    ``positions`` and ``velocities`` are the (n_t, N, 3) float32 tensors the
-    harness made, on the device the reference runs on.  The angle is formed
-    in float64 from them; float64 phasors and sums, or with ``tf32`` phasors
-    and velocities rounded to TF32 and summed in float32.
+    ``positions`` and ``velocities`` are the (n_t, N, 3) float32 arrays the
+    harness made, where the program holds them: host NumPy arrays, CPU
+    tensors or tensors on a card.  The sums run on ``device`` (by default
+    where ``positions`` lie), each block of frames moved there in turn.  The
+    angle is formed in float64 from them; float64 phasors and sums, or with
+    ``tf32`` phasors and velocities rounded to TF32 and summed in float32.
     """
-    dev = positions.device
+    dev = where(positions, device)
     n_t, n_atoms, _ = positions.shape
     kv = torch.as_tensor(np.asarray(k_vectors, np.float32), device=dev).double()
     n_k = kv.shape[0]
@@ -35,9 +37,9 @@ def modes(positions: torch.Tensor, velocities: torch.Tensor, k_vectors: np.ndarr
     with ieee_matmul():
         for t0 in range(0, n_t, tb):
             t1 = min(t0 + tb, n_t)
-            ang = positions[t0:t1].double() @ kv.T                     # (tb, N, K)
+            ang = on(dev, positions[t0:t1]).double() @ kv.T            # (tb, N, K)
             w = torch.ones((t1 - t0, 4, n_atoms), dtype=dtype, device=dev)
-            w[:, 1:] = velocities[t0:t1].transpose(1, 2).to(dtype)
+            w[:, 1:] = on(dev, velocities[t0:t1]).transpose(1, 2).to(dtype)
             w = rnd(w)
             re[t0:t1] = torch.bmm(w, rnd(torch.cos(ang).to(dtype)))
             im[t0:t1] = torch.bmm(w, rnd(torch.sin(ang).to(dtype)))
@@ -45,10 +47,10 @@ def modes(positions: torch.Tensor, velocities: torch.Tensor, k_vectors: np.ndarr
     return re, im
 
 
-def planes(positions: torch.Tensor, velocities: torch.Tensor, k_vectors: np.ndarray,
-           tf32: bool = False):
-    """(S, C_L, C_T), each (n_keep, K) float64 on the host."""
-    re, im = modes(positions, velocities, k_vectors, tf32)
+def planes(positions, velocities, k_vectors: np.ndarray, tf32: bool = False, device=None):
+    """(S, C_L, C_T), each (n_keep, K) float64 on the host, computed on
+    ``device`` (:func:`modes`)."""
+    re, im = modes(positions, velocities, k_vectors, tf32, device=device)
     n_t, n_atoms = positions.shape[0], positions.shape[1]
     rows = torch.as_tensor(kept_rows(n_t), device=re.device)
     spec = (torch.fft.fft(torch.complex(re, im), dim=0) / n_t).index_select(0, rows)

@@ -34,21 +34,36 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def on(device, x) -> torch.Tensor:
+    """``x``, a host NumPy array, a CPU tensor or a tensor on a card, as a
+    tensor on ``device`` (itself, where it is there already)."""
+    return torch.as_tensor(x).to(device)
+
+
+def where(data, device) -> torch.device:
+    """The device to compute on: ``device``, or by default the one ``data`` lies on."""
+    if device is not None:
+        return torch.device(device)
+    return data.device if torch.is_tensor(data) else torch.device('cpu')
+
+
 def kept_rows(n_t: int) -> np.ndarray:
     """Indices of the ω ≥ 0 rows of an n_t-point FFT (numpy's fftfreq order)."""
     return np.flatnonzero(np.fft.fftfreq(n_t) >= 0)
 
 
-def projection(data: torch.Tensor, sites64: np.ndarray, k_vectors: np.ndarray,
-               tf32: bool = False, block_atoms: int = 4096):
+def projection(data, sites64: np.ndarray, k_vectors: np.ndarray, tf32: bool = False,
+               block_atoms: int = 4096, device=None):
     """(re, im), each (n_t, 3, K): Σ_a data[t, a, c]·cos/sin(k·r̄_a).
 
-    ``data`` is the (n_t, A, 3) float32 tensor the program was given, on the
-    device the reference runs on.  Float64 throughout, or with ``tf32`` the
-    angle's cosine and sine and the data rounded to TF32 and summed in
-    float32 (:func:`round_tf32`).
+    ``data`` is the (n_t, A, 3) float32 array the program was given, where
+    the program holds it: a host NumPy array, a CPU tensor or a tensor on a
+    card.  The sums run on ``device`` (by default where ``data`` lies), each
+    atom block of ``data`` moved there in turn.  Float64 throughout, or with
+    ``tf32`` the angle's cosine and sine and the data rounded to TF32 and
+    summed in float32 (:func:`round_tf32`).
     """
-    dev = data.device
+    dev = where(data, device)
     n_t, n_atoms, _ = data.shape
     pos = torch.as_tensor(np.asarray(sites64, np.float64), device=dev)
     kv = torch.as_tensor(np.asarray(k_vectors, np.float32), device=dev).double()
@@ -60,7 +75,7 @@ def projection(data: torch.Tensor, sites64: np.ndarray, k_vectors: np.ndarray,
             a1 = min(a0 + block_atoms, n_atoms)
             ang = pos[a0:a1] @ kv.T                                    # (B, K) float64
             cos, sin = torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
-            blk = data[:, a0:a1, :].to(dtype).permute(0, 2, 1).reshape(n_t * 3, a1 - a0)
+            blk = on(dev, data[:, a0:a1, :]).to(dtype).permute(0, 2, 1).reshape(n_t * 3, a1 - a0)
             if tf32:
                 cos, sin, blk = round_tf32(cos), round_tf32(sin), round_tf32(blk)
             re.addmm_(blk, cos)
@@ -105,20 +120,24 @@ def peaks(inten: torch.Tensor, freqs: np.ndarray, n_peaks: int, exclusion_bins: 
     return tuple(torch.stack(col) for col in zip(*out))
 
 
-def kgrid_peaks(data: torch.Tensor, sites64: np.ndarray, k_vectors: np.ndarray, dt_ps: float,
-                n_peaks: int, exclusion_bins: int, tf32: bool = False, block_k: int = 1024):
-    """Peaks of the coherent SED of every k in ``k_vectors``: host float64
-    arrays (freq, height, width), each (n_peaks, K)."""
+def kgrid_peaks(data, sites64: np.ndarray, k_vectors: np.ndarray, dt_ps: float,
+                n_peaks: int, exclusion_bins: int, tf32: bool = False, block_k: int = 1024,
+                device=None):
+    """Peaks of the coherent SED of every k in ``k_vectors``, computed on
+    ``device`` (:func:`projection`): host float64 arrays (freq, height,
+    width), each (n_peaks, K)."""
     n_t = data.shape[0]
     freqs = np.fft.fftfreq(n_t, d=dt_ps)[kept_rows(n_t)]
     cols = []
     for s in range(0, len(k_vectors), block_k):
-        inten = intensity(spectrum(*projection(data, sites64, k_vectors[s:s + block_k], tf32)))
+        inten = intensity(spectrum(*projection(data, sites64, k_vectors[s:s + block_k], tf32,
+                                               device=device)))
         cols.append([x.cpu().numpy() for x in peaks(inten, freqs, n_peaks, exclusion_bins)])
         del inten
     return tuple(np.concatenate(parts, axis=1) for parts in zip(*cols))
 
 
-def phi(data: torch.Tensor, sites64: np.ndarray, k_vectors: np.ndarray, tf32: bool = False):
-    """The full coherent Φ (n_t, K, 3) of ``k_vectors``, complex on the host."""
-    return spectrum(*projection(data, sites64, k_vectors, tf32)).cpu().numpy()
+def phi(data, sites64: np.ndarray, k_vectors: np.ndarray, tf32: bool = False, device=None):
+    """The full coherent Φ (n_t, K, 3) of ``k_vectors``, computed on
+    ``device`` (:func:`projection`), complex on the host."""
+    return spectrum(*projection(data, sites64, k_vectors, tf32, device=device)).cpu().numpy()

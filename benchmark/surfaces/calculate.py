@@ -22,8 +22,8 @@ def select(out, cols: np.ndarray):
 
 def check(inputs, items, traffic: dict, tf32: bool, scale: str) -> dict:
     ks = np.concatenate([k for k, _ in items])
-    ref = sed.phi(inputs.data, inputs.sites64, ks)
-    prog = (sed.phi(inputs.data, inputs.sites64, ks, tf32=True) if tf32
+    ref = sed.phi(inputs.data, inputs.sites64, ks, device=inputs.device)
+    prog = (sed.phi(inputs.data, inputs.sites64, ks, tf32=True, device=inputs.device) if tf32
             else np.concatenate([out for _, out in items], axis=1))
     return {'phi_err': max(compare.column_error(p, r, k_axis=1, scale=scale)
                            for p, r in compare.per_call(items, prog, ref))}

@@ -6,7 +6,6 @@ reference's, per call, on the check's scale (:mod:`benchmark.harness.compare`).
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from benchmark.harness import compare
 from benchmark.reference import dsf
@@ -22,14 +21,12 @@ def select(out, cols: np.ndarray):
 
 def check(inputs, items, traffic: dict, tf32: bool, scale: str) -> dict:
     ks = np.concatenate([k for k, _ in items])
-    pos = torch.from_numpy(inputs.positions).to(inputs.device)
-    vel = torch.from_numpy(inputs.velocities).to(inputs.device)
-    ref = dsf.planes(pos, vel, ks)
+    pos, vel, dev = inputs.positions, inputs.velocities, inputs.device
+    ref = dsf.planes(pos, vel, ks, device=dev)
     if tf32:
-        prog = dsf.planes(pos, vel, ks, tf32=True)
+        prog = dsf.planes(pos, vel, ks, tf32=True, device=dev)
     else:
         prog = tuple(np.concatenate([out[i] for _, out in items], axis=1) for i in range(3))
-    del pos, vel
     return {'dsf_err': max(compare.column_error(p, r, k_axis=1, scale=scale)
                            for pc, rc in compare.per_call(items, prog, tuple(ref))
                            for p, r in zip(pc, rc))}

@@ -30,10 +30,11 @@ def check(inputs, items, traffic: dict, tf32: bool, scale: str) -> dict:
     kw = traffic['kwargs']
     n_peaks, excl = kw.get('n_peaks', 1), kw.get('exclusion_bins', 4)
     ks = np.concatenate([k for k, _ in items])
-    ref = sed.kgrid_peaks(inputs.data, inputs.sites64, ks, inputs.dt_ps, n_peaks, excl)
+    ref = sed.kgrid_peaks(inputs.data, inputs.sites64, ks, inputs.dt_ps, n_peaks, excl,
+                          device=inputs.device)
     if tf32:
         prog = sed.kgrid_peaks(inputs.data, inputs.sites64, ks, inputs.dt_ps, n_peaks, excl,
-                               tf32=True)
+                               tf32=True, device=inputs.device)
     else:
         prog = tuple(np.concatenate([out[i] for _, out in items], axis=1) for i in range(3))
     df = 1.0 / (inputs.n_t * inputs.dt_ps)

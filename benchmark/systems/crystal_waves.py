@@ -10,7 +10,8 @@ on the configuration's lattice (positions constant, their mean the sites).
 
 The data reach the calculator through ``preload_device_group_data``, with
 the float64 mean positions the calculator caches after its first call: the
-state of a session after that call.
+state of a session after that call.  :func:`halve_atoms` breaks that data
+path for the tests.
 """
 from __future__ import annotations
 
@@ -68,3 +69,18 @@ def make(config: dict, seed: int, device: torch.device) -> SimpleNamespace:
     return SimpleNamespace(n_t=n_t, n_atoms=n_atoms, dt_ps=config['dt_ps'], sites64=sites64,
                            box_lengths=np.diag(box).astype(np.float64), data=data,
                            calculator=calculator, device=device)
+
+
+def halve_atoms(monkeypatch) -> None:
+    """A fault for the tests: half of the atoms left out of every sum, the
+    rest counted double, where this system's data reach the projection
+    (``SEDCalculator._group_device_arrays``, the resident group's arrays)."""
+    from psa_tpu_torch import SEDCalculator
+    orig = SEDCalculator._group_device_arrays
+
+    def arrays(self, group_idx):
+        data, hi, lo = orig(self, group_idx)
+        keep = torch.zeros(data.shape[1], dtype=data.dtype, device=data.device)
+        keep[::2] = 2.0
+        return data * keep[None, :, None], hi, lo
+    monkeypatch.setattr(SEDCalculator, '_group_device_arrays', arrays)

@@ -6,6 +6,7 @@ for the configuration's argon units.  Both are made on the device from the
 seed, then copied to host arrays: the port has no public way to install raw
 positions and velocities on the device, so the calculator's first call
 uploads them (a warm-up call of set-up) and keeps them in its device cache.
+:func:`halve_atoms` breaks that data path for the tests.
 """
 from __future__ import annotations
 
@@ -64,3 +65,17 @@ def make(config: dict, seed: int, device: torch.device) -> SimpleNamespace:
     return SimpleNamespace(n_t=n_t, n_atoms=n_atoms, dt_ps=dt_ps, positions=host_pos,
                            velocities=host_vel, box_lengths=np.diag(box).astype(np.float64),
                            calculator=calculator, device=device)
+
+
+def halve_atoms(monkeypatch) -> None:
+    """A fault for the tests: half of the atoms left out of every sum, the
+    rest counted double, where this system's data reach the DSF's sums
+    (``ops/instantaneous.accumulate_modes``, each block's mode accumulation)."""
+    from psa_tpu_torch.ops import instantaneous
+    orig = instantaneous.accumulate_modes
+
+    def accumulate(acc_re, acc_im, pos, vel, *args, **kwargs):
+        w = torch.full((pos[:, ::2].shape[1],), 2.0, dtype=torch.float32, device=pos.device)
+        orig(acc_re, acc_im, pos[:, ::2], None if vel is None else vel[:, ::2], *args,
+             **dict(kwargs, weights=w))
+    monkeypatch.setattr(instantaneous, 'accumulate_modes', accumulate)

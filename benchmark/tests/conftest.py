@@ -1,22 +1,31 @@
 """Tests of the benchmark harness.  They run on the CPU at small sizes:
 ``pytest benchmark/tests``.  A test marked ``chip`` needs a CUDA card; it
 decides inside the test and skips without one."""
+import json
+from pathlib import Path
+
 import pytest
 
-#: Small sizes of each cell, for the CPU: a few atoms and frames, small k-sets,
-#: every k of a checked call compared.
-SI = {'n_atoms': 64, 'n_frames': 128, 'waves': {'bins': [9, 25, 45]}}
-LJ = {'cells': 2, 'n_frames': 64}
-TINY = {
-    'si100k.kgrid_peaks': {'config': SI, 'traffic': {'kset': {'n_x': 6, 'n_y': 6}},
-                           'check': {'k_per_call': 36}},
-    'si100k.kpath_calculate': {'config': SI, 'traffic': {'kset': {'n_k': 12}}},
-    'si100k.kgrid200_gridded': {'config': SI,
-                                'traffic': {'kset': {'n_x': 8, 'n_y': 8},
-                                            'kwargs': {'k_grid_shape': [8, 8]}},
-                                'check': {'k_per_call': 64}},
-    'lj32k.dsf_path': {'config': LJ, 'traffic': {'kset': {'n_max': 8}}},
-}
+from benchmark.harness import cell
+
+#: ``tiny/<cell>.json``: the small sizes of each cell, for the CPU (a few
+#: atoms and frames, small k-sets, every k of a checked call compared), as
+#: ``run_cell``'s ``overrides``.
+TINY = Path(__file__).resolve().parent / 'tiny'
+
+
+class SmallSizes(dict):
+    """The small sizes of the cells that have them; a test that asks for a
+    cell without them skips (``test_every_cell_has_its_small_sizes`` fails
+    for that cell)."""
+
+    def __missing__(self, name):
+        pytest.skip(f"{name} has no small sizes: no {TINY.name}/{name}.json")
+
+
+def small_sizes(names) -> SmallSizes:
+    return SmallSizes({n: json.loads((TINY / f'{n}.json').read_text())
+                       for n in names if (TINY / f'{n}.json').is_file()})
 
 
 def pytest_configure(config):
@@ -25,4 +34,4 @@ def pytest_configure(config):
 
 @pytest.fixture
 def tiny():
-    return TINY
+    return small_sizes(w['name'] for w in cell.load_spec()['workloads'])

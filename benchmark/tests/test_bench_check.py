@@ -66,26 +66,10 @@ def cell_is_peaks(traffic):
 
 
 def half_batch(monkeypatch, name):
-    """Half of the atoms left out of every sum, the rest counted double."""
-    if name == 'lj32k.dsf_path':
-        from psa_tpu_torch.ops import instantaneous
-        orig = instantaneous.accumulate_modes
-
-        def accumulate(acc_re, acc_im, pos, vel, *args, **kwargs):
-            w = torch.full((pos[:, ::2].shape[1],), 2.0, dtype=torch.float32, device=pos.device)
-            orig(acc_re, acc_im, pos[:, ::2], None if vel is None else vel[:, ::2], *args,
-                 **dict(kwargs, weights=w))
-        monkeypatch.setattr(instantaneous, 'accumulate_modes', accumulate)
-        return
-    from psa_tpu_torch import SEDCalculator
-    orig = SEDCalculator._group_device_arrays
-
-    def arrays(self, group_idx):
-        data, hi, lo = orig(self, group_idx)
-        keep = torch.zeros(data.shape[1], dtype=data.dtype, device=data.device)
-        keep[::2] = 2.0
-        return data * keep[None, :, None], hi, lo
-    monkeypatch.setattr(SEDCalculator, '_group_device_arrays', arrays)
+    """Half of the atoms left out of every sum, the rest counted double: the
+    fault of the cell's system module, where its data reach the sums."""
+    system = cell.cell_parts(name)[1]['system']
+    cell.module('systems', system).halve_atoms(monkeypatch)
 
 
 @pytest.mark.parametrize('name', CELLS)

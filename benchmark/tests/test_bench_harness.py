@@ -1,4 +1,5 @@
 """The harness finds its files by name, loads no JAX, and reduces traces right."""
+import copy
 import json
 import shutil
 import subprocess
@@ -9,6 +10,7 @@ import numpy as np
 import pytest
 
 from benchmark.harness import cell, cli, ksets, trace, workcount
+from benchmark.tests.conftest import TINY
 
 ROOT = Path(__file__).resolve().parents[2]
 SPEC = json.loads((ROOT / 'BENCHMARK.json').read_text())
@@ -29,10 +31,17 @@ def test_benchmark_json_keys():
             assert m['moves'] in reported, (m['name'], w)
 
 
-@pytest.mark.parametrize('name', CELLS)
-def test_every_file_is_found_by_name(name):
-    c, config, traffic, check = cell.cell_parts(name, SPEC)
-    assert c['chips'] == 1
+def four_chip_share_kept(spec) -> bool:
+    """Every cell asks for 1 or 4 chips, and at most max(1, ⌊25% of the
+    cells⌋) of them for 4."""
+    chips = [w['chips'] for w in spec['workloads']]
+    return set(chips) <= {1, 4} and chips.count(4) <= max(1, len(chips) // 4)
+
+
+def assert_found_by_name(spec, name):
+    c, config, traffic, check = cell.cell_parts(name, spec)
+    assert c['chips'] in (1, 4) and four_chip_share_kept(spec), [
+        (w['name'], w['chips']) for w in spec['workloads']]
     for key in ('source', 'precision', 'guarantee', 'reduced', 'assumed'):
         assert key in config
     system = cell.module('systems', config['system'])
@@ -42,8 +51,42 @@ def test_every_file_is_found_by_name(name):
         assert callable(getattr(surface, fn))
     assert set(check['limits']) and check['calls'] > 0 and check['k_per_call'] > 0
     assert check['control']['kind'] in ('program_precision', 'reference_tf32')
-    for m in cell.cell_metrics(SPEC, name, 'per_layer'):
+    for m in cell.cell_metrics(spec, name, 'per_layer'):
         assert callable(cell.module('metrics', m['name']).read)
+
+
+@pytest.mark.parametrize('name', CELLS)
+def test_every_file_is_found_by_name(name):
+    assert_found_by_name(SPEC, name)
+
+
+def test_a_cell_on_four_chips_is_found_within_its_share():
+    spec = copy.deepcopy(SPEC)
+    cells = spec['workloads']
+    allowed = max(1, len(cells) // 4)
+    for w in cells[:allowed]:
+        w['chips'] = 4
+    assert_found_by_name(spec, cells[0]['name'])
+    cells[allowed]['chips'] = 4                     # one beyond the 25% share
+    with pytest.raises(AssertionError):
+        assert_found_by_name(spec, cells[0]['name'])
+    cells[allowed]['chips'] = 2                     # neither 1 nor 4
+    with pytest.raises(AssertionError):
+        assert_found_by_name(spec, cells[allowed]['name'])
+
+
+@pytest.mark.parametrize('name', CELLS)
+def test_every_cell_has_its_small_sizes(name):
+    assert (TINY / f'{name}.json').is_file(), f"no {TINY.name}/{name}.json: the cell's small sizes"
+    assert set(json.loads((TINY / f'{name}.json').read_text())) <= {'config', 'traffic', 'check'}
+
+
+def test_every_system_module_has_its_half_atoms_fault():
+    systems = sorted(p.stem for p in (ROOT / 'benchmark' / 'systems').glob('*.py')
+                     if p.stem != '__init__')
+    assert systems
+    for name in systems:
+        assert callable(cell.module('systems', name).halve_atoms), name
 
 
 def test_config_files_name_their_source():
@@ -181,3 +224,17 @@ def test_ksets_follow_the_calculators_generators_and_the_seed():
     for k in ks:
         ax = int(np.flatnonzero(k[0])[0])
         assert np.allclose(k[:, ax], np.arange(1, 5) * 2 * np.pi / [10.0, 20.0, 40.0][ax])
+
+
+def test_busy_time_of_each_card():
+    tr = trace.Trace(window=(0.0, 100.0),
+                     device=[('kernel', 'a', 0.0, 40.0), ('kernel', 'b', 20.0, 60.0),
+                             ('kernel', 'c', 50.0, 70.0), ('copy', 'Memcpy DtoH', 90.0, 120.0)],
+                     cards=[0, 1, 0, 1])
+    assert tr.busy_ns() == 80.0                     # [0, 70] and [90, 100], whichever card
+    assert tr.busy_ns(card=0) == 60.0               # [0, 40] and [50, 70]
+    assert tr.busy_ns(card=1) == 50.0               # [20, 60] and [90, 100]
+    assert tr.busy_ns(card=2) == 0.0
+    card = __import__('torch').device('cuda', 0)
+    assert cell.cards(card, 1) == [card]
+    assert [d.index for d in cell.cards(card, 4)] == [0, 1, 2, 3]
