@@ -66,7 +66,11 @@ resident and in superchunks, against the one-device sweeps, and
 ``sharded_sed_spectrum`` against the f64 oracle; the gridded engine's ky
 stripes; the instantaneous-phase family, MSD/VACF and g(r) over the mesh at
 2,000 frames; two processes on the card over gloo, each reading only its
-windows; ``python -m psa_tpu_torch.pod_sweep`` and its resumed rerun; the
+windows; ``python -m psa_tpu_torch.pod_sweep`` and its resumed rerun;
+where four cards are visible (else skipped with a message), the working
+velocities resident in atom shards on a (1, 4, 1) mesh of cards 0-3 against
+a host source, the call's wall against each card's kernel, the mesh's
+counters (16f); the
 port's entry points (phase 17): ``bench_torch.op_sweep`` on the working data
 against the float64 oracle, ``python3 bench_torch.py`` as a command at its
 defaults (its JSON line and the card's name printed), stopped by SIGTERM
@@ -84,6 +88,10 @@ non-zero.  The line before the last is a JSON record of each kernel (the
 'fast': launches on the main paths, error, times, bounds); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
 any result.  About 9 minutes on an H100 machine.
+
+    python3 chip_smoke.py --phase 16f
+
+runs phase 16f alone (with the build), on a machine with four cards;
 
     python3 chip_smoke.py --phase 17
 
@@ -173,6 +181,7 @@ MESH_DEPTH = 2_000                    # frames of phase 16c (CUT from N_T)
 TOL_MESH_PLANES = 1e-5                # a mesh sweep's planes vs the one-device sweep's, of max
 RANK_ATOMS, RANK_FRAMES = 10_000, 2_000   # phase 16d's two-process trajectory
 RANK_SUPERCHUNK, RANK_LAGS = 1_000, 64
+MESH_CARDS = 4                        # phase 16f's (1, MESH_CARDS, 1) mesh of cards 0 … 3
 KPATH_K, KPATH_COVERAGE = 250, 4.0    # phase 18: the click's k-path along x (the kpath cell's)
 KPATH_CHUNK = 100                     # k_chunk_size that cuts it into three chunks
 KPATH_ROUNDS = 8                      # rounds of (pinned, staging, staging, pinned) walls
@@ -2150,6 +2159,97 @@ def mesh_grid(dev, proj, calc, host_vel, k_vecs, grid_shape, oracle, cols):
     return group, launches, shapes
 
 
+def mesh_cards(proj):
+    """Phase 16f, where MESH_CARDS cards are visible: the working size's
+    velocities (10^5 atoms x 10^4 steps, the 50x50 grid, parity) resident in
+    atom shards on a (1, 4, 1) mesh of cards 0-3 (``preload_mesh_group_data``)
+    against the same data read from a host array each call: peaks bit for
+    bit; the wall of one resident call against each card's kernel time
+    alone (the cards overlapped, not in turn); the counters
+    ``mesh.exchange_bytes`` and ``mesh.ingest_bytes`` and the launches of a
+    call.  Skips with a message on fewer cards.  Returns the launches per
+    path."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < MESH_CARDS:
+        log('mesh', f"(f) skipped: {n_cards} CUDA device(s) visible; the resident mesh "
+                    f"needs {MESH_CARDS}")
+        return {}
+    from psa_tpu_torch.ops.spectral import split_f64
+    from psa_tpu_torch.parallel import ArrayBlockSource, make_mesh
+    from psa_tpu_torch.parallel.sharded import _shards
+    from psa_tpu_torch.utils import profiling
+    cards = [torch.device('cuda', i) for i in range(MESH_CARDS)]
+    vel = torch.randn((N_T, N_ATOMS, 3), generator=torch.Generator(cards[0]).manual_seed(SEED + 16),
+                      device=cards[0])
+    host_vel = vel.cpu().numpy()
+    del vel
+    calc, k_vecs, _ = working_calculator(cards[0], host_vel)
+    n_k = len(k_vecs)
+    mesh = make_mesh(shape=(1, MESH_CARDS, 1), devices=cards)
+    hi64, lo64 = split_f64(calc.mean_positions64)
+    parts = ({}, {}, {})
+    for a, ((a0, a1), card) in enumerate(zip(_shards(N_ATOMS, MESH_CARDS), cards)):
+        for store, x in zip(parts, (host_vel[:, a0:a1], hi64[a0:a1], lo64[a0:a1])):
+            store[(0, a, 0)] = torch.from_numpy(np.ascontiguousarray(x)).to(card)
+    calc.preload_mesh_group_data(mesh, *parts)
+    paths = {'resident': lambda: calc.calculate_kgrid_peaks_sharded(mesh, k_vecs, n_peaks=N_PEAKS),
+             'host': lambda: calc.calculate_kgrid_peaks_sharded(
+                 mesh, k_vecs, n_peaks=N_PEAKS, data=ArrayBlockSource(host_vel))}
+    paths['resident']()                   # warm: each card's allocator and cuFFT's plan
+    outs, walls, counted = {}, {}, {}
+    for name, fn in paths.items():
+        before = profiling.snapshot()
+        t0 = time.perf_counter()
+        outs[name] = fn()                 # returns once card 0 holds every card's partial
+        walls[name] = time.perf_counter() - t0
+        counted[name] = profiling.counted_since(before)
+    check(all(np.array_equal(a, b) for a, b in zip(outs['resident'], outs['host'])),
+          "resident mesh peaks differ from the host source's")
+    kernel_ms = []
+    for a, card in enumerate(cards):
+        k_dev = torch.from_numpy(k_vecs).to(card)
+        with torch.cuda.device(card):
+            kernel_ms.append(cuda_ms(lambda: proj.sed_projection(
+                parts[0][(0, a, 0)], parts[1][(0, a, 0)], parts[2][(0, a, 0)], k_dev), 1))
+    check(1e3 * walls['resident'] < 0.5 * sum(kernel_ms),
+          f"a resident call took {1e3 * walls['resident']:.1f} ms against the cards' kernels "
+          f"{kernel_ms} ms: the cards ran in turn")
+    exchange = (MESH_CARDS - 1) * 2 * N_T * 3 * n_k * 4
+    k_bytes = MESH_CARDS * n_k * 3 * 4
+    window_bytes = N_T * N_ATOMS * 3 * 4 + 2 * N_ATOMS * 3 * 4
+    for name, ingest in (('resident', k_bytes), ('host', k_bytes + window_bytes)):
+        got = {c: counted[name].get(c) for c in ('mesh.exchange_bytes', 'mesh.ingest_bytes',
+                                                  'launch.parity')}
+        check(got == {'mesh.exchange_bytes': exchange, 'mesh.ingest_bytes': ingest,
+                      'launch.parity': MESH_CARDS},
+              f"{name} mesh counters {got}, want exchange {exchange}, ingest {ingest}, "
+              f"{MESH_CARDS} launches")
+    log('mesh', f"(f) (1, {MESH_CARDS}, 1) mesh of cards 0-{MESH_CARDS - 1}, {N_ATOMS} atoms x "
+                f"{N_T} steps, {n_k} k: resident {walls['resident']:.3f} s a call, host source "
+                f"{walls['host']:.3f} s, peaks equal bit for bit; each card's kernel alone "
+                + ", ".join(f"{t:.1f}" for t in kernel_ms) + " ms; "
+                f"{exchange} exchange bytes and {k_bytes} ingest bytes a resident call "
+                f"({k_bytes + window_bytes} from the host source); {MESH_CARDS} launches each")
+    del calc, parts
+    torch.cuda.empty_cache()
+    return {'mesh_cards_resident': counted['resident']['launch.parity'],
+            'mesh_cards_host': counted['host']['launch.parity']}
+
+
+def phase16f_alone():
+    """``python3 chip_smoke.py --phase 16f``: the build, then phase 16f."""
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops import sed_projection as proj
+    t_start = time.perf_counter()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    _build.build()
+    _build.load()
+    mesh_cards(proj)
+    log('done', f"phase 16f took {time.perf_counter() - t_start:.1f} s")
+
+
 def mesh_rest(dev, proj, group, thermal, side, k_vecs):
     """Phase 16c/d/e.  (c) On the phase-11 trajectory cut to MESH_DEPTH
     frames (CUT from 10^4), over the virtual (2, 2, 2) mesh in the NCCL
@@ -3890,6 +3990,7 @@ def main():
     mesh_shapes += rest_shapes
     log('mesh', f"mesh phase (c, d, e) took {time.perf_counter() - t0:.2f} s")
     del host_pos, host_vel, thermal
+    mesh_launches.update(mesh_cards(proj))
     t0 = time.perf_counter()
     cli_launches, cli_loop = command_line(dev, proj)
     log('cli', f"command-line phase took {time.perf_counter() - t0:.2f} s")
@@ -3995,12 +4096,14 @@ def main():
 
 
 if __name__ == '__main__':
-    if sys.argv[1:] == ['--phase', '17']:
+    if sys.argv[1:] == ['--phase', '16f']:
+        phase16f_alone()
+    elif sys.argv[1:] == ['--phase', '17']:
         phase17_alone()
     elif sys.argv[1:] == ['--phase', '18']:
         phase18_alone()
     elif sys.argv[1:]:
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 17 | --phase 18]")
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 16f | --phase 17 | --phase 18]")
     else:
         main()
     sys.exit(0)

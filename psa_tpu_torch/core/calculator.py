@@ -308,6 +308,7 @@ class SEDCalculator:
         self._device_cache: Dict[bytes, tuple] = {}
         self._device_cache_order: List[bytes] = []
         self._cache_lock = threading.Lock()
+        self._resident_shards = None        # preload_mesh_group_data's ResidentShards
         #: Bytes of groups over max_device_bytes streamed to the device so far.
         self.streamed_bytes = 0
         #: Per k-chunk of the 'factored' sweeps so far: (Na, Nb), or None for
@@ -551,10 +552,12 @@ class SEDCalculator:
         return torch.from_numpy(host).to(self.device, non_blocking=True)
 
     def clear_device_cache(self) -> None:
-        """Drop cached device-resident group data (frees device memory)."""
+        """Drop cached device-resident group data, the mesh's resident shards
+        included (frees device memory)."""
         with self._cache_lock:
             self._device_cache.clear()
             self._device_cache_order.clear()
+            self._resident_shards = None
 
     def _group_cache_key(self, group_idx: np.ndarray) -> bytes:
         return group_idx.tobytes() + (b'D' if self.use_displacements else b'V') \
@@ -602,6 +605,40 @@ class SEDCalculator:
         key = self._group_cache_key(group_idx)
         with self._cache_lock:
             self._cache_put(key, (data_dev, mp_hi_dev, mp_lo_dev))
+
+    def preload_mesh_group_data(self, mesh, shards: Dict[tuple, torch.Tensor],
+                                mp_hi: Dict[tuple, torch.Tensor],
+                                mp_lo: Dict[tuple, torch.Tensor]) -> None:
+        """Install the trajectory's data resident on the devices of ``mesh``:
+        :meth:`preload_device_group_data` for a mesh, all atoms.
+
+        ``shards``, ``mp_hi`` and ``mp_lo`` map each position (t, a, k) that
+        this process owns to its float32 tensors on that position's device,
+        as :class:`psa_tpu_torch.parallel.ResidentShards` lays them out: the
+        (n_t/T, A_a, 3) window of time slice t and atom shard a, and that
+        shard's (A_a, 3) split mean positions.  The windows hold what the
+        mesh's direct SED would read from the trajectory: the velocities,
+        or the positions in displacement mode (the mean is subtracted on
+        the devices); group weights and √mass apply as they do to a host
+        source.  Afterwards ``calculate_kgrid_peaks_sharded``,
+        ``calculate_kgrid_browse_sharded`` and ``calculate_lt_sharded`` on
+        ``mesh`` with no ``data`` read these windows where they lie:
+        nothing of the trajectory crosses the host, and the k-vectors are a
+        call's only upload; on another mesh they raise.  Raises for a window
+        missing, of the wrong shape or type, or on another device.  One mesh
+        at a time; cleared by :meth:`clear_device_cache`.
+        """
+        from ..parallel.sharded import ResidentShards
+        resident = ResidentShards(mesh, shards, mp_hi, mp_lo, self.traj.n_frames,
+                                  self.traj.n_atoms)
+        with self._cache_lock:
+            self._resident_shards = resident
+
+    @property
+    def resident_mesh(self):
+        """The mesh whose positions hold the trajectory's data
+        (:meth:`preload_mesh_group_data`), else None."""
+        return None if self._resident_shards is None else self._resident_shards.mesh
 
     def _group_device_arrays(self, group_idx: np.ndarray):
         """Device-resident (data, mp_hi, mp_lo) for a group, 2-entry LRU cache."""
@@ -2622,15 +2659,21 @@ class SEDCalculator:
         _, mode = self._phase_cfg(k_vectors_3d, mesh=True)
         return (self.traj.box_matrix if mode == 'incremental' else None), mode
 
-    def _sharded_data(self, data):
-        """(data, subtract_mean) of the mesh's SED: the velocities, or in
-        displacement mode the positions with the mean subtracted on the
-        devices; a given ``data`` is taken as the calculator's mode says."""
-        if data is not None:
-            return data, self.use_displacements
-        if self.use_displacements:
-            return self.traj.positions, True
-        return self.traj.velocities, False
+    def _sharded_data(self, mesh, data):
+        """(data, mean positions, subtract_mean) of the mesh's SED: the
+        shards resident on ``mesh`` (:meth:`preload_mesh_group_data`, which
+        hold their mean positions), else the velocities, or in displacement
+        mode the positions with the mean subtracted on the devices; a given
+        ``data`` is taken as the calculator's mode says.  Raises for no
+        ``data`` on another mesh than the resident shards'."""
+        if data is None and self._resident_shards is not None:
+            if mesh is not self.resident_mesh:
+                raise ValueError("the trajectory's data are resident on another mesh "
+                                 "(preload_mesh_group_data): pass that mesh, or data=")
+            return self._resident_shards, None, self.use_displacements
+        if data is None:
+            data = self.traj.positions if self.use_displacements else self.traj.velocities
+        return data, self.mean_positions64, self.use_displacements
 
     def _gridded_sharded_setup(self, atom_groups, single, k_vectors_3d, k_grid_shape, data):
         """Checks, plan and data of ``engine='gridded'`` on a mesh: the
@@ -2742,9 +2785,9 @@ class SEDCalculator:
             return freqs_kept, intensity, phase
         if engine != 'direct':
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-        src, subtract = self._sharded_data(data)
+        src, mean64, subtract = self._sharded_data(mesh, data)
         out = sharded_sed_spectrum(
-            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            mesh, src, mean64, k_vectors_3d, precision=self.precision,
             want_intensity=True, t_superchunk=t_superchunk, freq_indices=freq_idx,
             atom_weights=weights, subtract_mean=subtract, comp_pair=comp_pair,
             angle_range_opt=angle_range_opt, welch_segments=segments,
@@ -2800,9 +2843,9 @@ class SEDCalculator:
                 width_method=width_method, t_superchunk=t_superchunk)
         if engine != 'direct':
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-        src, subtract = self._sharded_data(data)
+        src, mean64, subtract = self._sharded_data(mesh, data)
         return sharded_sed_spectrum(
-            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            mesh, src, mean64, k_vectors_3d, precision=self.precision,
             t_superchunk=t_superchunk, freq_indices=freq_idx, n_peaks=n_peaks,
             peak_freqs_thz=freqs_kept, exclusion_bins=exclusion_bins, atom_weights=weights,
             subtract_mean=subtract, comp_pair=comp_pair, angle_range_opt=angle_range_opt,
@@ -2830,9 +2873,9 @@ class SEDCalculator:
                                                 summation_mode)
         weights, _ = self._group_weights(atom_groups, summation_mode)
         freqs_kept, freq_idx = self._kept_freqs(max_freq)
-        src, subtract = self._sharded_data(data)
+        src, mean64, subtract = self._sharded_data(mesh, data)
         i_l, i_t = sharded_sed_spectrum(
-            mesh, src, self.mean_positions64, k_vectors_3d, precision=self.precision,
+            mesh, src, mean64, k_vectors_3d, precision=self.precision,
             t_superchunk=t_superchunk, freq_indices=freq_idx, atom_weights=weights,
             subtract_mean=subtract, lt=True)
         return freqs_kept, i_l, i_t

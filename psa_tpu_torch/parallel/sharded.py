@@ -22,8 +22,9 @@ Collectives:
 
   * atoms: inside a process the partials of a (t, k) cell are added in
     ascending atom-shard order on the device of the stripe (the kernel's
-    ``accumulate=``; a partial made on another card is copied there first);
-    across processes ``dist.all_reduce`` sums the stripe buffers.  Each
+    ``accumulate=``; a partial made on another card is copied there first:
+    the exchange, below); across processes ``dist.all_reduce`` sums the
+    stripe buffers.  Each
     process writes only the rows of its own time positions, the rest are
     zero, so the same sum also assembles the time axis;
   * time: inside a process the slices are rows of one buffer;
@@ -39,10 +40,24 @@ Data ingestion reads each (t, a) window a process's positions need once,
 through a :class:`BlockSource`, and copies it to each device of the
 positions that take it; a process reads only the windows of the positions it
 owns.  Time superchunks stream through the mesh, the next one read (and
-copied) by a prefetch thread while the current one is projected.
+copied) by a prefetch thread while the current one is projected.  A
+:class:`ResidentShards` keeps every position's window on its device across
+calls instead: its ``device_windows`` hands them over as they are, with no
+host read, no copy and no prefetch thread.
+
+The exchange: a partial of the SED made on the device of its stripe's
+buffer is written or added there in place by the kernel; one made on
+another card is moved to the buffer's (a peer copy, enqueued without a host
+wait) and added there, so the cards' projections overlap.  Spans
+``psa.mesh.ingest`` (the windows' read and upload, or the resident windows'
+hand-over) and ``psa.mesh.exchange`` (one partial moved and added); counters
+``mesh.ingest_bytes`` (bytes copied from the host for the positions'
+projections) and ``mesh.exchange_bytes`` (bytes of the partials moved
+between devices).
 """
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import threading
@@ -54,6 +69,7 @@ import torch.distributed as dist
 
 from ..ops import spectral
 from ..ops.sed_projection import sed_projection
+from ..utils.profiling import count, span
 from ..utils.transfer import copy_rows
 
 logger = logging.getLogger(__name__)
@@ -419,7 +435,75 @@ class DumpBlockSource(BlockSource):
         self._src.close()
 
 
+class ResidentShards:
+    """(n_t, n_atoms, 3) float32 data held on a mesh's devices across calls,
+    one window a position, with the split mean positions of its atoms.
+
+    Position (t, a, k) holds frames [t·n_t/T, (t+1)·n_t/T) of the a-th
+    atom shard (``_shards``: ⌈n_atoms/A⌉ atoms each, the last short) as a
+    contiguous (n_t/T, A_a, 3) tensor on its own device, and that shard's
+    (A_a, 3) float32 (hi, lo) split of the float64 mean positions.
+    :func:`sharded_sed_spectrum` takes the windows (:meth:`device_windows`)
+    and means (:meth:`means`) as they are: no host read, no copy, no
+    prefetch thread.
+
+    Args:
+        mesh: the mesh the windows belong to.
+        windows, mp_hi, mp_lo: {(t, a, k): tensor} for every position this
+            process owns whose atom shard is not empty; positions that share
+            a device may share tensors.
+        n_frames, n_atoms: the extents of the whole data.
+    """
+
+    def __init__(self, mesh: Mesh, windows, mp_hi, mp_lo, n_frames: int, n_atoms: int):
+        t_sh, a_sh, _ = mesh.devices.shape
+        _check_time_axis(n_frames, t_sh)
+        self.mesh, self.n_frames, self.n_atoms = mesh, int(n_frames), int(n_atoms)
+        rows = self.n_frames // t_sh
+        bounds = _shards(self.n_atoms, a_sh)
+        self._windows, self._means = {}, {}
+        for t, a, k, dev in mesh.local_positions():
+            a0, a1 = bounds[a]
+            if a1 <= a0:
+                continue
+            pos = (t, a, k)
+            for name, store, shape in (('windows', windows, (rows, a1 - a0, 3)),
+                                       ('mp_hi', mp_hi, (a1 - a0, 3)),
+                                       ('mp_lo', mp_lo, (a1 - a0, 3))):
+                x = store.get(pos)
+                if x is None:
+                    raise ValueError(f"{name} holds nothing for position {pos}")
+                if (tuple(x.shape) != shape or x.dtype != torch.float32 or x.device != dev
+                        or not x.is_contiguous()):
+                    raise ValueError(f"{name}[{pos}] must be a contiguous float32 {shape} "
+                                     f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} on "
+                                     f"{x.device}")
+            self._windows.setdefault((t * rows, (t + 1) * rows, a0, a1, dev), windows[pos])
+            self._means.setdefault((a0, a1, dev), (mp_hi[pos], mp_lo[pos]))
+
+    def device_windows(self, t0: int, t1: int, a0: int, a1: int,
+                       devices) -> Dict[torch.device, torch.Tensor]:
+        """{device: the held window of frames [t0, t1) and atoms [a0, a1)}
+        for each of ``devices``; raises for a window no position holds."""
+        return {dev: self._held(self._windows, (t0, t1, a0, a1, dev)) for dev in devices}
+
+    def means(self, a0: int, a1: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(hi, lo) of atoms [a0, a1) on ``device``."""
+        return self._held(self._means, (a0, a1, device))
+
+    @staticmethod
+    def _held(store, key):
+        try:
+            return store[key]
+        except KeyError:
+            raise ValueError(f"no resident window or mean for (rows, atoms, device) {key}; "
+                             f"resident shards run on their own mesh, in one time "
+                             f"superchunk") from None
+
+
 def _as_source(data) -> BlockSource:
+    if isinstance(data, ResidentShards):
+        raise TypeError("resident shards serve sharded_sed_spectrum only")
     return data if hasattr(data, 'read_block') else ArrayBlockSource(data)
 
 
@@ -449,6 +533,14 @@ def _check_time_axis(n_t: int, t_sh: int) -> None:
     if n_t % t_sh:
         raise ValueError(f"time axis ({n_t}) must divide evenly over the t mesh axis "
                          f"({t_sh}); the FFT length cannot be padded")
+
+
+def _upload(host: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
+    """:func:`_to_device` of an input of the positions' sweeps, its bytes
+    counted in ``mesh.ingest_bytes``."""
+    t = _to_device(host, device, dtype)
+    count('mesh.ingest_bytes', t.numel() * t.element_size())
+    return t
 
 
 def _to_device(host: np.ndarray, device, dtype=np.float32) -> torch.Tensor:
@@ -486,27 +578,39 @@ class _Cache:
         return self._memo[full]
 
 
+def _device_windows(source, t0: int, t1: int, a0: int, a1: int, devices):
+    """{device: the block [t0, t1) × [a0, a1) on it} for each of
+    ``devices``: a source's own ``device_windows`` (resident shards), else
+    its ``read_block`` read once and copied to each (``mesh.ingest_bytes``)."""
+    held = getattr(source, 'device_windows', None)
+    if held is not None:
+        return held(t0, t1, a0, a1, devices)
+    block = np.asarray(source.read_block(t0, t1, a0, a1), dtype=np.float32)
+    return {dev: _upload(block, dev) for dev in devices}
+
+
 def _read_windows(mesh: Mesh, sources, t_rows: List[Tuple[int, int]],
                   a_bounds: List[Tuple[int, int]], ti_of=None, ai_of=None):
     """{(ti, ai): {device: (tensor per source)}}: each (t, a) window of this
-    process's positions read once from each source and copied to every
-    device of a position that takes it.  ``ti_of``/``ai_of`` map a
-    position to its window indices (default: its t and a)."""
-    need: Dict[Tuple[int, int], List[torch.device]] = {}
-    for t, a, k, dev in mesh.local_positions():
-        key = (ti_of(t, a, k) if ti_of else t, ai_of(t, a, k) if ai_of else a)
-        devs = need.setdefault(key, [])
-        if dev not in devs:
-            devs.append(dev)
-    out = {}
-    for (ti, ai), devs in need.items():
-        (r0, r1), (a0, a1) = t_rows[ti], a_bounds[ai]
-        if a1 <= a0 or r1 <= r0:
-            continue
-        blocks = [np.asarray(src.read_block(r0, r1, a0, a1), dtype=np.float32)
-                  for src in sources]
-        out[(ti, ai)] = {dev: tuple(_to_device(b, dev) for b in blocks) for dev in devs}
-    return out
+    process's positions on every device of a position that takes it, as
+    :func:`_device_windows` gives it (read once from the host and copied, or
+    where it is held).  ``ti_of``/``ai_of`` map a position to its window
+    indices (default: its t and a)."""
+    with span('psa.mesh.ingest'):
+        need: Dict[Tuple[int, int], List[torch.device]] = {}
+        for t, a, k, dev in mesh.local_positions():
+            key = (ti_of(t, a, k) if ti_of else t, ai_of(t, a, k) if ai_of else a)
+            devs = need.setdefault(key, [])
+            if dev not in devs:
+                devs.append(dev)
+        out = {}
+        for (ti, ai), devs in need.items():
+            (r0, r1), (a0, a1) = t_rows[ti], a_bounds[ai]
+            if a1 <= a0 or r1 <= r0:
+                continue
+            held = [_device_windows(src, r0, r1, a0, a1, devs) for src in sources]
+            out[(ti, ai)] = {dev: tuple(h[dev] for h in held) for dev in devs}
+        return out
 
 
 def _stream(mesh: Mesh, sources, n_t: int, t_superchunk: int, a_bounds, prefetch: bool,
@@ -560,6 +664,24 @@ def _add_into(dst: torch.Tensor, part: torch.Tensor, first: bool) -> None:
         dst.copy_(part)
     else:
         dst.add_(part)
+
+
+def _exchange(dst: Sequence[torch.Tensor], device, first: bool, project) -> None:
+    """One position's (re, im) partial into its stripe's buffer rows
+    ``dst``, written (first) or added: by the kernel in place
+    (``project(out=dst, accumulate=not first)``) where ``dst`` lies on the
+    position's ``device``; else made there (``project()``) and moved to the
+    buffer's device (a peer copy on the partial's stream that the buffer's
+    stream waits for; the host does not), span ``psa.mesh.exchange``,
+    counted in ``mesh.exchange_bytes``."""
+    if dst[0].device == device:
+        project(out=dst, accumulate=not first)
+        return
+    parts = project()
+    with span('psa.mesh.exchange'):
+        count('mesh.exchange_bytes', sum(p.numel() * p.element_size() for p in parts))
+        for b, part in zip(dst, parts):
+            _add_into(b, part, first)
 
 
 def _stripe_buffers(mesh: Mesh, k_bounds, shape_of, dtype=torch.float32):
@@ -650,8 +772,11 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
     Args:
         mesh: from :func:`make_mesh`; its t extent must divide n_frames.
         data: (n_t, n_atoms, 3) array-like (ndarray, np.memmap) or a
-            :class:`BlockSource`; never read whole.
-        mean_pos64: (n_atoms, 3) float64 mean positions.
+            :class:`BlockSource`, never read whole; or :class:`ResidentShards`
+            of this mesh, taken where they lie (whole time slices: no
+            superchunks).
+        mean_pos64: (n_atoms, 3) float64 mean positions (unused with
+            resident shards, which hold their split).
         k_vectors: (n_k, 3) float32.
         precision: the kernel's tier, 'parity' | 'balanced' | 'fast'.
         want_intensity: return Σ_α|Φ|² instead of the (re, im) pair.
@@ -707,7 +832,8 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
         if freq_indices is None or not (want_intensity or n_peaks):
             raise ValueError("welch_segments requires freq_indices plus "
                              "want_intensity or n_peaks")
-    source = _as_source(data)
+    resident = isinstance(data, ResidentShards)
+    source = data if resident else _as_source(data)
     n_t, n_atoms = source.n_frames, source.n_atoms
     k_vectors = np.asarray(k_vectors, dtype=np.float32)
     n_k = k_vectors.shape[0]
@@ -723,40 +849,48 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
                 raise ValueError(f"atom_weights entries must be ({n_atoms},), got {w.shape}")
             weights.append(w)
     a_bounds, k_bounds = _shards(n_atoms, a_sh), _shards(n_k, k_sh)
-    mp_hi, mp_lo = spectral.split_f64(np.asarray(mean_pos64, dtype=np.float64))
     cache = _Cache()
+    if resident:
+        means = source.means
+    else:
+        mp_hi, mp_lo = spectral.split_f64(np.asarray(mean_pos64, dtype=np.float64))
+
+        def means(a0, a1, dev):
+            return (cache.get(('hi', a0), dev, lambda: _upload(mp_hi[a0:a1], dev)),
+                    cache.get(('lo', a0), dev, lambda: _upload(mp_lo[a0:a1], dev)))
 
     # [group][re, im]: (n_t, 3, K_stripe) float32 per stripe
     bufs = {ki: [z] + [torch.zeros_like(z) for _ in range(2 * n_groups - 1)]
             for ki, z in _stripe_buffers(mesh, k_bounds, lambda kk: (n_t, 3, kk)).items()}
 
     def work(rows, windows):
-        done = set()
+        # every upload before the first launch: a copy from pageable host
+        # memory waits for its card, and no host wait may fall between the
+        # cards' launches
+        launches = []
         for ti, ai, ki, dev in mesh.local_positions():
             (a0, a1), (k0, k1) = a_bounds[ai], k_bounds[ki]
             if (ti, ai) not in windows or k1 <= k0:
                 continue
+            ws = [None] * n_groups if weights is None else [
+                cache.get(('w', g, ai), dev, lambda: _upload(weights[g][a0:a1], dev))
+                for g in range(n_groups)]
+            launches.append((ti, ai, ki, dev, means(a0, a1, dev),
+                             cache.get(('k', ki), dev, lambda: _upload(k_vectors[k0:k1], dev)),
+                             ws))
+        done = set()
+        for ti, ai, ki, dev, (hi, lo), kv, ws in launches:
             (block,) = windows[(ti, ai)][dev]
-            hi = cache.get(('hi', ai), dev, lambda: _to_device(mp_hi[a0:a1], dev))
-            lo = cache.get(('lo', ai), dev, lambda: _to_device(mp_lo[a0:a1], dev))
-            kv = cache.get(('k', ki), dev, lambda: _to_device(k_vectors[k0:k1], dev))
             if subtract_mean:
                 block = spectral.displacement_data(block, hi, lo)
             r0, r1 = rows[ti][0], rows[ti][1]
             first = (ti, ki) not in done
             done.add((ti, ki))
-            for g in range(n_groups):
-                d = block
-                if weights is not None:
-                    w = cache.get(('w', g, ai), dev, lambda: _to_device(weights[g][a0:a1], dev))
-                    d = block * w[None, :, None]
+            for g, w in enumerate(ws):
+                d = block if w is None else block * w[None, :, None]
                 dst = (bufs[ki][2 * g][r0:r1], bufs[ki][2 * g + 1][r0:r1])
-                if dst[0].device == dev:
-                    sed_projection(d, hi, lo, kv, out=dst, accumulate=not first,
-                                   precision=precision)
-                else:
-                    for b, part in zip(dst, sed_projection(d, hi, lo, kv, precision=precision)):
-                        _add_into(b, part, first)
+                _exchange(dst, dev, first, functools.partial(sed_projection, d, hi, lo, kv,
+                                                             precision=precision))
 
     _stream(mesh, (source,), n_t, t_superchunk, a_bounds, prefetch, work)
     _reduce_buffers(mesh, bufs)

@@ -43,6 +43,13 @@ the program.  The spans, each named where the work of its layer happens:
                          host fill and the copy's enqueue
   ``psa.rdf.host``       the cells pair histogram's host passes (occupancy
                          caps, bucketing)
+  ``psa.mesh.ingest``    ``parallel/sharded._read_windows``: a mesh's (t, a)
+                         windows read from their source and uploaded, or
+                         with resident shards the windows' look-up alone
+  ``psa.mesh.exchange``  ``parallel/sharded._exchange``: one position's
+                         partial made away from its stripe's device, moved
+                         there and added (a partial on that device is added
+                         in place by the kernel, outside the span)
   ====================== ==================================================
 
 :data:`counters` is a process-wide :class:`collections.Counter`, raised by
@@ -58,6 +65,13 @@ whole by :func:`snapshot`:
     calculator's ``_to_device``);
   * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the
     projection's kernels (``ops/sed_projection.kernel_launches`` sums them).
+  * ``mesh.ingest_bytes``: bytes copied from the host to a mesh's positions
+    for their sweeps (the windows, and the SED's mean positions, weights
+    and k-vectors), on any device;
+  * ``mesh.exchange_bytes``: bytes of the partials a mesh's SED moved
+    between devices into its stripes' buffers (``parallel/sharded._exchange``):
+    each partial made away from its buffer's device; none on a mesh of one
+    device.
 
 ``torch`` is imported inside the functions that need it, so a loader or a
 view that only wants :func:`progress_iter` imports nothing heavy.
