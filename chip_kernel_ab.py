@@ -23,10 +23,11 @@ At 'parity' each output must equal this one's bit for bit (the fused
 kernel's pipeline; an add to zeros is exact); at 'balanced' and 'fast',
 whose sum order this checkout changed (or a tiers source may change),
 within chip_smoke's TOL_KERNEL of max.  Prints the card's name and power
-limit, one line per variant with the median and quartiles in ms, and a
-JSON line.  An entry point without
-the ``accumulate`` or ``tier`` argument (before it existed) is called
-without it; one without ``tier`` runs 'parity' only.
+limit, the clusters of the 'parity' kernel the card holds at once (this
+checkout's, and the other's where it has the entry point), one line per
+variant with the median and quartiles in ms, and a JSON line.  An entry
+point without the ``accumulate`` or ``tier`` argument (before it existed)
+is called without it; one without ``tier`` runs 'parity' only.
 """
 import argparse
 import ctypes
@@ -118,10 +119,15 @@ def main():
                                  str(args.other)], stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         _build.build()   # this checkout's sources, beside the other nvcc run
-        _build.load()
+        clusters = {'this': _build.load().psa_sed_projection_active_clusters()}
         log = nvcc.communicate(timeout=600)[0]
         if nvcc.returncode != 0:
             raise SystemExit(f"nvcc failed on {args.other}:\n{log}")
+        other_cdll = ctypes.CDLL(str(other_lib))
+        if hasattr(other_cdll, 'psa_sed_projection_active_clusters'):
+            clusters['other'] = other_cdll.psa_sed_projection_active_clusters()
+        print(f"[ab] clusters the card holds at once (cudaOccupancyMaxActiveClusters): {clusters}",
+              flush=True)
         if 'psa_sed_tier_product' in args.other.read_text():
             if args.tier == 'parity':
                 raise SystemExit(f"{args.other} runs 'balanced' or 'fast'")
@@ -176,7 +182,8 @@ def main():
               f"bitwise equal to this {same[name]}, {errs[name]:.3e} of max", flush=True)
     print(json.dumps({"other": str(args.other), "tier": args.tier,
                       "shape": [cs.N_T, cs.N_ATOMS, cs.K_CHUNK], "rounds": args.rounds,
-                      "variants": stats, "clocks_sm_power_after": clocks}), flush=True)
+                      "variants": stats, "active_clusters": clusters,
+                      "clocks_sm_power_after": clocks}), flush=True)
 
 
 if __name__ == '__main__':

@@ -89,6 +89,13 @@ non-zero.  The line before the last is a JSON record of each kernel (the
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
 any result.  About 9 minutes on an H100 machine.
 
+    python3 chip_smoke.py --phase 3c
+
+runs phase 3c alone (with the build): the 'parity' kernel's clusters at
+their edges (ragged and padded time tiles, ragged k-tiles, unaligned rows,
+``accumulate``, an ``out=`` row slice), each against the whole call's bits
+and the plain version;
+
     python3 chip_smoke.py --phase 16f
 
 runs phase 16f alone (with the build), on a machine with four cards;
@@ -187,6 +194,10 @@ KPATH_CHUNK = 100                     # k_chunk_size that cuts it into three chu
 KPATH_ROUNDS = 8                      # rounds of (pinned, staging, staging, pinned) walls
 HOST_SIZES = (60_000_000, 256_000_000, 1_000_000_000)   # bytes of the host allocations timed
 HOST_TRIALS = 3
+# Phase 3c: the 'parity' kernel's clusters at their edges.  10,016 steps are 157 time tiles (odd,
+# so the last cluster holds a padded tile); 5,000 atoms give 16-byte aligned rows, 5,003 not.
+CLUSTER_T, CLUSTER_ATOMS = 10_016, (5_000, 5_003)
+CLUSTER_NT, CLUSTER_NK = (1, 64, 65, 129, CLUSTER_T), (1, 33, 64)
 
 
 def log(phase, msg):
@@ -2167,8 +2178,9 @@ def mesh_cards(proj):
     bit; the wall of one resident call against each card's kernel time
     alone (the cards overlapped, not in turn); the counters
     ``mesh.exchange_bytes`` and ``mesh.ingest_bytes`` and the launches of a
-    call.  Skips with a message on fewer cards.  Returns the launches per
-    path."""
+    call; one launch of the 'parity' kernel on each card at once, each
+    card's bits equal card 0's.  Skips with a message on fewer cards.
+    Returns the launches per path."""
     n_cards = torch.cuda.device_count()
     if n_cards < MESH_CARDS:
         log('mesh', f"(f) skipped: {n_cards} CUDA device(s) visible; the resident mesh "
@@ -2214,6 +2226,27 @@ def mesh_cards(proj):
     check(1e3 * walls['resident'] < 0.5 * sum(kernel_ms),
           f"a resident call took {1e3 * walls['resident']:.1f} ms against the cards' kernels "
           f"{kernel_ms} ms: the cards ran in turn")
+    # One launch of the clustered 'parity' kernel on each card at once (an odd count of time
+    # tiles, unaligned rows, a ragged k-tile): each card's bits equal card 0's, which are
+    # held to the plain version.
+    gen0 = torch.Generator(cards[0]).manual_seed(SEED + 161)
+    n_a = CLUSTER_ATOMS[-1]
+    src = (torch.randn((CLUSTER_T, n_a, 3), generator=gen0, device=cards[0]),
+           *(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(cards[0])
+             for x in (hi64[:n_a], lo64[:n_a], k_vecs[:33])))
+    inputs = [tuple(x.to(card) for x in src) for card in cards]
+    at_once = []
+    for card, args in zip(cards, inputs):
+        with torch.cuda.device(card):
+            at_once.append(proj.sed_projection(*args))
+    for card in cards:
+        torch.cuda.synchronize(card)
+    e, scale = pair_err(at_once[0], proj.sed_projection_plain(*inputs[0]))
+    same = all(torch.equal(a.cpu(), b.cpu()) for out in at_once[1:] for a, b in zip(out, at_once[0]))
+    check(same and e / scale <= TOL_KERNEL,
+          f"one launch on each card at once at ({CLUSTER_T},{n_a},33): cards equal {same}, "
+          f"card 0 vs plain {e / scale:.3e}")
+    del src, inputs, at_once
     exchange = (MESH_CARDS - 1) * 2 * N_T * 3 * n_k * 4
     k_bytes = MESH_CARDS * n_k * 3 * 4
     window_bytes = N_T * N_ATOMS * 3 * 4 + 2 * N_ATOMS * 3 * 4
@@ -2229,7 +2262,9 @@ def mesh_cards(proj):
                 f"{walls['host']:.3f} s, peaks equal bit for bit; each card's kernel alone "
                 + ", ".join(f"{t:.1f}" for t in kernel_ms) + " ms; "
                 f"{exchange} exchange bytes and {k_bytes} ingest bytes a resident call "
-                f"({k_bytes + window_bytes} from the host source); {MESH_CARDS} launches each")
+                f"({k_bytes + window_bytes} from the host source); {MESH_CARDS} launches each; "
+                f"one launch on each card at once at ({CLUSTER_T},{CLUSTER_ATOMS[-1]},33): "
+                f"the same bits on every card, {e / scale:.3e} vs plain")
     del calc, parts
     torch.cuda.empty_cache()
     return {'mesh_cards_resident': counted['resident']['launch.parity'],
@@ -3697,6 +3732,85 @@ def pinned_result(dev, calc):
     getattr(torch._C, '_host_emptyCache', lambda: None)()   # the timings' blocks, where torch can
 
 
+def cluster_edges(proj, gen, rng, dev32):
+    """Phase 3c: the 'parity' kernel's clusters at their edges, on the card.
+    A block multiplies its own time tile by its k-tile's angle tile, which
+    the blocks of its cluster make in shares, so any prefix of the time
+    steps (n_t of CLUSTER_NT: one step, a whole tile, a tile and a step, an
+    odd count of tiles whose cluster holds a padded tile) and of the
+    k-points (CLUSTER_NK) gives the bits of the same rows and columns of the
+    whole call; each case is also held to the plain version.  At aligned
+    and unaligned rows (CLUSTER_ATOMS).  Then ``accumulate`` on a non-zero
+    ``out`` (its bits are the plain add of the kernel's own sum) and an
+    ``out=`` row slice (the whole call's bits, the rows around it kept).
+    Returns the largest error against the plain version per case."""
+    from psa_tpu_torch.ops.spectral import split_f64
+    dev = gen.device
+    errs = {}
+    for n_a in CLUSTER_ATOMS:
+        hi, lo = split_f64(rng.uniform(0, 50.0, size=(n_a, 3)))
+        data = torch.randn((CLUSTER_T, n_a, 3), generator=gen, device=dev)
+        hi, lo = dev32(hi), dev32(lo)
+        kv = dev32(rng.uniform(-3, 3, size=(max(CLUSTER_NK), 3)))
+        whole = proj.sed_projection(data, hi, lo, kv)
+        for n_t in CLUSTER_NT:
+            for n_k in CLUSTER_NK:
+                args = (data[:n_t], hi, lo, kv[:n_k])
+                got = proj.sed_projection(*args)
+                e, scale = pair_err(got, proj.sed_projection_plain(*args))
+                same = all(torch.equal(g, w[:n_t, :, :n_k]) for g, w in zip(got, whole))
+                errs[f"A{n_a}_t{n_t}_k{n_k}"] = e / scale
+                check(same and e / scale <= TOL_KERNEL,
+                      f"(n_t,A,K)=({n_t},{n_a},{n_k}): the whole call's bits {same}, "
+                      f"vs plain {e / scale:.3e}")
+        args = (data[:65], hi, lo, kv[:33])
+        got = proj.sed_projection(*args)
+        base = [torch.randn((65, 3, 33), generator=gen, device=dev) for _ in range(2)]
+        acc = proj.sed_projection(*args, out=[b.clone() for b in base], accumulate=True)
+        e, scale = pair_err(acc, proj.sed_projection_plain(*args, out=[b.clone() for b in base],
+                                                           accumulate=True))
+        same = all(torch.equal(a, b + g) for a, b, g in zip(acc, base, got))
+        errs[f"A{n_a}_accumulate"] = e / scale
+        check(same and e / scale <= TOL_KERNEL,
+              f"accumulate at (65,{n_a},33): the kernel's sum added {same}, vs plain {e / scale:.3e}")
+        sig = [torch.full((129 + 40, 3, 33), 7.0, device=dev) for _ in range(2)]
+        rows = [x[20:20 + 129] for x in sig]
+        proj.sed_projection(data[:129], hi, lo, kv[:33], out=rows)
+        same = all(torch.equal(r, w[:129, :, :33]) for r, w in zip(rows, whole))
+        kept = all(bool((x[:20] == 7.0).all() and (x[20 + 129:] == 7.0).all()) for x in sig)
+        check(same and kept, f"out= row slice at (129,{n_a},33): whole call's bits {same}, "
+                             f"rows around it kept {kept}")
+        del data, whole
+    return errs
+
+
+def phase3c_alone():
+    """``python3 chip_smoke.py --phase 3c``: the build (ptxas's counts and the
+    clusters the card holds at once), then phase 3c."""
+    from psa_tpu_torch import _build
+    from psa_tpu_torch.ops import sed_projection as proj
+    t_start = time.perf_counter()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    _build.build()
+    lib = _build.load()
+    log('build', f"sed_projection_kernel: {ptxas_by_kernel(_build.build_log)['sed_projection_kernel']}"
+                 f", {lib.psa_sed_projection_smem_bytes()} bytes of dynamic shared memory, "
+                 f"{lib.psa_sed_projection_active_clusters()} clusters of "
+                 f"{proj.PARITY_CLUSTER} at once")
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+
+    def dev32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+    errs = cluster_edges(proj, gen, rng, dev32)
+    log('cluster', f"{len(errs)} cases, each the whole call's bits; largest vs plain "
+                   f"{max(errs.values()):.3e} (tol {TOL_KERNEL})")
+    log('done', f"phase 3c took {time.perf_counter() - t_start:.1f} s")
+
+
 def phase18_alone():
     """``python3 chip_smoke.py --phase 18``: the build, the working velocities
     preloaded into the working calculator, then phase 18."""
@@ -3815,6 +3929,11 @@ def main():
     err_abs, err_rel, _, _ = compare_kernel(proj, view, *small[1:], reps=1)
     check(view.data_ptr() % 16 and err_rel <= TOL_KERNEL, f"unaligned view vs plain {err_rel:.3e}")
     log('kernel', f"unaligned view (n_t,A,K)=({view.shape[0]},{n_a},{n_k}): rel err {err_rel:.3e}")
+    cluster_errs = cluster_edges(proj, gen, rng, dev32)
+    log('cluster', f"{len(cluster_errs)} cases, each the whole call's bits; largest vs plain "
+                   f"{max(cluster_errs.values()):.3e} (tol {TOL_KERNEL}); "
+                   f"{lib.psa_sed_projection_active_clusters()} clusters of "
+                   f"{proj.PARITY_CLUSTER} at once")
 
     t0 = time.perf_counter()
     velocities = torch.randn((N_T, N_ATOMS, 3), generator=gen, device=dev)
@@ -4102,8 +4221,11 @@ if __name__ == '__main__':
         phase17_alone()
     elif sys.argv[1:] == ['--phase', '18']:
         phase18_alone()
+    elif sys.argv[1:] == ['--phase', '3c']:
+        phase3c_alone()
     elif sys.argv[1:]:
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 16f | --phase 17 | --phase 18]")
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 3c | --phase 16f | --phase 17 | "
+                         "--phase 18]")
     else:
         main()
     sys.exit(0)

@@ -34,6 +34,7 @@ SIGNATURES = {
     # data, mp_hi, mp_lo, kv, out_re, out_im, n_t, n_atoms, n_k, accumulate, stream
     'psa_sed_projection': ([_PTR] * 6 + [_LL] * 3 + [_I32, _PTR], _I32),
     'psa_sed_projection_smem_bytes': ([], _I32),
+    'psa_sed_projection_active_clusters': ([], _I32),
     # mp_hi, mp_lo, kv, table, table_bytes, atom0, n_atoms, n_k, tier, stream
     'psa_sed_tier_table': ([_PTR] * 4 + [_LL] * 4 + [_I32, _PTR], _I32),
     # data, table, table_bytes, out_re, out_im, n_t, row_atoms, atom0, n_atoms, n_k,

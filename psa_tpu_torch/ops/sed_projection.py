@@ -54,6 +54,10 @@ TABLE_CAP_BYTES = 1 << 30
 #: The table's tiles (``sed_projection_tiers.cu``: BA, BK, STAGE_BYTES): atoms
 #: per stage, k-points per tile, bytes of one tile (either tier).
 TABLE_ATOMS, TABLE_K, TABLE_TILE_BYTES = 32, 64, 16384
+#: The fused 'parity' kernel's tiles (``sed_projection.cu``: BT, BK, CL): time
+#: steps and k-points per block, blocks per cluster (time tiles that share
+#: one angle tile).
+PARITY_T, PARITY_K, PARITY_CLUSTER = 64, 32, 2
 
 
 def accurate_angles(mp_hi: torch.Tensor, mp_lo: torch.Tensor,
@@ -127,6 +131,15 @@ def _tier_product(d: torch.Tensor, parts: Tuple[torch.Tensor, ...], precision: s
 def table_bytes(n_atoms: int, n_k: int) -> int:
     """Bytes of the tiled table of ``n_atoms`` atoms and ``n_k`` k-points."""
     return -(-n_k // TABLE_K) * -(-n_atoms // TABLE_ATOMS) * TABLE_TILE_BYTES
+
+
+def parity_tiles(n_t: int, n_k: int) -> Tuple[int, int]:
+    """(time tiles, angle tiles) of one 'parity' launch on ``n_t`` time steps
+    and ``n_k`` k-points: the output tiles whose products run,
+    ⌈n_t / PARITY_T⌉·⌈n_k / PARITY_K⌉, and the angle tiles made, one per
+    cluster, ⌈⌈n_t / PARITY_T⌉ / PARITY_CLUSTER⌉·⌈n_k / PARITY_K⌉."""
+    grid_t, grid_k = -(-n_t // PARITY_T), -(-n_k // PARITY_K)
+    return grid_t * grid_k, -(-grid_t // PARITY_CLUSTER) * grid_k
 
 
 def atom_blocks(n_atoms: int, n_k: int, cap_bytes: Optional[int] = None
@@ -421,6 +434,9 @@ def sed_projection(data: torch.Tensor, mp_hi: torch.Tensor, mp_lo: torch.Tensor,
                     _stream(device))
             _raise_on(err, "sed_projection")
             count('launch.parity')
+            time_tiles, angle_tiles = parity_tiles(n_t, n_k)
+            count('parity.time_tiles', time_tiles)
+            count('parity.angle_tiles', angle_tiles)
         else:
             blocks = atom_blocks(n_atoms, n_k)
             scratch = torch.empty(table_bytes(blocks[0][1] - blocks[0][0], n_k), dtype=torch.uint8,

@@ -64,7 +64,11 @@ whole by :func:`snapshot`:
   * ``htod_bytes``: bytes sent to the device (``HostToDevice.put``, the
     calculator's ``_to_device``);
   * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the
-    projection's kernels (``ops/sed_projection.kernel_launches`` sums them).
+    projection's kernels (``ops/sed_projection.kernel_launches`` sums them);
+  * ``parity.time_tiles``, ``parity.angle_tiles``: at each launch of the
+    'parity' kernel, the output tiles whose products run and the angle
+    tiles made, one per cluster of time tiles
+    (``ops/sed_projection.parity_tiles``);
   * ``mesh.ingest_bytes``: bytes copied from the host to a mesh's positions
     for their sweeps (the windows, and the SED's mean positions, weights
     and k-vectors), on any device;
