@@ -92,6 +92,20 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return host
 
 
+def _chunk_block(k_chunk_size: int, num_k: int) -> int:
+    """k-points per chunk of a sweep over ``num_k`` (at least one): the
+    chunk size the shard caches' keys hold."""
+    return max(1, min(int(k_chunk_size), num_k))
+
+
+def _union_group(atom_groups: List[np.ndarray]) -> np.ndarray:
+    """The one atom group of a coherent sum: several groups' union, each
+    atom once, ascending; one group as it is; no group, no atom."""
+    if len(atom_groups) > 1:
+        return np.unique(np.concatenate(atom_groups)).astype(int)
+    return atom_groups[0] if atom_groups else np.array([], dtype=int)
+
+
 class _Projections:
     """(re, im) projections of a sweep's spectrum groups on its k-chunks.
 
@@ -694,33 +708,44 @@ class SEDCalculator:
         """Yield (a0, a1, data, mp_hi, mp_lo) device tensors for consecutive
         atom blocks [a0, a1) of a group, read from the host trajectory.
 
-        Each block crosses through pinned staging on a side stream
-        (:class:`psa_tpu_torch.utils.transfer.HostToDevice`), so the host
+        The blocks cross as :meth:`_staged_blocks` stages them, so the host
         gathers and copies block b+1 while the kernels of block b run; the
         displacement and mass transforms then run on the device exactly as
         :meth:`_group_device_arrays` runs them on a resident group.  A
         block's tensors are valid until the next block but one.
         """
-        n_t, n = self.traj.n_frames, int(group_idx.size)
-        block = block_atoms or self.stream_block_atoms(n)
+        block = block_atoms or self.stream_block_atoms(int(group_idx.size))
         hi_host, lo_host = spectral.split_f64(self.mean_positions64[group_idx])
         hi_dev, lo_dev = self._to_device(hi_host), self._to_device(lo_host)
         weights = (torch.sqrt(self._to_device(self.traj.masses[group_idx]))
                    if self.mass_weighted else None)
         src = self.traj.positions if self.use_displacements else self.traj.velocities
-        take = self._host_blocks(group_idx)
-        stager = HostToDevice(self.device, n_t * block * 3)
-        logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
-        for a0 in range(0, n, block):
-            a1 = min(a0 + block, n)
-            data = stager.put(lambda dst: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
+        for a0, a1, (data,) in self._staged_blocks(group_idx, block, [src]):
             hi, lo = hi_dev[a0:a1], lo_dev[a0:a1]
             if self.use_displacements:
                 data = spectral.displacement_data(data, hi, lo)
             if weights is not None:
                 data = data * weights[a0:a1][None, :, None]
             yield a0, a1, data, hi, lo
-        self.streamed_bytes += stager.bytes_moved
+
+    def _staged_blocks(self, group_idx: np.ndarray, block: int, srcs):
+        """Yield (a0, a1, blocks) for consecutive blocks [a0, a1) of ``block``
+        atoms of a group: of each host array of ``srcs`` (None: none read),
+        the (n_t, a1 − a0, 3) float32 rows on the device, staged through
+        pinned memory on a side stream
+        (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`).  The bytes
+        staged add to ``streamed_bytes`` once the last block is taken."""
+        n, n_t = int(group_idx.size), self.traj.n_frames
+        take = self._host_blocks(group_idx)
+        stagers = [None if src is None else HostToDevice(self.device, n_t * block * 3)
+                   for src in srcs]
+        logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
+        for a0 in range(0, n, block):
+            a1 = min(a0 + block, n)
+            yield a0, a1, tuple(None if src is None else st.put(
+                lambda dst, src=src: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
+                for st, src in zip(stagers, srcs))
+        self.streamed_bytes += sum(st.bytes_moved for st in stagers if st is not None)
 
     def _streamed_projections(self, group_idx: np.ndarray, k_chunks: List[torch.Tensor]):
         """(re, im) projections of an oversize group on each device k-chunk.
@@ -770,9 +795,8 @@ class SEDCalculator:
         package's key and layout): an interrupted sweep resumes by computing
         only the missing chunks.
         """
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
-
+        atom_groups, groups, reduction = self._reduction(
+            'spectrum', basis_atom_indices, basis_atom_types, summation_mode)
         n_t, n_atoms_tot = self.traj.n_frames, self.traj.n_atoms
         if n_t == 0 or n_atoms_tot == 0:
             logger.warning("Cannot calculate SED: 0 frames or 0 atoms.")
@@ -781,10 +805,7 @@ class SEDCalculator:
                        k_grid_shape=k_grid_shape, is_complex=True, phase=None)
 
         freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
-        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
-                                                summation_mode)
-        groups, is_complex_output = self._spectrum_groups(atom_groups, summation_mode)
-
+        is_complex_output = reduction.kind == 'spectrum'
         num_k = len(k_vectors_3d)
         shape = (len(freqs), num_k, 3) if is_complex_output else (len(freqs), num_k)
         dtype = torch.complex64 if is_complex_output else torch.float32
@@ -798,7 +819,6 @@ class SEDCalculator:
         if num_k == 0:
             logger.warning("k_vectors_3d is empty. Returning SED object with empty SED data.")
 
-        bounds = self._chunk_bounds(num_k, k_chunk_size)
         cache = None
         if cache_dir is not None and num_k > 0:
             from ..io.shard_cache import ShardedSEDCache, trajectory_fingerprint
@@ -811,51 +831,24 @@ class SEDCalculator:
                 'mass_weighted': self.mass_weighted,
                 'precision': self.precision,
                 'dt_ps': float(self.dt_ps),
-                'k_chunk_size': int(bounds[0][1] - bounds[0][0]),
+                'k_chunk_size': _chunk_block(k_chunk_size, num_k),
                 'anchor': self._phase_anchor,
             })
-        todo = self._resume(cache, bounds, lambda c, s, e: c.shape[1] == e - s,
-                            lambda c, s, e: full_sed.__setitem__(np.s_[:, s:e], c))
-        if not todo or not groups:
-            return SED(full_sed, freqs, k_points_mags, k_vectors_3d,
-                       k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
-                       dt_ps=self.dt_ps)
 
-        def sink(arrays, ci, s, e, landed):
-            if not landed:
-                full_sed[:, s:e] = arrays[0]
-            if cache is not None:
-                cache.store(ci, full_sed[:, s:e])
-
-        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
-        readback = DeviceToHost(self.device)
-        for ci in todo:
-            s, e = bounds[ci]
-            logger.debug("Processing k-chunk %d/%d (indices %d-%d)", ci + 1, len(bounds), s, e - 1)
-            if is_complex_output:
-                re, im = proj.get(0, ci)
-                with span('psa.spectrum'):
-                    out = spectral.finalize_spectrum(re, im).contiguous()
-            else:
-                out = None
-                for gi in range(len(groups)):
-                    re, im = proj.get(gi, ci)
-                    with span('psa.spectrum'):
-                        inten = spectral._power(spectral.finalize_spectrum(re, im))
-                        out = inten if out is None else out + inten
+        def into(s, e):
             # a chunk that spans the k axis is read back straight into the pinned Φ
             dst = None if full_t is None else full_t[:, s:e]
-            into = [dst] if dst is not None and dst.is_contiguous() else None
-            readback.push([out], functools.partial(sink, ci=ci, s=s, e=e, landed=into is not None),
-                          into=into)
-        readback.finish()
+            return [dst] if dst is not None and dst.is_contiguous() else None
 
+        self._project(groups, reduction, k_vectors_3d, k_chunk_size, [full_sed], cache,
+                      into=into)
         return SED(full_sed, freqs, k_points_mags, k_vectors_3d,
                    k_grid_shape=k_grid_shape, is_complex=is_complex_output, phase=None,
                    dt_ps=self.dt_ps)
 
     # ------------------------------------------------------------------
-    # Shared set-up: spectrum groups, k-chunks, kept frequency rows, resume
+    # Shared set-up and the k-chunk loop: spectrum groups, the reduction,
+    # k-chunks, resume, the sweep
     # ------------------------------------------------------------------
 
     @staticmethod
@@ -865,47 +858,38 @@ class SEDCalculator:
         Only a 0-atom trajectory resolves to an empty group; it is dropped,
         so a sweep over no groups leaves its planes at zero."""
         if summation_mode == 'coherent' or len(atom_groups) <= 1:
-            if len(atom_groups) > 1:
-                union = np.unique(np.concatenate(atom_groups)).astype(int)
-            else:
-                union = atom_groups[0] if atom_groups else np.array([], dtype=int)
+            union = _union_group(atom_groups)
             return ([union] if union.size else []), True
         return atom_groups, False
 
-    def _kept_freqs(self, max_freq: Optional[float], segments: int = 1):
-        """(freqs_kept float32, freq_idx int64) of the ω ≥ 0 (and ≤ max_freq)
-        rows of the n_t // segments spectrum."""
-        freqs = spectral.fftfreq_thz(self.traj.n_frames // segments, self.dt_ps)
-        mask = freqs >= 0
-        if max_freq is not None:
-            mask &= freqs <= max_freq
-        return freqs[mask].astype(np.float32), np.flatnonzero(mask)
+    def _reduction(self, kind: str, basis_atom_indices, basis_atom_types,
+                   summation_mode: str, **checked):
+        """(atom_groups, groups, reduction) of a projection surface: the
+        resolved groups, the spectrum groups (:meth:`_spectrum_groups`) and
+        :meth:`spectral.Reduction.for_surface` of ``kind`` with the surface's
+        other arguments ``checked`` (shared by each surface and its mesh
+        twin)."""
+        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                summation_mode)
+        groups, single = self._spectrum_groups(atom_groups, summation_mode)
+        return atom_groups, groups, spectral.Reduction.for_surface(
+            kind, self.traj.n_frames, self.dt_ps, summation_mode, single, **checked)
+
+    def _host_outputs(self, reduction: spectral.Reduction, num_k: int) -> List[np.ndarray]:
+        """A surface's zeroed float32 host outputs, (*lead, num_k) for each
+        lead of ``reduction``."""
+        with span('psa.host.assemble'):
+            return [np.zeros(lead + (num_k,), dtype=np.float32)
+                    for lead in reduction.leads(self.traj.n_frames)]
 
     @staticmethod
     def _chunk_bounds(num_k: int, k_chunk_size: int) -> List[Tuple[int, int]]:
         """(start, end) of each k-chunk; the last may be ragged (the kernel
         masks it, so nothing is padded)."""
-        block = min(max(1, k_chunk_size), num_k) if num_k > 0 else 1
+        block = _chunk_block(k_chunk_size, num_k)
         return [(s, min(s + block, num_k)) for s in range(0, num_k, block)]
 
-    @staticmethod
-    def _resume(cache, bounds, fits, fill) -> List[int]:
-        """Indices of the chunks still to compute: with a shard cache, each
-        stored chunk that ``fits(chunk, s, e)`` is handed to
-        ``fill(chunk, s, e)`` and skipped."""
-        todo = []
-        for ci, (s, e) in enumerate(bounds):
-            cached = cache.load(ci) if cache is not None else None
-            if cached is not None and fits(cached, s, e):
-                fill(cached, s, e)
-            else:
-                todo.append(ci)
-        if cache is not None and len(todo) < len(bounds):
-            logger.info("shard cache %s: %d/%d chunks resumed.", cache.key,
-                        len(bounds) - len(todo), len(bounds))
-        return todo
-
-    def _chunk_cache(self, cache_dir, observable: str, k_vectors_3d, block: int,
+    def _chunk_cache(self, cache_dir, observable: str, k_vectors_3d, k_chunk_size: int,
                      extra: Optional[Dict] = None):
         """Per-k-chunk resumable-sweep cache, or None: the JAX package's
         content key (trajectory fingerprint, k set, observable, calculator
@@ -925,28 +909,87 @@ class SEDCalculator:
             'phase_mode': self.phase_mode,
             'anchor': self._phase_anchor,
             'dt_ps': float(self.dt_ps),
-            'k_chunk_size': int(block),
+            'k_chunk_size': _chunk_block(k_chunk_size, len(k_vectors_3d)),
         }
         if extra:
             workload.update(extra)
         return ShardedSEDCache(Path(cache_dir), workload=workload)
 
-    def _welch_segments(self, welch_segments, welch_window: str) -> int:
-        """Validate (welch_segments, welch_window); returns segments (1 =
-        single-window estimator)."""
-        if welch_segments is None:
-            return 1
-        if (not isinstance(welch_segments, (int, np.integer))
-                or welch_segments < 1):
-            raise ValueError("welch_segments must be a positive int, got "
-                             f"{welch_segments!r}")
-        seg = self.traj.n_frames // int(welch_segments)
-        if seg < 2:
-            raise ValueError(
-                f"welch_segments={welch_segments} leaves {seg} frames per "
-                f"segment (n_frames={self.traj.n_frames}); need at least 2")
-        spectral.welch_window(seg, welch_window)  # validates the name
-        return int(welch_segments)
+    def _sweep(self, num_k: int, k_chunk_size: int, cache, fits, chunks, reduce, store,
+               into=None, read_once: bool = False) -> None:
+        """The k-chunk loop of every chunked surface.  A chunk stored in
+        ``cache`` that ``fits(chunk, s, e)`` goes to ``store(chunk, None, s,
+        e, cached=True)``; for the others, ``chunks(bounds, todo)`` yields
+        (ci, s, e, *device results), ``reduce(s, e, *results)`` gives the
+        device arrays to read back, and ``store(arrays, ci, s, e)`` takes
+        them on the host (one-deep pinned readback: the host stores chunk i
+        while the device computes chunk i+1).  ``into(s, e)`` may name
+        pinned host tensors for a chunk's arrays to land in
+        (:class:`DeviceToHost`).  With ``read_once`` every chunk's arrays
+        stay on the device and are read back after the last, concatenated
+        along k: one wait, then ``store(arrays, None, 0, num_k)``."""
+        bounds, todo = self._chunk_bounds(num_k, k_chunk_size), []
+        for ci, (s, e) in enumerate(bounds):
+            stored = cache.load(ci) if cache is not None else None
+            if stored is not None and fits(stored, s, e):
+                store(stored, None, s, e, cached=True)
+            else:
+                todo.append(ci)
+        if cache is not None and len(todo) < len(bounds):
+            logger.info("shard cache %s: %d/%d chunks resumed.", cache.key,
+                        len(bounds) - len(todo), len(bounds))
+        if not todo:
+            return
+        if read_once:
+            found = [reduce(s, e, *res) for _, s, e, *res in chunks(bounds, todo)]
+            if found:
+                arrays = [_to_host(torch.cat(col, dim=-1)) for col in zip(*found)]
+                with span('psa.host.assemble'):
+                    store(arrays, None, 0, num_k)
+            return
+        readback = DeviceToHost(self.device)
+        for ci, s, e, *res in chunks(bounds, todo):
+            readback.push(list(reduce(s, e, *res)), functools.partial(store, ci=ci, s=s, e=e),
+                          into=into(s, e) if into is not None else None)
+        readback.finish()
+
+    def _project(self, groups: List[np.ndarray], reduction: spectral.Reduction, k_vectors_3d,
+                 k_chunk_size: int, outs: List[np.ndarray], cache=None, **sweep) -> None:
+        """:meth:`_sweep` of a projection surface into its host outputs
+        ``outs`` (k on axis 1): each k-chunk's groups projected in turn
+        (:class:`_Projections`), drawn one at a time by ``reduction``, whose
+        :meth:`~spectral.Reduction.host` takes the readback; no groups, no
+        chunk.  ``cache`` keeps a chunk as the outputs stacked (one output:
+        itself), and a stored chunk of that shape resumes."""
+        def chunks(bounds, todo):
+            if not groups:
+                return
+            on = reduction.inputs(self.device, self._to_device)
+            proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
+
+            def pairs(ci):
+                return (proj.get(gi, ci) for gi in range(len(groups)))
+            for ci in todo:
+                s, e = bounds[ci]
+                logger.debug("Processing k-chunk %d/%d (indices %d-%d)", ci + 1, len(bounds),
+                             s, e - 1)
+                yield ci, s, e, pairs(ci), on
+
+        def store(arrays, ci, s, e, cached=False):
+            planes = ((list(arrays) if len(outs) > 1 else [arrays]) if cached
+                      else reduction.host(arrays))
+            for o, p in zip(outs, planes):
+                if not np.may_share_memory(o, p):       # else read back in place
+                    o[:, s:e] = p
+            if cache is not None and not cached:
+                chunk = [o[:, s:e] for o in outs]
+                cache.store(ci, np.stack(chunk) if len(outs) > 1 else chunk[0])
+
+        def fits(c, s, e):
+            stack = (len(outs),) if len(outs) > 1 else ()
+            return c.shape == stack + outs[0].shape[:1] + (e - s,) + outs[0].shape[2:]
+        self._sweep(len(k_vectors_3d), k_chunk_size, cache, fits, chunks, reduction.reduce,
+                    store, **sweep)
 
     # ------------------------------------------------------------------
     # Welch/Bartlett segment-averaged spectra
@@ -970,60 +1013,24 @@ class SEDCalculator:
         over ``max_device_bytes`` streams: the taper multiplies the projected
         signal, so the atom blocks stream once for all segments.
         """
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError("summation_mode must be 'coherent' or "
-                             f"'incoherent', got {summation_mode}")
+        _, groups, reduction = self._reduction(
+            'welch', basis_atom_indices, basis_atom_types, summation_mode,
+            welch_segments=segments, welch_window=window)
         if self.traj.n_frames == 0 or self.traj.n_atoms == 0:
             logger.warning("Cannot calculate Welch SED: 0 frames or 0 atoms.")
             return SED(np.zeros((0, len(k_vectors_3d)), dtype=np.float32),
                        np.array([], dtype=np.float32), k_points_mags,
                        k_vectors_3d, k_grid_shape=k_grid_shape,
                        is_complex=False)
-        segments = self._welch_segments(segments, window)
-        seg = self.traj.n_frames // segments
-
-        freqs = spectral.fftfreq_thz(seg, self.dt_ps)
-        groups, _ = self._spectrum_groups(
-            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
-            summation_mode)
-        with span('psa.host.assemble'):
-            full = np.zeros((seg, len(k_vectors_3d)), dtype=np.float32)
-        bounds = self._chunk_bounds(len(k_vectors_3d), k_chunk_size)
-        todo = list(range(len(bounds))) if groups else []
-        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
-        readback = DeviceToHost(self.device)
-        for ci in todo:
-            s, e = bounds[ci]
-            inten = None
-            for gi in range(len(groups)):
-                re, im = proj.get(gi, ci)
-                with span('psa.spectrum'):
-                    iv = spectral.welch_intensity_reduce(re, im, segments, window)
-                    inten = iv if inten is None else inten + iv
-            readback.push([inten], lambda a, s=s, e=e: full.__setitem__(np.s_[:, s:e], a[0]))
-        readback.finish()
-        return SED(full, freqs, k_points_mags, k_vectors_3d,
-                   k_grid_shape=k_grid_shape, is_complex=False, dt_ps=self.dt_ps,
-                   trajectory_metadata={'welch_segments': int(segments), 'window': window})
+        (full,) = self._host_outputs(reduction, len(k_vectors_3d))
+        self._project(groups, reduction, k_vectors_3d, k_chunk_size, [full])
+        return SED(full, spectral.fftfreq_thz(len(full), self.dt_ps), k_points_mags,
+                   k_vectors_3d, k_grid_shape=k_grid_shape, is_complex=False, dt_ps=self.dt_ps,
+                   trajectory_metadata={'welch_segments': reduction.segments, 'window': window})
 
     # ------------------------------------------------------------------
     # Device-reduced k-grid browsing
     # ------------------------------------------------------------------
-
-    @staticmethod
-    def _browse_planes(re: torch.Tensor, im: torch.Tensor, freq_idx_dev: torch.Tensor,
-                       comp_pair, angle_range_opt: str, segments: int = 1,
-                       window: str = 'hann'):
-        """Device (intensity, phase or None) planes of one group's (n_t, 3, K)
-        projection pair; ``segments`` > 1 runs the Welch estimator
-        (``freq_idx_dev`` then indexes the segment spectrum)."""
-        with span('psa.spectrum'):
-            if segments > 1:
-                return spectral.welch_browse_reduce(re, im, freq_idx_dev, segments, window,
-                                                    comp_pair=comp_pair,
-                                                    angle_range_opt=angle_range_opt)
-            return spectral.browse_reduce(spectral.finalize_spectrum(re, im), freq_idx_dev,
-                                          comp_pair=comp_pair, angle_range_opt=angle_range_opt)
 
     def calculate_kgrid_browse(self, k_vectors_3d: np.ndarray,
                                basis_atom_indices=None, basis_atom_types=None,
@@ -1067,94 +1074,28 @@ class SEDCalculator:
             (freqs_kept (n_keep,), intensity (n_keep, n_k) float32,
              phase (n_keep, n_k) float32 or None)
         """
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
-        if readback_dtype not in ('float32', 'float16'):
-            raise ValueError("readback_dtype must be 'float32' or 'float16', "
-                             f"got {readback_dtype!r}")
-        if readback_dtype == 'float16' and engine == 'gridded':
-            raise ValueError("readback_dtype='float16' runs on the direct "
-                             "engine.")
-        segments = self._welch_segments(welch_segments, welch_window)
-        if segments > 1 and engine == 'gridded':
-            raise ValueError("welch_segments runs on the direct engine "
-                             "(the NUFFT reduction carries no segment axis).")
-        if cache_dir is not None and engine == 'gridded':
-            raise ValueError("cache_dir checkpointing runs on the direct "
-                             "engine (the NUFFT sweep has no k-chunk axis).")
-        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
-        groups, single_spectrum = self._spectrum_groups(
-            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
-            summation_mode)
-        if chiral and not single_spectrum:
-            raise ValueError("Chiral phase needs a single complex spectrum; "
-                             "use coherent summation.")
-        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
+        _, groups, reduction = self._reduction(
+            'browse', basis_atom_indices, basis_atom_types, summation_mode, engine=engine,
+            cache_dir=cache_dir, max_freq=max_freq, chiral=chiral, chiral_axis=chiral_axis,
+            angle_range_opt=angle_range_opt, welch_segments=welch_segments,
+            welch_window=welch_window, readback_dtype=readback_dtype)
         if engine == 'gridded':
             intensity, phase = self._gridded_sweep(
-                k_vectors_3d, k_grid_shape, groups, single_spectrum, freq_idx,
-                comp_pair=comp_pair, angle_range_opt=angle_range_opt)
-            return freqs_kept, intensity, phase
+                k_vectors_3d, k_grid_shape, groups, reduction.freq_idx,
+                comp_pair=reduction.comp_pair, angle_range_opt=angle_range_opt)
+            return reduction.freqs_kept, intensity, phase
         if engine not in ('direct', 'auto'):
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-
-        num_k = len(k_vectors_3d)
-        with span('psa.host.assemble'):
-            intensity = np.zeros((len(freq_idx), num_k), dtype=np.float32)
-            phase = np.zeros_like(intensity) if comp_pair is not None else None
-        bounds = self._chunk_bounds(num_k, k_chunk_size)
+        outs = self._host_outputs(reduction, len(k_vectors_3d))
+        comp_pair = reduction.comp_pair
         cache = self._chunk_cache(
-            cache_dir, 'browse', k_vectors_3d, bounds[0][1] - bounds[0][0] if bounds else 1,
+            cache_dir, 'browse', k_vectors_3d, k_chunk_size,
             {'groups': [g.tolist() for g in groups], 'mode': summation_mode,
              'max_freq': max_freq, 'chiral': list(comp_pair) if comp_pair else None,
-             'angle': angle_range_opt, 'welch': [segments, welch_window],
+             'angle': angle_range_opt, 'welch': [reduction.segments, welch_window],
              'readback': readback_dtype})
-
-        def store(planes, ci, s, e):
-            if phase is None:
-                intensity[:, s:e] = planes
-            else:
-                intensity[:, s:e], phase[:, s:e] = planes[0], planes[1]
-            if ci is not None and cache is not None:
-                cache.store(ci, np.stack([intensity[:, s:e], phase[:, s:e]])
-                            if phase is not None else intensity[:, s:e])
-
-        want_ndim = 3 if comp_pair is not None else 2
-        todo = self._resume(cache, bounds,
-                            lambda c, s, e: c.ndim == want_ndim and c.shape[-1] == e - s,
-                            lambda c, s, e: store(c, None, s, e))
-        if not groups:
-            todo = []
-        f16 = readback_dtype == 'float16'
-
-        def sink(arrays, ci, s, e):
-            if f16:
-                inten = np.zeros((len(freq_idx), e - s), dtype=np.float32)
-                per = 3 if comp_pair is not None else 2
-                for g0 in range(0, len(arrays), per):
-                    inten += spectral.decompress_plane(arrays[g0], arrays[g0 + 1])
-                planes = [inten] + ([arrays[2].astype(np.float32)] if per == 3 else [])
-            else:
-                planes = arrays
-            store(planes[0] if phase is None else planes, ci, s, e)
-
-        freq_idx_dev = self._to_device(freq_idx, np.int64)
-        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
-        readback = DeviceToHost(self.device)
-        for ci in todo:
-            s, e = bounds[ci]
-            out, inten = [], None
-            for gi in range(len(groups)):
-                iv, ph = self._browse_planes(*proj.get(gi, ci), freq_idx_dev, comp_pair,
-                                             angle_range_opt, segments, welch_window)
-                if f16:
-                    out.extend(spectral.compress_browse(iv, ph))
-                else:
-                    inten = iv if inten is None else inten + iv
-                    out = [inten] + ([ph] if ph is not None else [])
-            readback.push(out, functools.partial(sink, ci=ci, s=s, e=e))
-        readback.finish()
-        return freqs_kept, intensity, phase
+        self._project(groups, reduction, k_vectors_3d, k_chunk_size, outs, cache)
+        return reduction.freqs_kept, outs[0], (outs[1] if comp_pair is not None else None)
 
     # ------------------------------------------------------------------
     # Longitudinal / transverse polarization decomposition
@@ -1179,39 +1120,12 @@ class SEDCalculator:
             (freqs_kept (n_keep,), I_L (n_keep, n_k) float32,
              I_T (n_keep, n_k) float32)
         """
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or "
-                             f"'incoherent', got {summation_mode}")
-        freqs_kept, freq_idx = self._kept_freqs(max_freq)
-        groups, _ = self._spectrum_groups(
-            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
-            summation_mode)
-        num_k = len(k_vectors_3d)
-        with span('psa.host.assemble'):
-            i_long = np.zeros((len(freq_idx), num_k), dtype=np.float32)
-            i_trans = np.zeros_like(i_long)
-        bounds = self._chunk_bounds(num_k, k_chunk_size)
-        todo = list(range(len(bounds))) if groups else []
-        freq_idx_dev = self._to_device(freq_idx, np.int64)
-        ku_dev = self._to_device(spectral.unit_k_vectors(k_vectors_3d))
-
-        def sink(arrays, s, e):
-            i_long[:, s:e], i_trans[:, s:e] = arrays
-
-        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
-        readback = DeviceToHost(self.device)
-        for ci in todo:
-            s, e = bounds[ci]
-            i_l = i_t = None
-            for gi in range(len(groups)):
-                re, im = proj.get(gi, ci)
-                with span('psa.spectrum'):
-                    l_g, t_g = spectral.lt_reduce(spectral.finalize_spectrum(re, im),
-                                                  ku_dev[s:e], freq_idx_dev)
-                    i_l, i_t = (l_g, t_g) if i_l is None else (i_l + l_g, i_t + t_g)
-            readback.push([i_l, i_t], functools.partial(sink, s=s, e=e))
-        readback.finish()
-        return freqs_kept, i_long, i_trans
+        _, groups, reduction = self._reduction(
+            'lt', basis_atom_indices, basis_atom_types, summation_mode, max_freq=max_freq,
+            k_vectors=k_vectors_3d)
+        outs = self._host_outputs(reduction, len(k_vectors_3d))
+        self._project(groups, reduction, k_vectors_3d, k_chunk_size, outs)
+        return (reduction.freqs_kept,) + tuple(outs)
 
     # ------------------------------------------------------------------
     # On-device peak extraction (dispersion surfaces)
@@ -1265,89 +1179,35 @@ class SEDCalculator:
             (peak_freqs, peak_heights, peak_widths[, peak_phase]): each
             (n_peaks, n_k) float32, by descending height per k-column.
         """
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', got {summation_mode}")
-        if n_peaks < 1:
-            raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
-        if width_method not in ('rms', 'lorentzian'):
-            raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
-                             f"got {width_method!r}")
-        segments = self._welch_segments(welch_segments, welch_window)
-        if segments > 1 and engine == 'gridded':
-            raise ValueError("welch_segments runs on the direct engine "
-                             "(the NUFFT reduction carries no segment axis).")
-        if cache_dir is not None and engine == 'gridded':
-            raise ValueError("cache_dir checkpointing runs on the direct "
-                             "engine (the NUFFT sweep has no k-chunk axis).")
-        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
-        if freq_idx.size == 0:
-            raise ValueError("No frequencies retained; check max_freq.")
-        groups, single_spectrum = self._spectrum_groups(
-            self._resolve_atom_groups(basis_atom_indices, basis_atom_types, summation_mode),
-            summation_mode)
-        comp_pair = None
-        if chiral:
-            if not single_spectrum:
-                raise ValueError("chiral peaks need coherent summation.")
-            comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis]
-            if engine == 'gridded':
-                raise ValueError("chiral peaks run on the direct engine "
-                                 "(the gridded peaks path carries no phase).")
+        _, groups, reduction = self._reduction(
+            'peaks', basis_atom_indices, basis_atom_types, summation_mode, engine=engine,
+            cache_dir=cache_dir, max_freq=max_freq, chiral=chiral, chiral_axis=chiral_axis,
+            angle_range_opt=angle_range_opt, welch_segments=welch_segments,
+            welch_window=welch_window, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+            width_method=width_method)
         if engine == 'gridded':
             return self._gridded_sweep(
-                k_vectors_3d, k_grid_shape, groups, single_spectrum, freq_idx,
-                n_peaks=n_peaks, exclusion_bins=exclusion_bins, freqs_kept=freqs_kept,
-                width_method=width_method)
+                k_vectors_3d, k_grid_shape, groups, reduction.freq_idx,
+                n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                freqs_kept=reduction.freqs_kept, width_method=width_method)
         if engine not in ('direct', 'auto'):
             raise ValueError(f"engine must be 'auto', 'direct' or 'gridded', got {engine!r}")
-        n_out = 4 if comp_pair is not None else 3
         num_k = len(k_vectors_3d)
+        outs = self._host_outputs(reduction, num_k)
         if num_k == 0 or not groups:
-            return tuple(np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out))
-
-        bounds = self._chunk_bounds(num_k, k_chunk_size)
-        with span('psa.host.assemble'):
-            out = [np.zeros((n_peaks, num_k), dtype=np.float32) for _ in range(n_out)]
+            return tuple(outs)
+        comp_pair = reduction.comp_pair
         cache = self._chunk_cache(
-            cache_dir, 'peaks', k_vectors_3d, bounds[0][1] - bounds[0][0],
+            cache_dir, 'peaks', k_vectors_3d, k_chunk_size,
             {'groups': [g.tolist() for g in groups], 'mode': summation_mode,
              'max_freq': max_freq, 'n_peaks': int(n_peaks),
              'exclusion_bins': int(exclusion_bins), 'width_method': width_method,
              'chiral': list(comp_pair) if comp_pair else None,
-             'angle': angle_range_opt, 'welch': [segments, welch_window]})
-
-        def store(found, ci, s, e):
-            for o, r in zip(out, found):
-                o[:, s:e] = r
-            if ci is not None and cache is not None:
-                cache.store(ci, np.stack([o[:, s:e] for o in out]))
-
-        todo = self._resume(cache, bounds, lambda c, s, e: c.shape == (n_out, n_peaks, e - s),
-                            lambda c, s, e: store(c, None, s, e))
-        freq_idx_dev = self._to_device(freq_idx, np.int64)
-        freqs_dev = self._to_device(freqs_kept)
-        proj = _Projections(self, groups, self._to_device(k_vectors_3d), bounds, todo)
-        readback = DeviceToHost(self.device) if cache is not None else None
-        found = []
-        for ci in todo:
-            s, e = bounds[ci]
-            inten = phase = None
-            for gi in range(len(groups)):
-                iv, phase = self._browse_planes(*proj.get(gi, ci), freq_idx_dev, comp_pair,
-                                                angle_range_opt, segments, welch_window)
-                inten = iv if inten is None else inten + iv
-            with span('psa.spectrum'):
-                res = torch.stack(spectral.peak_reduce(
-                    inten, freqs_dev, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
-                    phase=phase, width_method=width_method))
-            if readback is not None:
-                readback.push([res], lambda a, ci=ci, s=s, e=e: store(a[0], ci, s, e))
-            else:
-                found.append(res)
-        if readback is not None:
-            readback.finish()
-            return tuple(out)
-        return tuple(_to_host(torch.cat(found, dim=-1)))
+             'angle': angle_range_opt, 'welch': [reduction.segments, welch_window]})
+        # uncached, the peaks stay on the device until one read after the last chunk
+        self._project(groups, reduction, k_vectors_3d, k_chunk_size, outs, cache,
+                             read_once=cache is None)
+        return tuple(outs)
 
     # ------------------------------------------------------------------
     # Gridded (NUFFT-accelerated) k-grid sweeps
@@ -1464,27 +1324,49 @@ class SEDCalculator:
                      - torch.cuda.memory_allocated(self.device))
         return int(free) // 4
 
-    def _gridded_sweep(self, k_vectors_3d, k_grid_shape, groups: List[np.ndarray],
-                       single_spectrum: bool, freq_idx: np.ndarray, **reduce_kwargs):
-        """:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_browse` on the one
-        (union) group of a coherent sweep: from its device-resident data, or,
-        over ``max_device_bytes``, streamed from the host in time
-        superchunks."""
-        if not single_spectrum:
+    def _gridded_input(self, groups: List[np.ndarray], k_vectors_3d, k_grid_shape, data=None):
+        """Checks, plan and data of ``engine='gridded'`` on the one (union)
+        group of a coherent sweep (``groups``: its spectrum groups): the
+        group's resident device data, its streamed host view when it is over
+        ``max_device_bytes``, or a mesh's ``data`` source that already holds
+        SED-ready data (velocities, or mean-subtracted, mass-weighted
+        displacements)."""
+        if len(groups) > 1:
             raise ValueError("engine='gridded' supports coherent "
                              "(single-spectrum) sweeps only.")
         if k_grid_shape is None:
             raise ValueError("engine='gridded' needs k_grid_shape.")
-        from ..ops import gridded
-        union = groups[0] if groups else np.array([], dtype=int)
+        if data is not None and not hasattr(data, 'read_block'):
+            raise ValueError("engine='gridded' takes the trajectory's group data or a "
+                             "BlockSource; array overrides run on the direct engine.")
+        union = _union_group(groups)
         plan = self._gridded_plan(union, k_vectors_3d, k_grid_shape)
+        if data is not None:
+            if data.n_atoms != union.size:
+                raise ValueError(f"engine='gridded' BlockSource has {data.n_atoms} atoms "
+                                 f"but the group selects {union.size}")
+            if data.n_frames != self.traj.n_frames:
+                raise ValueError(f"engine='gridded' BlockSource has {data.n_frames} frames "
+                                 f"but the trajectory has {self.traj.n_frames}")
+            if self.use_displacements or self.mass_weighted:
+                raise ValueError("engine='gridded' consumes a BlockSource as-is; "
+                                 "displacement mode / mass weighting are not applied "
+                                 "on this path: stream pre-transformed data or use "
+                                 "engine='direct'")
+            return plan, data
+        if not union.size:
+            return plan, np.zeros((self.traj.n_frames, 0, 3), dtype=np.float32)
+        if self._oversize(union):
+            return plan, self._group_block_source(union)
+        return plan, self._group_device_arrays(union)[0]
+
+    def _gridded_sweep(self, k_vectors_3d, k_grid_shape, groups: List[np.ndarray],
+                       freq_idx: np.ndarray, **reduce_kwargs):
+        """:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_browse` on the one
+        (union) group of a coherent sweep (:meth:`_gridded_input`)."""
+        from ..ops import gridded
         budget = self._gridded_grid_budget()
-        if union.size > 0 and self._oversize(union):
-            data = self._group_block_source(union)
-        elif union.size > 0:
-            data, _, _ = self._group_device_arrays(union)
-        else:
-            data = np.zeros((self.traj.n_frames, 0, 3), dtype=np.float32)
+        plan, data = self._gridded_input(groups, k_vectors_3d, k_grid_shape)
         stats = {}
         out = gridded.gridded_kgrid_browse(
             data, plan, freq_idx, precision=self.precision, grid_budget_bytes=budget,
@@ -1522,9 +1404,8 @@ class SEDCalculator:
         k_vectors_3d = np.asarray(k_vectors_3d, dtype=np.float32)
         n1, n2 = k_grid_shape
         self._detect_grid_axes(k_vectors_3d, k_grid_shape)       # refuses what is no grid
-        groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'coherent')
-        union = (np.unique(np.concatenate(groups)).astype(int)
-                 if len(groups) > 1 else groups[0])
+        union = _union_group(self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
+                                                       'coherent'))
         freqs = spectral.fftfreq_thz(n_t, self.dt_ps)
 
         def result(full_sed):
@@ -1740,16 +1621,16 @@ class SEDCalculator:
         """(freqs_kept float64, freq_idx) of the ω ≥ 0 (and ≤ max_freq) rows
         of the n_t // segments spectrum, as the JAX package's DSF paths
         return them."""
-        _, idx = self._kept_freqs(max_freq, segments)
-        return spectral.fftfreq_thz(self.traj.n_frames // segments, self.dt_ps)[idx], idx
+        n_rows = self.traj.n_frames // segments
+        _, idx = spectral._kept_rows(n_rows, self.dt_ps, max_freq)
+        return spectral.fftfreq_thz(n_rows, self.dt_ps)[idx], idx
 
     def _dsf_union_group(self, basis_atom_indices, basis_atom_types) -> np.ndarray:
         """The one atom set of the instantaneous-phase paths: the union of the
         resolved groups, duplicates collapsed (each atom enters ρ once)."""
         groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types, 'coherent')
-        if not groups:
-            return np.array([], dtype=int)
-        return np.unique(np.concatenate([np.asarray(g).ravel() for g in groups])).astype(int)
+        # one group's repeats collapse too
+        return np.unique(_union_group([np.asarray(g).ravel() for g in groups])).astype(int)
 
     def _dsf_commensurate_warn(self, k_vectors_3d) -> None:
         dev = instantaneous.commensurate_deviation(k_vectors_3d, self.traj.box_matrix)
@@ -1792,27 +1673,19 @@ class SEDCalculator:
         each (n_t, a, 3) float32; ``need`` as in :meth:`_raw_device_arrays`.
         Unless it ``streams``, the group is sliced from its resident copy;
         else it comes from the host through pinned staging
-        (:class:`~psa_tpu_torch.utils.transfer.HostToDevice`), in blocks of
-        at most :meth:`stream_block_atoms`, once per call."""
-        n, n_t = int(group_idx.size), self.traj.n_frames
+        (:meth:`_staged_blocks`), in blocks of at most
+        :meth:`stream_block_atoms`, once per call."""
+        n = int(group_idx.size)
         if not streams:
             arrays = self._raw_device_arrays(group_idx, need)
             for a0 in range(0, n, atom_chunk):
                 yield tuple(None if x is None else x[:, a0:a0 + atom_chunk] for x in arrays)
             return
-        block = min(atom_chunk, self.stream_block_atoms(n))
-        take = self._host_blocks(group_idx)
         srcs = [self.traj.positions if 'P' in need else None,
                 self.traj.velocities if 'V' in need else None]
-        stagers = [None if src is None else HostToDevice(self.device, n_t * block * 3)
-                   for src in srcs]
-        logger.info("Streaming %d atoms in blocks of %d from the host.", n, block)
-        for a0 in range(0, n, block):
-            a1 = min(a0 + block, n)
-            yield tuple(None if src is None else st.put(
-                lambda dst, src=src: copy_rows(dst, take(src, a0, a1)), (n_t, a1 - a0, 3))
-                for st, src in zip(stagers, srcs))
-        self.streamed_bytes += sum(st.bytes_moved for st in stagers if st is not None)
+        block = min(atom_chunk, self.stream_block_atoms(n))
+        for *_, blocks in self._staged_blocks(group_idx, block, srcs):
+            yield blocks
 
     def _dsf_blocks(self, group_idx: np.ndarray, atom_chunk: int, with_velocities: bool):
         """:meth:`_raw_blocks` for the instantaneous-phase paths: (positions,
@@ -1865,25 +1738,6 @@ class SEDCalculator:
             return list(reduced)
         return [r.index_select(-1, col_idx) for r in reduced]
 
-    def _instant_sweep(self, k_vectors_3d, k_chunk_size: int, cache, fits, chunks, reduce,
-                       store) -> None:
-        """The k-chunk loop of an instantaneous-phase path.  A chunk stored
-        in ``cache`` that ``fits(chunk, s, e)`` goes to ``store(chunk, None,
-        s, e, cached=True)``; for the others, ``chunks(bounds, todo)``
-        yields (ci, s, e, *device results), ``reduce(s, e, *results)`` gives
-        the device arrays to read back, and ``store(arrays, ci, s, e)``
-        takes them on the host (one-deep pinned readback: the host stores
-        chunk i while the device computes chunk i+1)."""
-        bounds = self._chunk_bounds(len(k_vectors_3d), k_chunk_size)
-        todo = self._resume(cache, bounds, fits,
-                            lambda c, s, e: store(c, None, s, e, cached=True))
-        if not todo:
-            return
-        readback = DeviceToHost(self.device)
-        for ci, s, e, *res in chunks(bounds, todo):
-            readback.push(list(reduce(s, e, *res)), functools.partial(store, ci=ci, s=s, e=e))
-        readback.finish()
-
     def calculate_dsf(self, k_vectors_3d: np.ndarray,
                       basis_atom_indices=None, basis_atom_types=None,
                       max_freq: Optional[float] = None,
@@ -1914,7 +1768,7 @@ class SEDCalculator:
             float32.
         """
         self._dsf_commensurate_warn(k_vectors_3d)
-        segments = self._welch_segments(welch_segments, welch_window)
+        segments = spectral._welch_segments(welch_segments, welch_window, self.traj.n_frames)
         freqs_kept, freq_idx = self._dsf_freqs(max_freq, segments)
         group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
         num_k = len(k_vectors_3d)
@@ -1923,7 +1777,7 @@ class SEDCalculator:
         if num_k == 0 or group_idx.size == 0:
             return (freqs_kept,) + tuple(planes)
         inv_n = 1.0 / float(group_idx.size)
-        cache = self._chunk_cache(cache_dir, 'dsf', k_vectors_3d, min(max(1, k_chunk_size), num_k),
+        cache = self._chunk_cache(cache_dir, 'dsf', k_vectors_3d, k_chunk_size,
                                   {'group': group_idx, 'max_freq': max_freq,
                                    'welch': [segments, welch_window]})
         freq_idx_dev = self._to_device(freq_idx, np.int64)
@@ -1933,8 +1787,8 @@ class SEDCalculator:
             planes[:, :, s:e] = arrays if cached else [a * inv_n for a in arrays]
             if cache is not None and not cached:
                 cache.store(ci, planes[:, :, s:e])
-        self._instant_sweep(
-            k_vectors_3d, k_chunk_size, cache,
+        self._sweep(
+            num_k, k_chunk_size, cache,
             lambda c, s, e: c.shape == (3, len(freq_idx), e - s),
             lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo),
             lambda s, e, re, im, ku, col_idx: self._requested_columns(
@@ -1956,16 +1810,15 @@ class SEDCalculator:
         if num_k == 0 or group_idx.size == 0:
             return out
         inv_n = 1.0 / float(group_idx.size)
-        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d,
-                                  min(max(1, k_chunk_size), num_k),
+        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d, k_chunk_size,
                                   dict({'group': group_idx}, **(extra or {})))
 
         def store(arrays, ci, s, e, cached=False):
             out[..., s:e] = arrays if cached else arrays[0] * inv_n
             if cache is not None and not cached:
                 cache.store(ci, out[..., s:e])
-        self._instant_sweep(
-            k_vectors_3d, k_chunk_size, cache, lambda c, s, e: c.shape == out[..., s:e].shape,
+        self._sweep(
+            num_k, k_chunk_size, cache, lambda c, s, e: c.shape == out[..., s:e].shape,
             lambda bounds, todo: self._dsf_mode_chunks(group_idx, k_vectors_3d, bounds, todo,
                                                        density_only=True),
             lambda s, e, re, im, _, col_idx: self._requested_columns([reduce(re, im)], col_idx),
@@ -2039,9 +1892,8 @@ class SEDCalculator:
             out = np.zeros((rows, num_k), dtype=np.float32)
         if num_k == 0 or group_idx.size == 0:
             return out
-        block = min(max(1, k_chunk_size), num_k)
         budget = max(1 << 24, int(self.max_device_bytes) // 4)
-        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d, block,
+        cache = self._chunk_cache(cache_dir, observable, k_vectors_3d, k_chunk_size,
                                   dict({'group': group_idx}, **extra))
         k_dev = self._to_device(k_vectors_3d)
         ph_box, ph_mode = self._phase_cfg(k_vectors_3d)
@@ -2064,9 +1916,8 @@ class SEDCalculator:
             out[:, s:e] = arrays if cached else arrays[0] / float(group_idx.size)
             if cache is not None and not cached:
                 cache.store(ci, out[:, s:e])
-        self._instant_sweep(k_vectors_3d, k_chunk_size, cache,
-                            lambda c, s, e: c.shape == (rows, e - s), chunks,
-                            lambda s, e, acc: [acc], store)
+        self._sweep(num_k, k_chunk_size, cache, lambda c, s, e: c.shape == (rows, e - s), chunks,
+                    lambda s, e, acc: [acc], store)
         return out
 
     def calculate_isf_self(self, k_vectors_3d: np.ndarray,
@@ -2624,24 +2475,23 @@ class SEDCalculator:
         group (as the one-device gather does) and carries √mass when the
         calculator is mass-weighted.
         """
+        groups, single = self._spectrum_groups(atom_groups, summation_mode)
+        return self._atom_weights(groups), single
+
+    def _atom_weights(self, groups: List[np.ndarray]) -> Optional[List[np.ndarray]]:
+        """:meth:`_group_weights` of the spectrum groups ``groups``."""
         n_atoms = self.traj.n_atoms
-        single = summation_mode == 'coherent' or len(atom_groups) <= 1
-        if single:
-            groups = [np.unique(np.concatenate(atom_groups)).astype(int)
-                      if len(atom_groups) > 1 else
-                      (atom_groups[0] if atom_groups else np.array([], dtype=int))]
-        else:
-            groups = atom_groups
-        if (len(groups) == 1 and groups[0].size == n_atoms and not self.mass_weighted
-                and np.array_equal(np.sort(groups[0]), np.arange(n_atoms))):
-            return None, single
+        if not groups or (len(groups) == 1 and groups[0].size == n_atoms
+                          and not self.mass_weighted
+                          and np.array_equal(np.sort(groups[0]), np.arange(n_atoms))):
+            return None
         weights = []
         for g in groups:
             w = np.bincount(g, minlength=n_atoms).astype(np.float32)
             if self.mass_weighted:
                 w *= np.sqrt(self.traj.masses).astype(np.float32)
             weights.append(w)
-        return weights, single
+        return weights
 
     def _membership(self, group_idx: np.ndarray) -> Optional[np.ndarray]:
         """0/1 weights of the instantaneous-phase mesh sweeps; None for all atoms."""
@@ -2675,49 +2525,27 @@ class SEDCalculator:
             data = self.traj.positions if self.use_displacements else self.traj.velocities
         return data, self.mean_positions64, self.use_displacements
 
-    def _gridded_sharded_setup(self, atom_groups, single, k_vectors_3d, k_grid_shape, data):
-        """Checks, plan and data of ``engine='gridded'`` on a mesh: the
-        group's resident device data, its streamed host view when it is over
-        ``max_device_bytes``, or a user source that already holds SED-ready
-        data (velocities, or mean-subtracted, mass-weighted displacements)."""
-        if not single:
-            raise ValueError("engine='gridded' supports coherent "
-                             "(single-spectrum) sweeps only.")
-        if k_grid_shape is None:
-            raise ValueError("engine='gridded' needs k_grid_shape.")
-        if data is not None and not hasattr(data, 'read_block'):
-            raise ValueError("engine='gridded' takes the trajectory's group data or a "
-                             "BlockSource; array overrides run on the direct engine.")
-        union = (np.unique(np.concatenate(atom_groups)).astype(int)
-                 if len(atom_groups) > 1 else atom_groups[0])
-        plan = self._gridded_plan(union, k_vectors_3d, k_grid_shape)
-        if data is not None:
-            if data.n_atoms != union.size:
-                raise ValueError(f"engine='gridded' BlockSource has {data.n_atoms} atoms "
-                                 f"but the group selects {union.size}")
-            if data.n_frames != self.traj.n_frames:
-                raise ValueError(f"engine='gridded' BlockSource has {data.n_frames} frames "
-                                 f"but the trajectory has {self.traj.n_frames}")
-            if self.use_displacements or self.mass_weighted:
-                raise ValueError("engine='gridded' consumes a BlockSource as-is; "
-                                 "displacement mode / mass weighting are not applied "
-                                 "on this path: stream pre-transformed data or use "
-                                 "engine='direct'")
-            return plan, data
-        if union.size and self._oversize(union):
-            return plan, self._group_block_source(union)
-        return plan, self._group_device_arrays(union)[0]
+    def _sharded(self, mesh, groups: List[np.ndarray], k_vectors_3d,
+                 reduction: spectral.Reduction, t_superchunk: Optional[int], data):
+        """A projection surface's ``reduction`` over the k stripes of ``mesh``:
+        the direct path of :func:`psa_tpu_torch.parallel.sharded_sed_spectrum`
+        on the groups' weights (:meth:`_atom_weights`).  Returns the host
+        outputs of :meth:`spectral.Reduction.leads`."""
+        from ..parallel.sharded import _sed_stripes
+        src, mean64, subtract = self._sharded_data(mesh, data)
+        return _sed_stripes(mesh, src, mean64, k_vectors_3d, reduction, precision=self.precision,
+                            t_superchunk=t_superchunk, atom_weights=self._atom_weights(groups),
+                            subtract_mean=subtract)
 
-    def _gridded_sharded(self, mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data,
-                         freq_idx, **kwargs):
+    def _gridded_sharded(self, mesh, groups, k_vectors_3d, k_grid_shape, data, freq_idx,
+                         **kwargs):
         """:func:`psa_tpu_torch.ops.gridded.gridded_kgrid_sharded` over the
         devices of the mesh's positions, one process's."""
         from ..ops import gridded
         if mesh.world > 1:
             raise ValueError("engine='gridded' runs its ky stripes in one process; "
                              "use engine='direct' on a mesh of several processes")
-        plan, payload = self._gridded_sharded_setup(atom_groups, single, k_vectors_3d,
-                                                    k_grid_shape, data)
+        plan, payload = self._gridded_input(groups, k_vectors_3d, k_grid_shape, data)
         stats = {}
         out = gridded.gridded_kgrid_sharded(
             payload, plan, freq_idx, [d for *_, d in mesh.local_positions()],
@@ -2761,40 +2589,21 @@ class SEDCalculator:
         Returns:
             (freqs_kept, intensity (n_keep, n_k) float32, phase or None).
         """
-        from ..parallel.sharded import sharded_sed_spectrum
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
-                             f"got {summation_mode}")
-        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
-                                                summation_mode)
-        weights, single = self._group_weights(atom_groups, summation_mode)
-        if chiral and not single:
-            raise ValueError("Chiral phase needs a single complex spectrum; "
-                             "use coherent summation.")
-        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
-        segments = self._welch_segments(welch_segments, welch_window)
-        if segments > 1 and engine == 'gridded':
-            raise ValueError("welch_segments runs on the direct engine "
-                             "(the NUFFT reduction carries no segment axis).")
-        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
+        _, groups, reduction = self._reduction(
+            'browse', basis_atom_indices, basis_atom_types, summation_mode, engine=engine,
+            max_freq=max_freq, chiral=chiral, chiral_axis=chiral_axis,
+            angle_range_opt=angle_range_opt, welch_segments=welch_segments,
+            welch_window=welch_window)
         if engine == 'gridded':
             intensity, phase = self._gridded_sharded(
-                mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data, freq_idx,
-                comp_pair=comp_pair, angle_range_opt=angle_range_opt,
+                mesh, groups, k_vectors_3d, k_grid_shape, data, reduction.freq_idx,
+                comp_pair=reduction.comp_pair, angle_range_opt=angle_range_opt,
                 t_superchunk=t_superchunk)
-            return freqs_kept, intensity, phase
+            return reduction.freqs_kept, intensity, phase
         if engine != 'direct':
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-        src, mean64, subtract = self._sharded_data(mesh, data)
-        out = sharded_sed_spectrum(
-            mesh, src, mean64, k_vectors_3d, precision=self.precision,
-            want_intensity=True, t_superchunk=t_superchunk, freq_indices=freq_idx,
-            atom_weights=weights, subtract_mean=subtract, comp_pair=comp_pair,
-            angle_range_opt=angle_range_opt, welch_segments=segments,
-            welch_window=welch_window if segments > 1 else 'rect')
-        if comp_pair is not None:
-            return (freqs_kept,) + tuple(out)
-        return freqs_kept, out, None
+        outs = self._sharded(mesh, groups, k_vectors_3d, reduction, t_superchunk, data)
+        return reduction.freqs_kept, outs[0], (outs[1] if len(outs) > 1 else None)
 
     def calculate_kgrid_peaks_sharded(self, mesh, k_vectors_3d: np.ndarray,
                                       basis_atom_indices=None, basis_atom_types=None,
@@ -2814,43 +2623,20 @@ class SEDCalculator:
         stripes' devices.  ``engine='gridded'`` runs the NUFFT engine's ky
         stripes over the mesh's devices (coherent, no chiral phase).  See
         :meth:`calculate_kgrid_browse_sharded` for the other arguments."""
-        from ..parallel.sharded import sharded_sed_spectrum
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
-                             f"got {summation_mode}")
-        if n_peaks < 1:
-            raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
-        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
-                                                summation_mode)
-        weights, single = self._group_weights(atom_groups, summation_mode)
-        if chiral and not single:
-            raise ValueError("chiral peaks need coherent summation.")
-        comp_pair = spectral.CHIRAL_AXIS_COMPONENTS[chiral_axis] if chiral else None
-        segments = self._welch_segments(welch_segments, welch_window)
-        if segments > 1 and engine == 'gridded':
-            raise ValueError("welch_segments runs on the direct engine "
-                             "(the NUFFT reduction carries no segment axis).")
-        freqs_kept, freq_idx = self._kept_freqs(max_freq, segments)
-        if freq_idx.size == 0:
-            raise ValueError("No frequencies retained; check max_freq.")
+        _, groups, reduction = self._reduction(
+            'peaks', basis_atom_indices, basis_atom_types, summation_mode, engine=engine,
+            max_freq=max_freq, chiral=chiral, chiral_axis=chiral_axis,
+            angle_range_opt=angle_range_opt, welch_segments=welch_segments,
+            welch_window=welch_window, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+            width_method=width_method)
         if engine == 'gridded':
-            if chiral:
-                raise ValueError("chiral peaks run on the direct engine "
-                                 "(the gridded peaks path carries no phase).")
             return self._gridded_sharded(
-                mesh, atom_groups, single, k_vectors_3d, k_grid_shape, data, freq_idx,
-                freqs_kept=freqs_kept, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
+                mesh, groups, k_vectors_3d, k_grid_shape, data, reduction.freq_idx,
+                freqs_kept=reduction.freqs_kept, n_peaks=n_peaks, exclusion_bins=exclusion_bins,
                 width_method=width_method, t_superchunk=t_superchunk)
         if engine != 'direct':
             raise ValueError(f"engine must be 'direct' or 'gridded', got {engine!r}")
-        src, mean64, subtract = self._sharded_data(mesh, data)
-        return sharded_sed_spectrum(
-            mesh, src, mean64, k_vectors_3d, precision=self.precision,
-            t_superchunk=t_superchunk, freq_indices=freq_idx, n_peaks=n_peaks,
-            peak_freqs_thz=freqs_kept, exclusion_bins=exclusion_bins, atom_weights=weights,
-            subtract_mean=subtract, comp_pair=comp_pair, angle_range_opt=angle_range_opt,
-            width_method=width_method, welch_segments=segments,
-            welch_window=welch_window if segments > 1 else 'rect')
+        return tuple(self._sharded(mesh, groups, k_vectors_3d, reduction, t_superchunk, data))
 
     def calculate_lt_sharded(self, mesh, k_vectors_3d: np.ndarray,
                              basis_atom_indices=None, basis_atom_types=None,
@@ -2865,20 +2651,11 @@ class SEDCalculator:
         Returns:
             (freqs_kept, I_L (n_keep, n_k) float32, I_T (n_keep, n_k) float32).
         """
-        from ..parallel.sharded import sharded_sed_spectrum
-        if summation_mode not in ('coherent', 'incoherent'):
-            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
-                             f"got {summation_mode}")
-        atom_groups = self._resolve_atom_groups(basis_atom_indices, basis_atom_types,
-                                                summation_mode)
-        weights, _ = self._group_weights(atom_groups, summation_mode)
-        freqs_kept, freq_idx = self._kept_freqs(max_freq)
-        src, mean64, subtract = self._sharded_data(mesh, data)
-        i_l, i_t = sharded_sed_spectrum(
-            mesh, src, mean64, k_vectors_3d, precision=self.precision,
-            t_superchunk=t_superchunk, freq_indices=freq_idx, atom_weights=weights,
-            subtract_mean=subtract, lt=True)
-        return freqs_kept, i_l, i_t
+        _, groups, reduction = self._reduction(
+            'lt', basis_atom_indices, basis_atom_types, summation_mode, max_freq=max_freq,
+            k_vectors=k_vectors_3d)
+        return (reduction.freqs_kept,) + tuple(
+            self._sharded(mesh, groups, k_vectors_3d, reduction, t_superchunk, data))
 
     def calculate_dsf_sharded(self, mesh, k_vectors_3d: np.ndarray,
                               basis_atom_indices=None, basis_atom_types=None,
@@ -2896,7 +2673,7 @@ class SEDCalculator:
         """
         from ..parallel.sharded import sharded_dsf
         self._dsf_commensurate_warn(k_vectors_3d)
-        segments = self._welch_segments(welch_segments, welch_window)
+        segments = spectral._welch_segments(welch_segments, welch_window, self.traj.n_frames)
         freqs_kept, freq_idx = self._dsf_freqs(max_freq, segments)
         group_idx = self._dsf_union_group(basis_atom_indices, basis_atom_types)
         box, mode = self._mesh_phase(k_vectors_3d)

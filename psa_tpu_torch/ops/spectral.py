@@ -15,10 +15,13 @@ are complex64 tensors.
 The grid reductions (browse planes, Welch segments, the L/T split, peak
 extraction) are plain torch ops on the device: the complex spectrum of a
 k-chunk never leaves it, only the reduced planes or peak triplets do.
+:class:`Reduction` is the one place that decides what a projection
+surface makes of a k-slice's projections, on one device and on a mesh.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -392,3 +395,257 @@ def synthesize_mode_motion(amp: torch.Tensor, proj_pos: torch.Tensor,
     c, s = torch.cos(phase), torch.sin(phase)
     return (c[:, :, None] * amp.real[None, None, :]
             - s[:, :, None] * amp.imag[None, None, :]).float()
+
+
+# ---------------------------------------------------------------------------
+# The reduction of the projection surfaces: what a k-slice's (re, im)
+# projections become, on one device and on a mesh
+# ---------------------------------------------------------------------------
+
+def _welch_segments(welch_segments, window: str, n_frames: int) -> int:
+    """Validate (welch_segments, window) on ``n_frames`` frames; returns
+    segments (1 = single-window estimator)."""
+    if welch_segments is None:
+        return 1
+    if (not isinstance(welch_segments, (int, np.integer))
+            or welch_segments < 1):
+        raise ValueError("welch_segments must be a positive int, got "
+                         f"{welch_segments!r}")
+    seg = n_frames // int(welch_segments)
+    if seg < 2:
+        raise ValueError(
+            f"welch_segments={welch_segments} leaves {seg} frames per "
+            f"segment (n_frames={n_frames}); need at least 2")
+    welch_window(seg, window)  # validates the name
+    return int(welch_segments)
+
+
+def _kept_rows(n_rows: int, dt_ps: float, max_freq: Optional[float]):
+    """(freqs_kept float32, freq_idx int64) of the ω ≥ 0 (and ≤ max_freq)
+    rows of an ``n_rows``-frame spectrum."""
+    freqs = fftfreq_thz(n_rows, dt_ps)
+    mask = freqs >= 0
+    if max_freq is not None:
+        mask &= freqs <= max_freq
+    return freqs[mask].astype(np.float32), np.flatnonzero(mask)
+
+
+@dataclass
+class Reduction:
+    """What a k-slice's per-group (re, im) projections become on the device,
+    for every projection surface, on one device and on a mesh's stripes.
+
+    ``kind`` is 'spectrum' (Φ of the one coherent group, the rows
+    ``freq_idx`` alone where given), 'power' (Σ_α |Φ|²), 'welch'
+    (:func:`welch_intensity_reduce`), 'browse' (the planes of
+    :func:`browse_reduce`, or :func:`welch_browse_reduce` with ``segments``
+    > 1; ``float16`` packs each group's as :func:`compress_browse` does),
+    'lt' (:func:`lt_reduce`) or 'peaks' (:func:`peak_reduce` of the browse
+    planes).  Groups sum incoherently, in their order, each group's
+    reduction in a ``psa.spectrum`` span, the peaks in one more.  One object
+    serves one call and keeps its inputs' device copies (:meth:`inputs`).
+    :meth:`for_surface` and :meth:`for_flags` build one, checking their
+    arguments.
+    """
+
+    kind: str
+    freq_idx: Optional[np.ndarray] = None
+    freqs_kept: Optional[np.ndarray] = None
+    segments: int = 1
+    window: str = 'rect'
+    comp_pair: Optional[Tuple[int, int]] = None
+    angle_range_opt: str = 'C'
+    k_unit: Optional[np.ndarray] = None
+    n_peaks: int = 1
+    exclusion_bins: int = 4
+    width_method: str = 'rms'
+    float16: bool = False
+    _on: Dict[torch.device, Dict[str, torch.Tensor]] = field(default_factory=dict, repr=False)
+
+    @classmethod
+    def for_surface(cls, kind: str, n_frames: int, dt_ps: float, summation_mode: str,
+                    single: bool, *, engine='direct', cache_dir=None, max_freq=None,
+                    chiral=False, chiral_axis='z', angle_range_opt='C', welch_segments=None,
+                    welch_window='hann', readback_dtype='float32', n_peaks=1,
+                    exclusion_bins=4, width_method='rms', k_vectors=None) -> 'Reduction':
+        """The reduction of a calculator surface and its mesh twin, their
+        arguments checked in the surface's order.  ``single``: the groups
+        make one spectrum (coherent, or one group); else 'spectrum' is
+        'power'.  ``k_vectors`` give 'lt' its unit vectors."""
+        if summation_mode not in ('coherent', 'incoherent'):
+            raise ValueError(f"summation_mode must be 'coherent' or 'incoherent', "
+                             f"got {summation_mode}")
+        if kind == 'spectrum' and not single:
+            kind = 'power'
+        if kind == 'peaks':
+            if n_peaks < 1:
+                raise ValueError(f"n_peaks must be >= 1, got {n_peaks}")
+            if width_method not in ('rms', 'lorentzian'):
+                raise ValueError(f"width_method must be 'rms' or 'lorentzian', "
+                                 f"got {width_method!r}")
+        if readback_dtype not in ('float32', 'float16'):
+            raise ValueError("readback_dtype must be 'float32' or 'float16', "
+                             f"got {readback_dtype!r}")
+        gridded = engine == 'gridded'
+        if readback_dtype == 'float16' and gridded:
+            raise ValueError("readback_dtype='float16' runs on the direct engine.")
+        segments = _welch_segments(welch_segments, welch_window, n_frames)
+        if segments > 1 and gridded:
+            raise ValueError("welch_segments runs on the direct engine "
+                             "(the NUFFT reduction carries no segment axis).")
+        if cache_dir is not None and gridded:
+            raise ValueError("cache_dir checkpointing runs on the direct "
+                             "engine (the NUFFT sweep has no k-chunk axis).")
+        red = cls(kind, segments=segments, window=welch_window,
+                  angle_range_opt=angle_range_opt, n_peaks=n_peaks,
+                  exclusion_bins=exclusion_bins, width_method=width_method,
+                  float16=readback_dtype == 'float16')
+        if kind in ('browse', 'lt', 'peaks'):
+            red.freqs_kept, red.freq_idx = _kept_rows(n_frames // segments, dt_ps, max_freq)
+            if kind == 'peaks' and red.freq_idx.size == 0:
+                raise ValueError("No frequencies retained; check max_freq.")
+        if kind == 'lt':
+            red.k_unit = unit_k_vectors(k_vectors)
+        if chiral:
+            if not single:
+                raise ValueError("chiral peaks need coherent summation." if kind == 'peaks'
+                                 else "Chiral phase needs a single complex spectrum; "
+                                 "use coherent summation.")
+            red.comp_pair = CHIRAL_AXIS_COMPONENTS[chiral_axis]
+            if kind == 'peaks' and gridded:
+                raise ValueError("chiral peaks run on the direct engine "
+                                 "(the gridded peaks path carries no phase).")
+        return red
+
+    @classmethod
+    def for_flags(cls, n_groups: int, k_vectors: np.ndarray, want_intensity=False,
+                  freq_indices=None, n_peaks=None, peak_freqs_thz=None, exclusion_bins=4,
+                  comp_pair=None, angle_range_opt='C', width_method='rms', lt=False,
+                  welch_segments=1, welch_window='rect') -> 'Reduction':
+        """The reduction the flags of
+        :func:`psa_tpu_torch.parallel.sharded_sed_spectrum` name, over
+        ``n_groups`` weight vectors; raises for flags that name none."""
+        if n_peaks is not None and (freq_indices is None or peak_freqs_thz is None):
+            raise ValueError("n_peaks requires freq_indices and peak_freqs_thz")
+        if lt:
+            if freq_indices is None:
+                raise ValueError("lt=True requires freq_indices")
+            if comp_pair is not None or n_peaks is not None:
+                raise ValueError("lt=True is exclusive with comp_pair/n_peaks")
+        incoherent = n_groups > 1
+        if incoherent and not (want_intensity or n_peaks is not None or lt):
+            raise ValueError("multiple atom_weights mean incoherent summation: "
+                             "set want_intensity=True, n_peaks, or lt")
+        if incoherent and comp_pair is not None:
+            raise ValueError("chiral phase needs a single (coherent) spectrum")
+        if comp_pair is not None and n_peaks is None and not (
+                want_intensity and freq_indices is not None):
+            raise ValueError("comp_pair requires freq_indices + want_intensity "
+                             "(browse planes) or n_peaks (phase at peak)")
+        segments = int(welch_segments)
+        if segments > 1:
+            if lt:
+                raise ValueError("welch_segments does not support lt=True")
+            if freq_indices is None or not (want_intensity or n_peaks):
+                raise ValueError("welch_segments requires freq_indices plus "
+                                 "want_intensity or n_peaks")
+        if lt:
+            kind = 'lt'
+        elif n_peaks is not None:
+            kind = 'peaks'
+        elif want_intensity:
+            kind = 'power' if freq_indices is None else 'browse'
+        else:
+            kind = 'spectrum'
+        return cls(kind, freq_idx=freq_indices, freqs_kept=peak_freqs_thz, segments=segments,
+                   window=welch_window, comp_pair=comp_pair, angle_range_opt=angle_range_opt,
+                   k_unit=unit_k_vectors(k_vectors) if lt else None, n_peaks=n_peaks,
+                   exclusion_bins=exclusion_bins, width_method=width_method)
+
+    def leads(self, n_t: int) -> List[Tuple[int, ...]]:
+        """Each host output's shape but its last (k) axis, for n_t frames
+        ('spectrum': the real and imaginary parts of the ``stripe`` form)."""
+        n_f = n_t // self.segments if self.freq_idx is None else len(self.freq_idx)
+        phase = self.comp_pair is not None
+        if self.kind == 'spectrum':
+            return [(n_f, 3)] * 2
+        if self.kind == 'peaks':
+            return [(self.n_peaks,)] * (3 + phase)
+        return [(n_f,)] * {'lt': 2, 'browse': 1 + phase}.get(self.kind, 1)
+
+    def inputs(self, device: torch.device, upload) -> Dict[str, torch.Tensor]:
+        """The host arrays this kind reads (kept rows, unit k-vectors, the
+        peaks' frequencies) on ``device``, each sent once by
+        ``upload(array, dtype)``."""
+        if device not in self._on:
+            host = {'idx': (self.freq_idx, np.int64), 'ku': (self.k_unit, np.float32),
+                    'freqs': (self.freqs_kept if self.kind == 'peaks' else None, np.float32)}
+            self._on[device] = {name: upload(arr, dtype) for name, (arr, dtype) in host.items()
+                                if arr is not None}
+        return self._on[device]
+
+    def reduce(self, s: int, e: int, pairs, on: Dict[str, torch.Tensor],
+               stripe: bool = False) -> List[torch.Tensor]:
+        """The device outputs of k-slice [s, e): ``pairs`` yields each
+        group's (re, im) (n_t, 3, e − s) projections, drawn one at a time;
+        ``on`` is :meth:`inputs` on their device.  For one device's readback
+        (:meth:`host` takes it) Φ comes contiguous and the peaks stacked; a
+        mesh ``stripe`` gets the outputs of :meth:`leads`, float32, k last."""
+        out = None
+        for re, im in pairs:
+            with span('psa.spectrum'):
+                part = self._group(re, im, s, e, on, stripe)
+                if out is None:
+                    out = part
+                elif self.float16:
+                    out = out + part
+                else:
+                    out = [a + b for a, b in zip(out, part)]
+        if self.kind != 'peaks':
+            return out
+        with span('psa.spectrum'):
+            found = peak_reduce(out[0], on['freqs'], n_peaks=self.n_peaks,
+                                exclusion_bins=self.exclusion_bins,
+                                phase=out[1] if len(out) > 1 else None,
+                                width_method=self.width_method)
+            return list(found) if stripe else [torch.stack(found)]
+
+    def host(self, arrays: List[np.ndarray]) -> List[np.ndarray]:
+        """One device's readback of :meth:`reduce` as the outputs of
+        :meth:`leads`: the peaks unstacked, float16 planes unpacked and summed."""
+        if self.kind == 'peaks':
+            return list(arrays[0])
+        if not self.float16:
+            return list(arrays)
+        per = 3 if self.comp_pair is not None else 2
+        inten = np.zeros(arrays[0].shape, dtype=np.float32)
+        for g0 in range(0, len(arrays), per):
+            inten += decompress_plane(arrays[g0], arrays[g0 + 1])
+        return [inten] + ([arrays[2].astype(np.float32)] if per == 3 else [])
+
+    def _group(self, re, im, s, e, on, stripe: bool) -> List[torch.Tensor]:
+        """One group's outputs (its browse planes for 'peaks')."""
+        if self.kind == 'welch':
+            return [welch_intensity_reduce(re, im, self.segments, self.window)]
+        if self.kind in ('browse', 'peaks'):
+            if self.segments > 1:
+                planes = welch_browse_reduce(re, im, on['idx'], self.segments, self.window,
+                                             comp_pair=self.comp_pair,
+                                             angle_range_opt=self.angle_range_opt)
+            else:
+                planes = browse_reduce(finalize_spectrum(re, im), on['idx'],
+                                       comp_pair=self.comp_pair,
+                                       angle_range_opt=self.angle_range_opt)
+            planes = [p for p in planes if p is not None]
+            return list(compress_browse(*planes)) if self.float16 else planes
+        spec = finalize_spectrum(re, im)
+        if self.kind == 'power':
+            return [_power(spec)]
+        if self.kind == 'lt':
+            return list(lt_reduce(spec, on['ku'][s:e], on['idx']))
+        if 'idx' in on:
+            spec = spec.index_select(0, on['idx'])
+        if stripe:
+            spec = spec.transpose(1, 2)
+            return [spec.real, spec.imag]
+        return [spec.contiguous()]

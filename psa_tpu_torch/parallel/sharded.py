@@ -807,31 +807,28 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
         with ``comp_pair``) (n_peaks, n_k) arrays; with ``comp_pair`` and
         filtered intensity the (intensity, phase) pair; with ``lt`` (I_L, I_T).
     """
-    if n_peaks is not None and (freq_indices is None or peak_freqs_thz is None):
-        raise ValueError("n_peaks requires freq_indices and peak_freqs_thz")
-    if lt:
-        if freq_indices is None:
-            raise ValueError("lt=True requires freq_indices")
-        if comp_pair is not None or n_peaks is not None:
-            raise ValueError("lt=True is exclusive with comp_pair/n_peaks")
-    n_groups = len(atom_weights) if atom_weights is not None else 1
-    incoherent = n_groups > 1
-    if incoherent and not (want_intensity or n_peaks is not None or lt):
-        raise ValueError("multiple atom_weights mean incoherent summation: "
-                         "set want_intensity=True, n_peaks, or lt")
-    if incoherent and comp_pair is not None:
-        raise ValueError("chiral phase needs a single (coherent) spectrum")
-    if comp_pair is not None and n_peaks is None and not (
-            want_intensity and freq_indices is not None):
-        raise ValueError("comp_pair requires freq_indices + want_intensity "
-                         "(browse planes) or n_peaks (phase at peak)")
-    segments = int(welch_segments)
-    if segments > 1:
-        if lt:
-            raise ValueError("welch_segments does not support lt=True")
-        if freq_indices is None or not (want_intensity or n_peaks):
-            raise ValueError("welch_segments requires freq_indices plus "
-                             "want_intensity or n_peaks")
+    reduction = spectral.Reduction.for_flags(
+        len(atom_weights) if atom_weights is not None else 1, k_vectors,
+        want_intensity=want_intensity, freq_indices=freq_indices, n_peaks=n_peaks,
+        peak_freqs_thz=peak_freqs_thz, exclusion_bins=exclusion_bins, comp_pair=comp_pair,
+        angle_range_opt=angle_range_opt, width_method=width_method, lt=lt,
+        welch_segments=welch_segments, welch_window=welch_window)
+    outs = _sed_stripes(mesh, data, mean_pos64, k_vectors, reduction, precision=precision,
+                        t_superchunk=t_superchunk, prefetch=prefetch,
+                        atom_weights=atom_weights, subtract_mean=subtract_mean)
+    if reduction.kind == 'spectrum':
+        return outs[0].transpose(0, 2, 1), outs[1].transpose(0, 2, 1)
+    return tuple(outs) if len(outs) > 1 else outs[0]
+
+
+def _sed_stripes(mesh: Mesh, data, mean_pos64: np.ndarray, k_vectors: np.ndarray,
+                 reduction: spectral.Reduction, precision: str = 'parity',
+                 t_superchunk: Optional[int] = None, prefetch: bool = True,
+                 atom_weights: Optional[Sequence[np.ndarray]] = None,
+                 subtract_mean: bool = False) -> List[np.ndarray]:
+    """:func:`sharded_sed_spectrum` with its reduction given: each stripe's
+    (re, im) buffers of every group go through ``reduction.reduce`` on the
+    stripe's device.  Returns the host outputs of ``reduction.leads``, k last."""
     resident = isinstance(data, ResidentShards)
     source = data if resident else _as_source(data)
     n_t, n_atoms = source.n_frames, source.n_atoms
@@ -840,6 +837,7 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
     t_sh, a_sh, k_sh = mesh.devices.shape
     _check_time_axis(n_t, t_sh)
     t_superchunk = _round_t_superchunk(n_t, t_sh, t_superchunk)
+    n_groups = len(atom_weights) if atom_weights is not None else 1
     weights = None
     if atom_weights is not None:
         weights = []
@@ -895,72 +893,13 @@ def sharded_sed_spectrum(mesh: Mesh, data, mean_pos64: np.ndarray,
     _stream(mesh, (source,), n_t, t_superchunk, a_bounds, prefetch, work)
     _reduce_buffers(mesh, bufs)
 
-    n_f = n_t // segments if freq_indices is None else len(freq_indices)
-    stripe_cache = _Cache()
-
-    def on(ki, name, make):
-        return stripe_cache.get((name, ki), mesh.stripe_home(ki), make)
-
-    def planes(ki, g):
-        """(intensity, phase or None) of group g on stripe ki's kept rows."""
-        re, im = bufs[ki][2 * g], bufs[ki][2 * g + 1]
-        dev = re.device
-        if segments > 1:
-            idx = on(ki, 'idx', lambda: _to_device(freq_indices, dev, np.int64))
-            return spectral.welch_browse_reduce(re, im, idx, segments, welch_window,
-                                                comp_pair=comp_pair,
-                                                angle_range_opt=angle_range_opt)
-        spec = spectral.finalize_spectrum(re, im)
-        if freq_indices is None:
-            return spectral._power(spec), None
-        idx = on(ki, 'idx', lambda: _to_device(freq_indices, dev, np.int64))
-        return spectral.browse_reduce(spec, idx, comp_pair=comp_pair,
-                                      angle_range_opt=angle_range_opt)
-
     def reduce(ki):
         dev = mesh.stripe_home(ki)
-        if lt:
-            k0, k1 = k_bounds[ki]
-            ku = _to_device(spectral.unit_k_vectors(k_vectors[k0:k1]), dev)
-            idx = on(ki, 'idx', lambda: _to_device(freq_indices, dev, np.int64))
-            i_l = i_t = None
-            for g in range(n_groups):
-                l_g, t_g = spectral.lt_reduce(
-                    spectral.finalize_spectrum(bufs[ki][2 * g], bufs[ki][2 * g + 1]), ku, idx)
-                i_l, i_t = (l_g, t_g) if i_l is None else (i_l + l_g, i_t + t_g)
-            return [i_l, i_t]
-        if n_peaks is not None or want_intensity or incoherent:
-            inten = phase = None
-            for g in range(n_groups):
-                iv, phase = planes(ki, g)
-                inten = iv if inten is None else inten + iv
-            if n_peaks is None:
-                return [inten] + ([phase] if phase is not None else [])
-            freqs = _to_device(peak_freqs_thz, dev)
-            return list(spectral.peak_reduce(inten, freqs, n_peaks=n_peaks,
-                                             exclusion_bins=exclusion_bins, phase=phase,
-                                             width_method=width_method))
-        spec = spectral.finalize_spectrum(bufs[ki][0], bufs[ki][1])      # (n_t, K, 3)
-        if freq_indices is not None:
-            spec = spec.index_select(0, on(ki, 'idx', lambda: _to_device(
-                freq_indices, dev, np.int64)))
-        spec = spec.transpose(1, 2)                                       # k last
-        return [spec.real, spec.imag]
+        pairs = ((bufs[ki][2 * g], bufs[ki][2 * g + 1]) for g in range(n_groups))
+        on = reduction.inputs(dev, lambda host, dtype: _to_device(host, dev, dtype))
+        return reduction.reduce(*k_bounds[ki], pairs, on, stripe=True)
 
-    if lt:
-        leads = [(n_f,)] * 2
-    elif n_peaks is not None:
-        leads = [(n_peaks,)] * (4 if comp_pair is not None else 3)
-    elif want_intensity or incoherent:
-        leads = [(n_f,)] * (2 if comp_pair is not None else 1)
-    else:
-        leads = [(n_f, 3)] * 2
-    outs = _gather_outputs(mesh, k_bounds, reduce, leads)
-    if lt or n_peaks is not None or (want_intensity and comp_pair is not None):
-        return tuple(outs)
-    if want_intensity or incoherent:
-        return outs[0]
-    return outs[0].transpose(0, 2, 1), outs[1].transpose(0, 2, 1)
+    return _gather_outputs(mesh, k_bounds, reduce, reduction.leads(n_t))
 
 
 # ---------------------------------------------------------------------------

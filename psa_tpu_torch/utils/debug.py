@@ -64,8 +64,14 @@ def debug_numerics(nans: bool = True, infs: bool = True):
 
 
 def caller(depth: int = 1) -> str:
-    """Name of the function ``depth`` frames above the one that asks."""
-    return sys._getframe(depth + 1).f_code.co_name
+    """Name of the call ``depth`` frames above the one that asks: from there
+    up, the first function with a public name, so a result that a private
+    helper reads back (the calculator's shared k-chunk loop) names the
+    surface that asked for it."""
+    frame = sys._getframe(depth + 1)
+    while frame.f_code.co_name[0] in '_<' and frame.f_back is not None:
+        frame = frame.f_back
+    return frame.f_code.co_name
 
 
 def _raise(where: str, kind: str, index: int) -> None:

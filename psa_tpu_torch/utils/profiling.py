@@ -25,7 +25,8 @@ the program.  The spans, each named where the work of its layer happens:
   ``psa.project``        each call of ``ops/sed_projection.sed_projection``:
                          the projection kernels' launches (or plain version)
   ``psa.spectrum``       FFT, power and gather of a projection or mode stack:
-                         the calculator's reductions, ``_browse_planes``,
+                         each group's ``spectral.Reduction.reduce`` (one
+                         device or a mesh's stripe) and its peaks,
                          ``instantaneous.dsf_reduce``, the gridded
                          ``_Sweep.reduce``
   ``psa.spectrum.peaks`` each ``spectral.peak_reduce``, inside ``psa.spectrum``

@@ -377,6 +377,33 @@ def test_validation(traj, mean64, kwargs, match):
         tpar.sharded_sed_spectrum(tmesh((1, 1, 8)), traj.velocities, mean64, KG, **kwargs)
 
 
+REFUSED = {
+    'chiral-incoherent': dict(chiral=True, basis_atom_types=[1, 2],
+                              summation_mode='incoherent'),
+    'welch-gridded': dict(welch_segments=2, engine='gridded', k_grid_shape=(2, 3)),
+    'no-peaks': dict(n_peaks=0),
+    'no-kept-row': dict(max_freq=-1.0),
+    'summation-mode': dict(summation_mode='bogus'),
+}
+
+
+@pytest.mark.parametrize("kind,case", [
+    ('browse', 'chiral-incoherent'), ('peaks', 'chiral-incoherent'),
+    ('browse', 'welch-gridded'), ('peaks', 'welch-gridded'),
+    ('peaks', 'no-peaks'), ('peaks', 'no-kept-row'),
+    ('browse', 'summation-mode'), ('peaks', 'summation-mode'), ('lt', 'summation-mode'),
+])
+def test_mesh_surfaces_refuse_as_their_one_device_twins(calcs, kind, case):
+    """Each mesh surface refuses what its one-device twin refuses, with the
+    same message."""
+    _, port = calcs
+    with pytest.raises(ValueError) as one:
+        _one_device(port, kind, REFUSED[case])
+    with pytest.raises(ValueError) as mesh:
+        _sharded(port, kind, tmesh((1, 1, 8)), REFUSED[case])
+    assert str(mesh.value) == str(one.value)
+
+
 # ---------------------------------------------------------------------------
 # block sources
 # ---------------------------------------------------------------------------
