@@ -40,7 +40,9 @@ then the DSF, S(k) and self DSF under each phase engine ('exact',
 'factored', 'incremental'), one warm call each, each against a float64 oracle
 at the k it evaluates (phase 11c), streamed under the default budget with
 the exact and the factored engine, and its physics at small sizes (phase
-11); the time correlations (``calculate_vacf``, ``calculate_msd``) on the
+11), each surface's launches of the fused mode-stack kernel counted, and
+that kernel against the torch chain on the same card tensors at the DSF
+cell's call (phase 11d); the time correlations (``calculate_vacf``, ``calculate_msd``) on the
 same working-size data, cold, warm, in other atom chunks and streamed,
 against float64 direct sums, and their physics at small sizes (phase 12);
 g(r) by the brute sweep (10^5 atoms x 2 frames), by the linked cells (10^5
@@ -84,8 +86,9 @@ version on its inputs; and the rest of the slice (incoherent groups,
 chiral phase, iSED).
 Each phase prints one line; any failure raises and the script exits
 non-zero.  The line before the last is a JSON record of each kernel (the
-'parity' kernel, and the table and product kernels at 'balanced' and
-'fast': launches on the main paths, error, times, bounds); the last line is
+'parity' kernel, the table and product kernels at 'balanced' and 'fast',
+and the fused mode-stack kernel: launches on the main paths, error, times,
+bounds); the last line is
 ``{"ok": true, "device": {...}}``.  No GPU: exits non-zero before printing
 any result.  About 9 minutes on an H100 machine.
 
@@ -95,6 +98,13 @@ runs phase 3c alone (with the build): the 'parity' kernel's clusters at
 their edges (ragged and padded time tiles, ragged k-tiles, unaligned rows,
 ``accumulate``, an ``out=`` row slice), each against the whole call's bits
 and the plain version;
+
+    python3 chip_smoke.py --phase 11d
+
+runs phase 11d alone (with the build) on 32,000 thermal Si atoms made on
+the card: the fused mode-stack kernel against the torch chain and a
+float64 sum at the DSF cell's call, one atom's phasors at a time, its
+repeat, its launch and its wall beside the chain's and its bound;
 
     python3 chip_smoke.py --phase 16f
 
@@ -155,6 +165,19 @@ THERMAL_U = 0.05                      # Å, seeded site displacements of the NPT
 NPT_AMP, NPT_PERIOD = 0.01, 2_500     # h(t) = h̄ (1 + NPT_AMP sin(2π t / NPT_PERIOD))
 DSF_K, SELF_K = 128, 16               # k of the [100] path; of them, those of the self parts
 DSF_BUDGET = int(30e9)                # max_device_bytes holding 24 GB of positions + velocities
+# Phase 11d: the fused mode-stack kernel at the DSF cell's call (n_t, A, K), C = 4
+MODES_CELL = (10_000, 32_000, 128)
+MODES_PLAIN_T = 20                    # the torch chain's frames a tile at the cell's 8e9 budget
+MODES_COLS = (0, 1, 17, 39, 63, 64, 100, 127)   # columns held to a float64 sum
+MODES_HOT = (0, 5, 130, 31_999)       # atoms read one at a time: AP groups, a later stage, the end
+MODES_SUM_FACTOR = 2.0                # of the torch chain's error, in units of 2^-24 sum|w|
+MODES_ELEMENT_UNITS = 3.0             # sincosf's 2 ulps and the product's rounding, 2^-24|w|
+#: Issue slots an element of the function needs: the float64 dot and fold
+#: (6: 3 for the dot, the multiply by 1/2pi, rint, the fold), the cast to
+#: float32 (1), a sincosf of CUDA's accuracy on a folded angle (21) and the
+#: 8 FMAs of C = 4; at 4 warp instructions a clock an SM (PERF.md, PR 23).
+MODES_SLOTS = 36
+MODES_KERNELS = ('instant_modes_kernel<1>', 'instant_modes_kernel<4>', 'instant_modes_reduce_kernel')
 GEN_FRAMES = 500                      # frames per block of positions made on the card
 SI_A0 = 5.43                          # Å, the Si cubic cell
 TOL_TIMECORR = (5e-5, 1e-4)           # rtol, atol (of max|oracle|) of MSD/VACF vs float64 direct sums
@@ -1501,6 +1524,200 @@ def dsf_working_data(dev, host_vel, host_pos):
     return traj, kv, side, length, t_gen
 
 
+def phasor_counts(counted):
+    """(launches of the fused mode-stack kernel, its elements, the 'exact'
+    contraction's elements) in a :func:`profiling.counted_since` record."""
+    return tuple(counted.get(n, 0) for n in ('launch.phasor_modes', 'phasor.fused_elems',
+                                             'phasor.exact_elems'))
+
+
+def modes_reference64(pos, vel, kv, cols, atoms=2000):
+    """Σ_a w_c e^{i k·r_a(t)} in float64 from the float32 operands on
+    ``cols`` of ``kv``, w = [1, v]: (re, im) (n_t, len(cols), 4), and
+    Σ_a |w_c| (n_t, 1, 4), which bounds every partial sum of either."""
+    n_t = pos.shape[0]
+    out = torch.zeros((n_t, len(cols), 4), dtype=torch.complex128, device=pos.device)
+    mag = torch.zeros((n_t, 1, 4), dtype=torch.float64, device=pos.device)
+    k64 = kv[cols].double()
+    for a0 in range(0, pos.shape[1], atoms):
+        v = vel[:, a0:a0 + atoms].double()
+        w = torch.cat([torch.ones_like(v[..., :1]), v], dim=-1)
+        ph = torch.exp(1j * (pos[:, a0:a0 + atoms].double() @ k64.T))
+        out += torch.einsum('tak,tac->tkc', ph, w.to(ph.dtype))
+        mag += w.abs().sum(dim=1, keepdim=True)
+        del ph, w, v
+    return out.real, out.imag, mag
+
+
+def modes_sum_units(got, ref, cols=None):
+    """max over elements of |got − ref| in units of 2⁻²⁴ Σ_a |w| (the
+    element's (t, c) magnitudes): a float32 sum's error in these units does
+    not grow where the sum cancels.  With ``cols``, ``got`` is read there."""
+    re, im, mag = ref
+    return max(float(((g if cols is None else g[:, cols]).double() - r).abs().div_(
+        mag * 2.0 ** -24).max()) for g, r in zip(got, (re, im)))
+
+
+def modes_where(got, ref, cols):
+    """Where ``got`` lies furthest from ``ref`` by the column's largest value
+    (the old measure): that error, the (frame, column, channel), the
+    column's max |ref| and |ref| there."""
+    worst = (0.0,)
+    for g, r in zip(got, ref[:2]):
+        colmax = r.abs().amax(dim=0)
+        rel_err = (g[:, cols].double() - r).abs() / colmax.clamp_min(1e-300)
+        i = int(rel_err.argmax())
+        t, kc = divmod(i, rel_err.shape[1] * rel_err.shape[2])
+        k, c = divmod(kc, rel_err.shape[2])
+        if float(rel_err.max()) > worst[0]:
+            worst = (float(rel_err.max()), t, int(cols[k]), c, float(colmax[k, c]),
+                     float(r[t, k, c].abs()))
+    return dict(zip(("rel_err", "frame", "column", "channel", "column_max", "value_there"),
+                    worst))
+
+
+def modes_element_units(launch, pos, vel, kv, atoms, weight=0.75):
+    """For each of ``atoms``, ``launch(acc, weights)`` with ``weight`` on it
+    and 0 on the others, so each output is that atom's phasor times
+    w = fl32(weight · [1, v]); the largest distance from w·(cos θ, sin θ),
+    θ the float64 folded angle, beyond what the float32 rounding of θ moves
+    it (|θ₃₂ − θ| times the other function's magnitude, plus (θ₃₂ − θ)²/2),
+    in units of 2⁻²⁴·|w|.  sincosf keeps it within 3: its 2 ulps and the
+    product's rounding."""
+    n_t, n_a, _ = pos.shape
+    worst = 0.0
+    for atom in atoms:
+        weights = torch.zeros(n_a, device=pos.device)
+        weights[atom] = weight
+        acc = [torch.zeros((n_t, len(kv), 4), device=pos.device) for _ in range(2)]
+        launch(acc, weights)
+        theta = pos[:, atom].double() @ kv.double().T
+        theta -= 2 * torch.pi * torch.round(theta / (2 * torch.pi))
+        delta = (theta.float().double() - theta).abs()
+        w = torch.cat([torch.ones_like(vel[:, atom, :1]), vel[:, atom]], dim=-1)
+        w = (w * weight).double()[:, None, :]
+        for got, f, other in ((acc[0], torch.cos, torch.sin), (acc[1], torch.sin, torch.cos)):
+            allow = (other(theta).abs() * delta + delta ** 2 / 2)[..., None] * w.abs()
+            excess = (got.double() - w * f(theta)[..., None]).abs() - allow
+            worst = max(worst, float((excess / (w.abs() * 2.0 ** -24)).max()))
+        del acc, theta, delta
+    return worst
+
+
+def modes_checks(outs, launches, pos, vel, kv):
+    """Phase 11d's checks of each version in ``outs`` ({name: (re, im)} at
+    the call, 'plain' the torch chain; ``launches`` {name: f(acc, weights)}
+    for the versions that take weights): against a float64 sum on
+    MODES_COLS in units of 2⁻²⁴ Σ|w| (each within MODES_SUM_FACTOR of the
+    plain chain's, over a floor of one unit), against the plain chain on
+    every column in the same units, the old measure and where it peaks, and
+    the phasors one atom at a time (:func:`modes_element_units`, within
+    MODES_ELEMENT_UNITS).  Returns {name: record with ``passes``}."""
+    cols = torch.tensor(MODES_COLS, device=pos.device)
+    ref = modes_reference64(pos, vel, kv, cols)
+    base = modes_sum_units(outs['plain'], ref, cols)
+    mag = ref[2]
+    out = {}
+    for name, got in outs.items():
+        rec = {"sum_units": modes_sum_units(got, ref, cols),
+               "vs_plain_units": modes_sum_units(got, (*outs['plain'], mag)),
+               "vs_plain_max_abs": max(float((g - p).abs().max())
+                                       for g, p in zip(got, outs['plain'])),
+               "old_measure": modes_where(got, ref, cols)}
+        if name in launches:
+            rec["element_units"] = modes_element_units(launches[name], pos, vel, kv, MODES_HOT)
+        rec["passes"] = (rec["sum_units"] <= MODES_SUM_FACTOR * max(base, 1.0)
+                         and rec["vs_plain_units"] <= (1 + MODES_SUM_FACTOR) * max(base, 1.0)
+                         and rec.get("element_units", 0.0) <= MODES_ELEMENT_UNITS)
+        out[name] = rec
+    return out
+
+
+def modes_at_cell_shape(pos, vel, kv):
+    """Phase 11d: the fused mode-stack kernel (``instantaneous.fused_modes``)
+    against the torch chain (``accumulate_modes_plain`` in the cell's
+    20-frame tiles) on the same card tensors at the DSF cell's call,
+    (n_t, A, K, C) = (10⁴, 32,000, 128, 4), ``pos``/``vel`` an atom slice:
+    two launches bit for bit, :func:`modes_checks`, one launch counted, the
+    walls in turns (CUDA events), and the bound of the work the function
+    needs (MODES_SLOTS instructions an element at the card's top clock).
+    Returns the ``kernels`` line's entry."""
+    from psa_tpu_torch.ops import instantaneous as inst
+    from psa_tpu_torch.utils import profiling
+    n_t, n_a, _ = pos.shape
+    check((n_t, n_a, len(kv)) == MODES_CELL, f"phase 11d runs at {MODES_CELL}")
+
+    def fresh():
+        return [torch.zeros((n_t, len(kv), 4), device=pos.device) for _ in range(2)]
+    outs = {'this': fresh(), 'again': fresh(), 'plain': fresh()}
+    before = profiling.snapshot()
+    inst.fused_modes(*outs['this'], pos, vel, kv)
+    counted = profiling.counted_since(before)
+    inst.fused_modes(*outs['again'], pos, vel, kv)
+    inst.accumulate_modes_plain(*outs['plain'], pos, vel, kv, MODES_PLAIN_T)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(outs.pop('again'), outs['this']))
+    check(same and counted == {'launch.phasor_modes': 1, 'phasor.fused_elems': n_t * n_a * len(kv)},
+          f"the fused kernel: bitwise repeat {same}, counted {counted}")
+    recs = modes_checks(outs, {'this': lambda acc, w: inst.fused_modes(*acc, pos, vel, kv, w)},
+                        pos, vel, kv)
+    check(recs['this']['passes'], f"the fused kernel vs the torch chain and float64: {recs}")
+    acc = fresh()
+    ms = {'this': [], 'plain': []}
+    for _ in range(2):
+        ms['plain'].append(cuda_ms(lambda: inst.accumulate_modes_plain(
+            *acc, pos, vel, kv, MODES_PLAIN_T), 1))
+        ms['this'].append(cuda_ms(lambda: inst.fused_modes(*acc, pos, vel, kv), 5))
+    top_mhz = float(subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                                    '--format=csv,noheader,nounits'], capture_output=True,
+                                   text=True, check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(pos.device).multi_processor_count
+    bound_ms = n_t * n_a * len(kv) * MODES_SLOTS / (sms * 128 * top_mhz * 1e6) * 1e3
+    rec = recs['this']
+    log('modes', f"fused mode-stack kernel at (n_t, A, K, C) = {MODES_CELL + (4,)}, an atom "
+                 f"slice: {np.mean(ms['this']):.3f} ms ({ms['this']}), the torch chain "
+                 f"{np.mean(ms['plain']):.3f} ms; bound {bound_ms:.3f} ms ({MODES_SLOTS} "
+                 f"instructions an element at {top_mhz:.0f} MHz); two launches bit for bit; "
+                 f"vs float64 on {len(MODES_COLS)} columns {rec['sum_units']:.3f} units of "
+                 f"2^-24 sum|w| (the torch chain {recs['plain']['sum_units']:.3f}; tol "
+                 f"{MODES_SUM_FACTOR}x), vs the chain {rec['vs_plain_units']:.3f} units, max abs "
+                 f"{rec['vs_plain_max_abs']:.3e}; one atom at a time {rec['element_units']:.3f} "
+                 f"units of 2^-24|w| beyond the angle's rounding (tol {MODES_ELEMENT_UNITS}); "
+                 f"by the column's max: this {rec['old_measure']}, the chain "
+                 f"{recs['plain']['old_measure']}")
+    return {"name": "instant_modes", "route": "cuda", "source": "psa_tpu_torch/csrc/instant_modes.cu",
+            "replaces": "none: psa_tpu/ops/instantaneous.py leaves the chain to XLA",
+            "shape": list(MODES_CELL) + [4], "launches": counted['launch.phasor_modes'],
+            "max_abs_err": rec['vs_plain_max_abs'], "sum_units": rec['sum_units'],
+            "plain_sum_units": recs['plain']['sum_units'], "vs_plain_units": rec['vs_plain_units'],
+            "element_units": rec['element_units'], "old_measure": rec['old_measure'],
+            "plain_old_measure": recs['plain']['old_measure'],
+            "ms": float(np.mean(ms['this'])), "plain_ms": float(np.mean(ms['plain'])),
+            "bound_ms": bound_ms, "bound_by": "issue", "bound_clock_mhz": top_mhz,
+            "library_ms": None}
+
+
+def modes_cell_data(dev):
+    """Phase 11d alone: 32,000 Si sites with seeded thermal displacements and
+    velocities made on the card, as an atom slice of a wider array, and the
+    commensurate [100] path of 128 k: (pos, vel, kv)."""
+    from psa_tpu_torch.ops.instantaneous import nearest_commensurate
+    n_t, n_a, n_k = MODES_CELL
+    sites, _, a0 = si_sites(n_a)
+    length = float(np.float32(sites.max() + a0))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    pos = torch.empty((n_t, n_a + 8, 3), device=dev)
+    vel = torch.randn((n_t, n_a + 8, 3), generator=gen, device=dev)
+    sites_dev = torch.from_numpy(sites).to(dev)
+    for t0 in range(0, n_t, GEN_FRAMES):
+        t1 = min(t0 + GEN_FRAMES, n_t)
+        pos[t0:t1, :n_a] = (sites_dev[None] + THERMAL_U * torch.randn(
+            (t1 - t0, n_a, 3), generator=gen, device=dev, dtype=torch.float64)).float()
+    kv = nearest_commensurate(np.outer(np.arange(n_k) * (2 * np.pi / length), [1.0, 0.0, 0.0]),
+                              [length] * 3)
+    return pos[:, :n_a], vel[:, :n_a], torch.from_numpy(kv).to(dev)
+
+
 def phase_engines(dev, dcalc, kv, length, pos_dev, vel_dev, cols, oracle32):
     """Phase 11c: ``calculate_dsf``, ``calculate_sk`` (the DSF_K-point path)
     and ``calculate_dsf_self`` (SELF_K consecutive k about the (400)
@@ -1594,13 +1811,14 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     resident planes.  Returns the walls."""
     from psa_tpu_torch import SEDCalculator
     from psa_tpu_torch.core.calculator import _DEFAULT_MAX_DEVICE_BYTES
+    from psa_tpu_torch.utils import profiling
     traj, kv, side, length, t_gen = dsf_working_data(dev, host_vel, host_pos)
     dcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, max_device_bytes=DSF_BUDGET, device=dev)
     self_kv = kv[::DSF_K // SELF_K]
     n_lags = N_T // 2
 
-    walls, peaks = {}, {}
-    proj.counters['launch.parity'] = 0
+    walls, peaks, fused = {}, {}, {}
+    proj.counters['launch.parity'] = proj.counters['launch.phasor_modes'] = 0
     runs = (('dsf', lambda: dcalc.calculate_dsf(kv)), ('dsf_warm', lambda: dcalc.calculate_dsf(kv)),
             ('sk', lambda: dcalc.calculate_sk(kv)), ('isf', lambda: dcalc.calculate_isf(kv)),
             ('dsf_self', lambda: dcalc.calculate_dsf_self(self_kv)),
@@ -1609,11 +1827,19 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     for name, run in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = profiling.snapshot()
         t0 = time.perf_counter()
         out[name] = run()
         walls[name] = time.perf_counter() - t0
         peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        fused[name] = phasor_counts(profiling.counted_since(before))
     check(proj.counters['launch.parity'] == 0, "the instantaneous-phase family launched the projection kernel")
+    # every mode stack of the resident group in one launch over all its atoms and frames; the
+    # self parts contract nothing
+    elems = N_T * N_ATOMS * DSF_K
+    check(fused == {n: (1, elems, elems) if n in ('dsf', 'dsf_warm', 'sk', 'isf') else (0, 0, 0)
+                    for n in fused},
+          f"fused mode-stack (launches, fused, exact elements) per surface {fused}")
     freqs, s_pl, cl_pl, ct_pl = out['dsf_warm']
     check(all(np.array_equal(a, b) for a, b in zip(out['dsf'], out['dsf_warm'])),
           "the warm DSF differs from the first")
@@ -1648,7 +1874,12 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
                + f"; {DSF_K} k ({SELF_K} for the self parts, n_lags {n_lags})")
     log('dsf', "2 columns vs f64 oracles on the card (of each column's max): "
                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
-               + f" (tol {TOL_KERNEL}); oracles {t_oracle:.2f} s")
+               + f" (tol {TOL_KERNEL}); oracles {t_oracle:.2f} s; fused mode-stack (launches, "
+               f"fused, exact elements) {fused}")
+    t0 = time.perf_counter()
+    modes_entry = modes_at_cell_shape(pos_dev[:, :MODES_CELL[1]], vel_dev[:, :MODES_CELL[1]],
+                                      torch.from_numpy(kv).to(dev))
+    log('modes', f"phase 11d took {time.perf_counter() - t0:.2f} s")
     factored_dsf, engine_walls = phase_engines(
         dev, dcalc, kv, length, pos_dev, vel_dev, cols,
         (o_s[keep], o_cl[keep], o_sk))
@@ -1664,9 +1895,14 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    before = profiling.snapshot()
     t0 = time.perf_counter()
     streamed = scalc.calculate_dsf(kv)
     walls['dsf_streamed'] = time.perf_counter() - t0
+    fused['dsf_streamed'] = phasor_counts(profiling.counted_since(before))
+    n_blocks = -(-N_ATOMS // scalc.stream_block_atoms(N_ATOMS))
+    check(fused['dsf_streamed'] == (n_blocks, N_T * N_ATOMS * DSF_K, N_T * N_ATOMS * DSF_K),
+          f"streamed DSF: {n_blocks} blocks, fused mode-stack counts {fused['dsf_streamed']}")
     stream_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     s_err = max(float(np.abs(a - b).max() / np.abs(b).max())
                 for a, b in zip(streamed[1:3], (s_pl, cl_pl)))
@@ -1680,7 +1916,8 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
                f"group streams in blocks of {scalc.stream_block_atoms(N_ATOMS)} atoms, "
                f"{scalc.streamed_bytes / 1e9:.1f} GB host->device, {walls['dsf_streamed']:.3f} s wall, "
                f"peak device memory above the call's start {stream_peak:.2f} GB; S and C_L vs "
-               f"resident {s_err:.3e}, C_L + C_T {tot_err:.3e} of max (tol {TOL_KERNEL})")
+               f"resident {s_err:.3e}, C_L + C_T {tot_err:.3e} of max (tol {TOL_KERNEL}); fused "
+               f"mode-stack launches {fused['dsf_streamed'][0]}")
 
     fcalc = SEDCalculator(traj, nx=side, ny=side, nz=side, phase_mode='factored', device=dev)
     streamed, wall, _ = timed(lambda: fcalc.calculate_dsf(kv))
@@ -1694,7 +1931,8 @@ def dsf_working_size(dev, proj, host_vel, host_pos):
                    f"{wall:.3f} s wall, {fcalc.streamed_bytes / 1e9:.1f} GB host->device, chunks "
                    f"{fcalc.factored_chunks}; S and C_L vs the resident factored planes "
                    f"{f_err:.3e} of max (tol {TOL_KERNEL})")
-    return dict(walls, engines=engine_walls, launches=proj.counters['launch.parity']), traj, side
+    return dict(walls, engines=engine_walls, launches=proj.counters['launch.parity'],
+                phasor_launches={n: c[0] for n, c in fused.items()}, modes=modes_entry), traj, side
 
 
 def dsf_small(dev):
@@ -3503,6 +3741,7 @@ def run_examples(dev, proj, tmp):
     import importlib
     import importlib.util
     import io
+    from psa_tpu_torch.utils import profiling
     from psa_tpu_torch.visualization import have_matplotlib
     # by path: a machine may have another top-level package named ``tests``
     spec = importlib.util.spec_from_file_location(
@@ -3518,11 +3757,17 @@ def run_examples(dev, proj, tmp):
         module = importlib.import_module(f'examples_torch.{name}')
         card, cpu = io.StringIO(), io.StringIO()
         t0 = time.perf_counter()
+        before = profiling.snapshot()
         with recorded_launches(proj) as kept, contextlib.redirect_stdout(card):
             module.main(device=str(dev), out_dir=f"{tmp}/{name}")
         card_s = time.perf_counter() - t0
         launches[f"example_{name}"] = len(kept)
         check((len(kept) > 0) == (name in PROJECTING), f"{name} launched {len(kept)} kernels")
+        # every 'exact' mode stack on the card through the fused kernel, which launched iff any
+        phasor = phasor_counts(profiling.counted_since(before))
+        check(phasor[1] == phasor[2] and (phasor[0] > 0) == (phasor[2] > 0),
+              f"{name}: fused mode-stack (launches, fused, exact elements) {phasor}")
+        launches[f"example_{name}_phasor_modes"] = phasor[0]
         if kept:
             entries.append(recorded_errors(proj, kept, f"example_{name}"))
         del kept
@@ -3536,6 +3781,7 @@ def run_examples(dev, proj, tmp):
             check(False, f"{name}: the card's printed checks differ from the CPU's: {e}")
         checks = [ln.strip() for ln in card.getvalue().splitlines() if ln.strip()]
         log('examples', f"{name}: {card_s:.2f} s, launches {launches[f'example_{name}']}"
+                        f" (fused mode-stack {phasor[0]})"
                         + (f" (vs plain on their inputs: rel err {entries[-1]['rel_err']:.3e})"
                            if name in PROJECTING else "")
                         + f"; the CPU's run {time.perf_counter() - t0:.2f} s printed the same "
@@ -3811,6 +4057,23 @@ def phase3c_alone():
     log('done', f"phase 3c took {time.perf_counter() - t_start:.1f} s")
 
 
+def phase11d_alone():
+    """``python3 chip_smoke.py --phase 11d``: the build (ptxas's counts of the
+    fused mode-stack kernels), then phase 11d on 32,000 thermal Si atoms made
+    on the card; prints its ``kernels`` entry."""
+    from psa_tpu_torch import _build
+    t_start = time.perf_counter()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
+          flush=True)
+    _build.build()
+    ptxas = ptxas_by_kernel(_build.build_log)
+    entry = modes_at_cell_shape(*modes_cell_data(torch.device('cuda')))
+    entry["ptxas"] = {n: ptxas.get(n) for n in MODES_KERNELS}
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    log('done', f"phase 11d took {time.perf_counter() - t_start:.1f} s")
+
+
 def phase18_alone():
     """``python3 chip_smoke.py --phase 18``: the build, the working velocities
     preloaded into the working calculator, then phase 18."""
@@ -3904,9 +4167,9 @@ def main():
                  f"(nvcc {_build.build_seconds} s, one process per source); ptxas: "
                  + " | ".join(f"{name}: {c['registers']} registers, spills {c['spill_stores_bytes']}"
                               f"/{c['spill_loads_bytes']} bytes" for name, c in ptxas.items()))
-    want_kernels = {'sed_projection_kernel'} | {f'tier_{stage}_kernel<{proj.TIERS[tier]}>'
-                                                 for stage in ('table', 'product')
-                                                 for tier in TABLE_TIERS}
+    want_kernels = ({'sed_projection_kernel', *MODES_KERNELS}
+                    | {f'tier_{stage}_kernel<{proj.TIERS[tier]}>' for stage in ('table', 'product')
+                       for tier in TABLE_TIERS})
     check(ptxas_info["registers"] is not None and set(ptxas) == want_kernels,
           f"ptxas counts of {sorted(want_kernels)} expected, got {sorted(ptxas)}")
 
@@ -4199,6 +4462,9 @@ def main():
                               **gridded_launches, **session_launches, **mesh_launches,
                               # one count over the whole phase: every engine, resident and streamed
                               "dsf_exact_factored_incremental": dsf_info['launches'],
+                              # the fused mode-stack kernel's, per surface of phase 11
+                              **{f"dsf_phasor_modes_{n}": c
+                                 for n, c in dsf_info['phasor_launches'].items()},
                               "bench_op_sweep": bench_sweep_launches, **bench_path_launches},
         "bench": {"headline": bench_line, "kernel_ms_per_block": bench_block_ms,
                   "extras": bench_extras},
@@ -4208,7 +4474,8 @@ def main():
                                  ("square_lattice", small_chunks), ("npt", npt_chunks))
             for shape, err in chunks] + streamed_loop + [dump_loop, cli_loop, session_loop]
         + [{"path": "mesh", "shapes": [shape], "rel_err": err} for shape, err in mesh_shapes]
-        + bench_entries}] + tier_kernels}),
+        + bench_entries}] + tier_kernels
+        + [dict(dsf_info['modes'], ptxas={n: ptxas.get(n) for n in MODES_KERNELS})]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
@@ -4223,9 +4490,11 @@ if __name__ == '__main__':
         phase18_alone()
     elif sys.argv[1:] == ['--phase', '3c']:
         phase3c_alone()
+    elif sys.argv[1:] == ['--phase', '11d']:
+        phase11d_alone()
     elif sys.argv[1:]:
-        raise SystemExit("usage: python3 chip_smoke.py [--phase 3c | --phase 16f | --phase 17 | "
-                         "--phase 18]")
+        raise SystemExit("usage: python3 chip_smoke.py [--phase 3c | --phase 11d | --phase 16f | "
+                         "--phase 17 | --phase 18]")
     else:
         main()
     sys.exit(0)

@@ -41,6 +41,12 @@ SIGNATURES = {
     # accumulate, tier, stream
     'psa_sed_tier_product': ([_PTR, _PTR, _LL, _PTR, _PTR] + [_LL] * 5 + [_I32, _I32, _PTR], _I32),
     'psa_sed_tier_product_smem_bytes': ([], _I32),
+    # pos, pos_st, pos_sa, vel, vel_st, vel_sa, weights, kv, acc_re, acc_im, part,
+    # n_t, n_atoms, n_k, n_ch, splits, split_atoms, stream
+    'psa_instant_modes': ([_PTR, _LL, _LL, _PTR, _LL, _LL] + [_PTR] * 5 + [_LL] * 3
+                          + [_I32, _LL, _LL, _PTR], _I32),
+    'psa_instant_modes_active_blocks': ([], _I32),
+    'psa_instant_modes_tile': ([_I32], _I32),
 }
 
 _lock = threading.Lock()

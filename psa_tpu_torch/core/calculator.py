@@ -1607,12 +1607,17 @@ class SEDCalculator:
         per element, within a quarter of ``max_device_bytes``; a streamed
         group's atom chunk is its staged block, and the time tiles fill the
         budget for that block.  ``num_k`` counts the producer's columns (the
-        product columns of a factored chunk)."""
+        product columns of a factored chunk).  The fused kernel
+        (``instantaneous.fuses``) holds no transient: the whole group, or
+        each staged block, in one launch over every frame."""
+        n = int(group_idx.size)
+        streams = self._instant_streams(group_idx, with_velocities)
+        if instantaneous.fuses(self.device, mode):
+            return (self.stream_block_atoms(n) if streams else n), self.traj.n_frames
         budget = max(1 << 22,
                      int(self.max_device_bytes) // (4 * instantaneous.PHASOR_BYTES[mode]))
-        n = int(group_idx.size)
         atom_chunk = max(1, min(n, budget // max(1, num_k)))
-        if self._instant_streams(group_idx, with_velocities):
+        if streams:
             atom_chunk = min(atom_chunk, self.stream_block_atoms(n))
         t_chunk = int(np.clip(budget // (atom_chunk * max(1, num_k)), 1, self.traj.n_frames))
         return atom_chunk, t_chunk

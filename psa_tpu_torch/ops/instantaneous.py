@@ -34,11 +34,16 @@ Three engines make the phasors (:func:`instant_phasors`, ``phase_mode``):
   frames of a window advance it by the small phase δ = k·minimage(r(t) −
   r(anchor)), a float32 product, and one complex multiply.
 
-The atom contraction of the mode stacks is ``torch.bmm`` in IEEE float32
-(the JAX package leaves it to ``lax.dot_general``, outside any kernel).
-The time axis is tiled by a Python loop so the (t, A, K) transients stay
-within the caller's budget.  Nothing is padded: a ragged tile or atom block
-is a slice, so no mask is needed.
+The atom contraction of the mode stacks (:func:`accumulate_modes`) is, on
+a CUDA device under 'exact', one hand-written kernel
+(``csrc/instant_modes.cu``, :func:`fused_modes`) that forms each phasor in
+registers and adds it into the sums, so no (t, A, K) tensor reaches device
+memory.  Elsewhere (CPU tensors, the other engines) it is
+:func:`accumulate_modes_plain`: ``torch.bmm`` in IEEE float32 (the JAX
+package leaves it to ``lax.dot_general``, outside any kernel) over time
+tiles cut by a Python loop so the (t, A, K) transients stay within the
+caller's budget.  Nothing is padded: a ragged tile or atom block is a
+slice, so no mask is needed.
 
 ``exp(i k·r)`` is invariant under periodic wrapping only for
 box-commensurate k; :func:`nearest_commensurate` snaps k onto the box's
@@ -46,12 +51,14 @@ reciprocal lattice.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..utils import profiling
 from .spectral import welch_window
 
@@ -61,8 +68,14 @@ from .spectral import welch_window
 #: 'factored' holds the complex product phasors (8) with room for the base
 #: columns' float64 chain (4).  'incremental' holds δ (4) beside the complex
 #: phasors (8) and the window differences and anchors (4).  Each was checked
-#: against the card's peak memory (PERF.md §6).
+#: against the card's peak memory (PERF.md §6).  The fused kernel of 'exact'
+#: on a CUDA device (:func:`fuses`) has no such transient.
 PHASOR_BYTES = {'exact': 24, 'factored': 12, 'incremental': 16}
+#: Bytes of scratch the fused kernel's atom splits may hold (sized at C = 4).
+MODES_SCRATCH_BYTES = 1 << 28
+#: Most splits of the atom axis; each split keeps at least
+#: :data:`MODES_SPLIT_STAGES` stages.
+MODES_MAX_SPLITS, MODES_SPLIT_STAGES = 64, 2
 
 
 # ---------------------------------------------------------------------------
@@ -510,26 +523,136 @@ def time_tile(t_chunk: int, phase_mode: str) -> int:
     return t_chunk
 
 
-def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tensor,
-                     vel: Optional[torch.Tensor], k_vectors, t_chunk: int,
-                     box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
-                     weights: Optional[torch.Tensor] = None) -> None:
-    """acc += the mode stack of one atom block, in place.
+def fuses(device, phase_mode: str) -> bool:
+    """Whether :func:`accumulate_modes` runs the fused kernel: a CUDA device
+    under ``phase_mode='exact'``."""
+    return torch.device(device).type == 'cuda' and phase_mode == 'exact'
 
-    ``acc_re``/``acc_im`` are (n_t, K, C) float32: C = 4 channels
-    [ρ, j_x, j_y, j_z] with velocities, C = 1 (ρ alone) with ``vel=None``,
-    the density-only path (S(k), ISF), which never reads velocities.  Per
-    time tile of ``t_chunk`` frames (:func:`time_tile`) the phasors of
-    ``phase_mode`` (:func:`instant_phasors`) are contracted with the weights
-    [1, v_x, v_y, v_z] over the block's atoms by one IEEE float32
-    ``torch.bmm``; the density-only path contracts with [1, 0, 0, 0], the
-    same product, so its ρ is the DSF's density channel bit for bit.  (The
-    four-row product is also the accurate one: on the H100 cuBLAS's
-    one-row kernel summed the 10⁵ aligned phasors of a Bragg column to
-    8.6e-6 of S(k), the four-row one to 8.5e-8.)  ``weights``, an optional
-    (A,) per-atom weight (the mesh sweeps' membership), multiplies each
-    atom's row of the contraction.
-    """
+
+def modes_splits(n_t: int, n_atoms: int, n_k: int, slots: int,
+                 tiles: Tuple[int, int, int]) -> Tuple[int, int]:
+    """(splits, atoms per split) of the fused kernel's atom axis.
+
+    ``tiles`` are the kernel's (frames, k-points) per block and atoms per
+    stage (``psa_instant_modes_tile``).  Its blocks own one (frames ×
+    k-points) output tile each and take equal times per stage, so a launch
+    over n output tiles takes about ⌈n·s / slots⌉ waves of ⌈stages / s⌉
+    stages with the atom axis in s splits (``slots``: the blocks the card
+    holds at once).  The
+    least s within 1% of the best time, at most :data:`MODES_MAX_SPLITS`,
+    each split of at least :data:`MODES_SPLIT_STAGES` stages, and the
+    splits' scratch (sized at C = 4, so C = 1 splits alike) within
+    :data:`MODES_SCRATCH_BYTES`.  A function of the shape and the card
+    alone: the same inputs sum in the same order."""
+    frames, k_points, atoms = tiles
+    n_tiles = -(-n_t // frames) * -(-n_k // k_points)
+    stages = -(-n_atoms // atoms)
+    cap = min(MODES_MAX_SPLITS, max(1, stages // MODES_SPLIT_STAGES),
+              max(1, MODES_SCRATCH_BYTES // (2 * 4 * 4 * n_t * n_k)))
+    times = {s: -(-n_tiles * s // max(1, slots)) * -(-stages // s) for s in range(1, cap + 1)}
+    best = min(times.values())
+    splits = min(s for s, t in times.items() if t <= 1.01 * best)
+    per = -(-stages // splits)
+    return -(-stages // per), per * atoms
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Tuple[int, Tuple[int, int, int]]:
+    """(blocks of the fused kernel that CUDA device ``index`` holds at once,
+    the kernel's tiles)."""
+    lib = _build.load()
+    with torch.cuda.device(index):
+        per_sm = lib.psa_instant_modes_active_blocks()
+    if per_sm < 1:
+        raise RuntimeError(f"the fused mode-stack kernel fits no SM: CUDA error {-per_sm}")
+    slots = per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+    return slots, tuple(lib.psa_instant_modes_tile(axis) for axis in range(3))
+
+
+def _check_fused(acc_re, acc_im, pos, vel, k_vectors, weights) -> None:
+    if pos.dim() != 3 or pos.shape[2] != 3 or k_vectors.dim() != 2 or k_vectors.shape[1] != 3:
+        raise ValueError(f"positions (n_t, A, 3) and k (K, 3), got {tuple(pos.shape)} and "
+                         f"{tuple(k_vectors.shape)}")
+    if acc_re.dim() != 3:
+        raise ValueError(f"acc must be (n_t, K, C), got {tuple(acc_re.shape)}")
+    n_t, n_a = pos.shape[:2]
+    shape = (n_t, k_vectors.shape[0], acc_re.shape[2])
+    if shape[2] not in (1, 4):
+        raise ValueError(f"the mode stack has 1 or 4 channels, got {shape[2]}")
+    if vel is not None and vel.shape != pos.shape:
+        raise ValueError(f"velocities {tuple(vel.shape)} and positions {tuple(pos.shape)} differ")
+    if weights is not None and tuple(weights.shape) != (n_a,):
+        raise ValueError(f"weights must be ({n_a},), got {tuple(weights.shape)}")
+    for name, acc in (('acc_re', acc_re), ('acc_im', acc_im)):
+        if tuple(acc.shape) != shape or acc.dtype != torch.float32 or not acc.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 {shape}, got {acc.dtype} "
+                             f"{tuple(acc.shape)}")
+    tensors = [t for t in (acc_re, acc_im, pos, vel, k_vectors, weights) if t is not None]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"the fused mode-stack kernel takes float32 tensors, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"the mode-stack tensors lie on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def fused_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tensor,
+                vel: Optional[torch.Tensor], k_vectors: torch.Tensor,
+                weights: Optional[torch.Tensor] = None) -> None:
+    """acc += the 'exact' mode stack of one atom block, by the fused kernel
+    (``csrc/instant_modes.cu``) on a CUDA device, in one launch.
+
+    The arguments are :func:`accumulate_modes`': float32 (n_t, A, 3)
+    positions and velocities (or None: zero currents) with any row and atom
+    strides and unit component stride (else copied), float32 (K, 3) k,
+    contiguous (n_t, K, C) float32 ``acc`` (C = 1 or 4), optional (A,)
+    ``weights``.  The kernel widens, folds, takes sincosf and multiplies as
+    :func:`accumulate_modes_plain` does, in registers; the atom sum is
+    two-level and its order fixed (:func:`modes_splits`), so two calls give
+    the same bits.  Raises on what the kernel does not take."""
+    _check_fused(acc_re, acc_im, pos, vel, k_vectors, weights)
+    device = pos.device
+    if device.type != 'cuda':
+        raise ValueError(f"the fused mode-stack kernel runs on a CUDA device, got {device}")
+    n_t, n_a, _ = pos.shape
+    n_k, n_ch = acc_re.shape[1], acc_re.shape[2]
+    if n_t == 0 or n_a == 0 or n_k == 0:
+        return
+    pos = pos if pos.stride(2) == 1 else pos.contiguous()
+    vel = vel if vel is None or vel.stride(2) == 1 else vel.contiguous()
+    kv = k_vectors.contiguous()
+    w = None if weights is None else weights.contiguous()
+    splits, split_atoms = modes_splits(n_t, n_a, n_k, *_card(device.index))
+    part = (torch.empty(2 * splits * n_t * n_k * n_ch, dtype=torch.float32, device=device)
+            if splits > 1 else None)
+    with torch.cuda.device(device):
+        err = _build.load().psa_instant_modes(
+            pos.data_ptr(), pos.stride(0), pos.stride(1),
+            None if vel is None else vel.data_ptr(), 0 if vel is None else vel.stride(0),
+            0 if vel is None else vel.stride(1), None if w is None else w.data_ptr(),
+            kv.data_ptr(), acc_re.data_ptr(), acc_im.data_ptr(),
+            None if part is None else part.data_ptr(), n_t, n_a, n_k, n_ch, splits, split_atoms,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the fused mode-stack kernel launch failed: CUDA error {err}")
+    profiling.count('launch.phasor_modes')
+    profiling.count('phasor.fused_elems', n_t * n_a * n_k)
+
+
+def accumulate_modes_plain(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tensor,
+                           vel: Optional[torch.Tensor], k_vectors, t_chunk: int,
+                           box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
+                           weights: Optional[torch.Tensor] = None) -> None:
+    """:func:`accumulate_modes` by PyTorch ops on any device: per time tile
+    of ``t_chunk`` frames (:func:`time_tile`) the phasors of ``phase_mode``
+    (:func:`instant_phasors`) contracted with the weights [1, v_x, v_y, v_z]
+    over the block's atoms by one IEEE float32 ``torch.bmm``; the
+    density-only path contracts with [1, 0, 0, 0], the same product, so its
+    ρ is the DSF's density channel bit for bit.  (The four-row product is
+    also the accurate one: on the H100 cuBLAS's one-row kernel summed the
+    10⁵ aligned phasors of a Bragg column to 8.6e-6 of S(k), the four-row
+    one to 8.5e-8.)  ``weights`` multiplies each atom's row of the
+    contraction."""
     n_t, n_a, _ = pos.shape
     n_ch = acc_re.shape[2]
     t_chunk = time_tile(t_chunk, phase_mode)
@@ -547,6 +670,34 @@ def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tens
         f_re, f_im = phasor_parts(f, phase_mode)
         acc_re[t0:t1] += f_re.transpose(1, 2)
         acc_im[t0:t1] += f_im.transpose(1, 2)
+
+
+def accumulate_modes(acc_re: torch.Tensor, acc_im: torch.Tensor, pos: torch.Tensor,
+                     vel: Optional[torch.Tensor], k_vectors, t_chunk: int,
+                     box: Optional[torch.Tensor] = None, phase_mode: str = 'exact',
+                     weights: Optional[torch.Tensor] = None) -> None:
+    """acc += the mode stack of one atom block, in place.
+
+    ``acc_re``/``acc_im`` are (n_t, K, C) float32: C = 4 channels
+    [ρ, j_x, j_y, j_z] with velocities, C = 1 (ρ alone) with ``vel=None``,
+    the density-only path (S(k), ISF), which never reads velocities.  The
+    phasors of ``phase_mode`` (:func:`instant_phasors`) are contracted over
+    the block's atoms with the weights [1, v_x, v_y, v_z] (or [1]) in IEEE
+    float32; ``weights``, an optional (A,) per-atom weight (the mesh sweeps'
+    membership), multiplies each atom's row of the contraction.  Where
+    :func:`fuses` (a CUDA device, 'exact') one launch of the fused kernel
+    (:func:`fused_modes`) does it, ``t_chunk`` unused; elsewhere
+    :func:`accumulate_modes_plain`, in time tiles of ``t_chunk`` frames.
+    Every 'exact' contraction counts its n_t·A·K elements in
+    ``phasor.exact_elems``.
+    """
+    if phase_mode == 'exact':
+        profiling.count('phasor.exact_elems', pos.shape[0] * pos.shape[1] * acc_re.shape[1])
+    if fuses(pos.device, phase_mode):
+        fused_modes(acc_re, acc_im, pos, vel, k_vectors, weights)
+    else:
+        accumulate_modes_plain(acc_re, acc_im, pos, vel, k_vectors, t_chunk, box, phase_mode,
+                               weights)
 
 
 def instant_modes(pos: torch.Tensor, vel: torch.Tensor, k_vectors, t_chunk: int,

@@ -31,7 +31,8 @@ the program.  The spans, each named where the work of its layer happens:
                          ``_Sweep.reduce``
   ``psa.spectrum.peaks`` each ``spectral.peak_reduce``, inside ``psa.spectrum``
   ``psa.phases``         the atom-block loop of the DSF family's mode
-                         accumulation (angles, cos/sin, contraction)
+                         accumulation (angles, cos/sin, contraction: the
+                         fused kernel's launches, or the plain chain)
   ``psa.gridded.spread`` the gridded engine's spread of one ky block
                          (weights, copies, GEMM, ``index_add``), resident or
                          streamed
@@ -65,7 +66,13 @@ whole by :func:`snapshot`:
   * ``htod_bytes``: bytes sent to the device (``HostToDevice.put``, the
     calculator's ``_to_device``);
   * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the
-    projection's kernels (``ops/sed_projection.kernel_launches`` sums them);
+    projection's kernels (``ops/sed_projection.kernel_launches`` sums
+    them); ``launch.phasor_modes``: launches of the fused mode-stack
+    kernel (``ops/instantaneous.fused_modes``); :func:`kernel_launches`
+    sums every ``launch.`` counter;
+  * ``phasor.exact_elems``: n_t·A·K of every 'exact' mode-stack contraction
+    (``ops/instantaneous.accumulate_modes``), fused or plain;
+    ``phasor.fused_elems``: of those, the ones the fused kernel made;
   * ``parity.time_tiles``, ``parity.angle_tiles``: at each launch of the
     'parity' kernel, the output tiles whose products run and the angle
     tiles made, one per cluster of time tiles
@@ -129,6 +136,13 @@ def counted_since(before: Dict[str, int]) -> Dict[str, int]:
     """What each counter gained since the :func:`snapshot` ``before``."""
     return {k: v - before.get(k, 0) for k, v in sorted(snapshot().items())
             if v != before.get(k, 0)}
+
+
+def kernel_launches() -> int:
+    """Launches of every hand-written kernel of the port in this process:
+    the sum of the counters named ``launch.*``."""
+    with _counters_lock:
+        return sum(n for name, n in counters.items() if name.startswith('launch.'))
 
 
 def progress_iter(iterable, total: Optional[int] = None, desc: str = "",

@@ -8,7 +8,8 @@ and return bit for bit what they return without a profiler.  Without one,
 :func:`span` hands out one shared no-op and never builds a
 ``record_function``.  The counters replace the projection module's launch
 globals and lose no count to threads; the CPU moves and launches nothing,
-so none of them changes here.
+so none of them changes here but the count of the plain 'exact' chain's
+phasor elements.
 """
 import json
 import sys
@@ -23,8 +24,8 @@ from psa_tpu_torch.models import make_random_crystal_trajectory
 from psa_tpu_torch.ops import instantaneous
 from psa_tpu_torch.ops import sed_projection as tproj
 from psa_tpu_torch.utils import profiling
-from psa_tpu_torch.utils.profiling import (count, counted_since, counters, snapshot, span,
-                                           trace)
+from psa_tpu_torch.utils.profiling import (count, counted_since, counters, kernel_launches,
+                                           snapshot, span, trace)
 
 torch.set_num_threads(1)
 
@@ -132,12 +133,14 @@ def test_the_launch_globals_are_counters():
     for gone in ('launches', 'table_launches', 'product_launches'):
         assert not hasattr(tproj, gone)
     assert tproj.counters is counters
-    names = ('launch.parity', 'launch.table', 'launch.product')
+    names = ('launch.parity', 'launch.table', 'launch.product', 'launch.phasor_modes')
     saved = {n: counters[n] for n in names}
+    every = kernel_launches()
     try:
         for i, n in enumerate(names):
             counters[n] = saved[n] + 10 ** i
-        assert tproj.kernel_launches() == sum(saved.values()) + 111
+        assert tproj.kernel_launches() == sum(saved[n] for n in names[:3]) + 111
+        assert kernel_launches() == every + 1111      # every kernel's launches, the phasors' too
     finally:
         counters.update({n: saved[n] - counters[n] for n in names})     # back as they were
     assert {n: counters[n] for n in names} == saved
@@ -149,7 +152,11 @@ def test_the_cpu_counts_no_launch_and_moves_no_bytes(calc):
         fn()
     tproj.sed_projection(torch.zeros((2, 4, 3)), torch.zeros((4, 3)), torch.zeros((4, 3)),
                          torch.zeros((3, 3)), precision='fast')
-    assert counted_since(before) == {}
+    # the DSF surface's plain 'exact' chain counts its (t, atom, k) elements, and only that
+    n_k = len(instantaneous.nearest_commensurate(calc.get_k_path('x', 1.0, 6)[1],
+                                                 calc.traj.box_matrix))
+    assert counted_since(before) == {
+        'phasor.exact_elems': calc.traj.n_frames * calc.traj.n_atoms * n_k}
     assert tproj.kernel_launches() == sum(before.get(n, 0) for n in (
         'launch.parity', 'launch.table', 'launch.product'))
 
