@@ -109,27 +109,38 @@ def _union_group(atom_groups: List[np.ndarray]) -> np.ndarray:
 class _Projections:
     """(re, im) projections of a sweep's spectrum groups on its k-chunks.
 
-    A group within ``max_device_bytes`` is projected per chunk from its
-    resident device arrays.  A larger group streams from the host: once for
-    each pass of consecutive chunks still to compute whose (n_t, 3, K)
-    accumulator pairs fit half the budget (split between the oversize
-    groups), every atom block feeding every accumulator of the pass.  At
-    the working size (10⁴ steps, 2,500 k) one pass takes the whole grid:
-    0.6 GB of accumulators.  Each chunk's pair is handed out once.
+    The groups are projected per chunk from their device arrays
+    (:meth:`SEDCalculator._group_device_arrays`) when the device cache holds
+    them all at once, or when the resident install serves them: every group
+    then crosses from the host at most once, and after the first call not
+    at all.  Host-held groups that do not fit the cache together, and a
+    group larger than ``max_device_bytes``, stream from the host instead
+    (:meth:`SEDCalculator._streamed_groups`): once for each pass of
+    consecutive chunks still to compute whose (n_t, 3, K) accumulator pairs
+    fit half the budget (split between the streamed groups), every atom
+    block feeding every accumulator of the pass.  At the working size (10⁴
+    steps, 2,500 k) one pass takes the whole grid: 0.6 GB of accumulators.
+    Each chunk's pair is handed out once.  Every pair asked for adds its
+    group's bytes to the counter ``groups.requested_bytes``, and to
+    ``groups.resident_bytes`` when they were on the device already.
     """
 
     def __init__(self, calc: 'SEDCalculator', groups: List[np.ndarray], k_dev: torch.Tensor,
                  bounds: List[Tuple[int, int]], todo: List[int]):
         self.calc, self.groups, self.k_dev, self.bounds = calc, groups, k_dev, bounds
         self.todo = list(todo)
-        n_oversize = sum(calc._oversize(g) for g in groups)
-        self.pass_bytes = calc.max_device_bytes // 2 // max(1, n_oversize)
+        self.streamed = calc._streamed_groups(groups)
+        self.pass_bytes = calc.max_device_bytes // 2 // max(1, sum(self.streamed))
         self._ready: Dict[Tuple[int, int], tuple] = {}
 
     def get(self, gi: int, ci: int):
         group = self.groups[gi]
         s, e = self.bounds[ci]
-        if not self.calc._oversize(group):
+        nbytes = self.calc._group_bytes(group)
+        count('groups.requested_bytes', nbytes)
+        if not self.streamed[gi]:
+            if self.calc._group_on_device(group):
+                count('groups.resident_bytes', nbytes)
             data, hi, lo = self.calc._group_device_arrays(group)
             return sed_projection(data, hi, lo, self.k_dev[s:e], precision=self.calc.precision)
         if (gi, ci) not in self._ready:
@@ -234,8 +245,10 @@ class SEDCalculator:
             'balanced' (3xBF16, ~1e-5) or 'fast' (1xTF32, ~1e-3).
         max_device_bytes: largest group (n_t·n_atoms·3·4 bytes) held on the
             device; a larger group streams from the host in atom blocks.  It
-            bounds one array: the 2-slot cache may hold two such arrays, and a
-            sweep's transients come on top (a quarter of it per block).
+            bounds one array: the device cache holds groups up to twice it in
+            all (two such arrays, or more smaller ones), and a sweep's
+            transients come on top (a quarter of it per block).  A resident
+            install (:meth:`preload_device_group_data`) is not counted.
         mass_weighted: weight each atom's data by √m_a (requires ``traj.masses``).
         phase_mode: engine of the instantaneous-phase family (DSF, S(k), ISF,
             self parts): 'exact' (float64 angle per element; 'auto' resolves
@@ -321,6 +334,8 @@ class SEDCalculator:
         self._mean_pos64: Optional[np.ndarray] = None
         self._device_cache: Dict[bytes, tuple] = {}
         self._device_cache_order: List[bytes] = []
+        self._device_cache_bytes: Dict[bytes, int] = {}
+        self._resident: Optional[tuple] = None   # the whole-trajectory install
         self._cache_lock = threading.Lock()
         self._resident_shards = None        # preload_mesh_group_data's ResidentShards
         #: Bytes of groups over max_device_bytes streamed to the device so far.
@@ -546,9 +561,7 @@ class SEDCalculator:
     def _host_group_data(self, group_idx: np.ndarray):
         """Host (data, mp_hi, mp_lo) for one group."""
         mp_hi_all, mp_lo_all = spectral.split_f64(self.mean_positions64)
-        full = group_idx.size == self.traj.n_atoms and np.array_equal(
-            group_idx, np.arange(self.traj.n_atoms))
-        if full:
+        if self._is_all_atoms(group_idx):
             mp_hi, mp_lo = mp_hi_all, mp_lo_all
             data = self.traj.positions if self.use_displacements else self.traj.velocities
         else:
@@ -566,11 +579,13 @@ class SEDCalculator:
         return torch.from_numpy(host).to(self.device, non_blocking=True)
 
     def clear_device_cache(self) -> None:
-        """Drop cached device-resident group data, the mesh's resident shards
-        included (frees device memory)."""
+        """Drop cached device-resident group data, the resident install and
+        the mesh's resident shards included (frees device memory)."""
         with self._cache_lock:
             self._device_cache.clear()
             self._device_cache_order.clear()
+            self._device_cache_bytes.clear()
+            self._resident = None
             self._resident_shards = None
 
     def _group_cache_key(self, group_idx: np.ndarray) -> bytes:
@@ -578,31 +593,65 @@ class SEDCalculator:
             + (b'M' if self.mass_weighted else b'') \
             + (b'F' if self._phase_anchor == 'fractional' else b'')
 
-    def _cache_put(self, key: bytes, entry: tuple) -> tuple:
-        """Insert into the 2-slot LRU (caller holds the lock)."""
+    def _cache_capacity(self) -> int:
+        """Bytes the device cache holds in all: two groups of
+        ``max_device_bytes``, or more smaller ones."""
+        return 2 * int(self.max_device_bytes)
+
+    def _cache_put(self, key: bytes, entry: tuple, nbytes: Optional[int] = None) -> tuple:
+        """Insert into the device cache (caller holds the lock).  ``nbytes``
+        (by default its tensors' bytes) is what the entry holds on the
+        device beyond the resident install; the oldest entries are dropped
+        while the cache holds more than :meth:`_cache_capacity`, the new one
+        never."""
+        if nbytes is None:
+            nbytes = sum(t.nbytes for t in entry if t is not None)
         if key not in self._device_cache:
             self._device_cache_order.append(key)
         self._device_cache[key] = entry
-        while len(self._device_cache_order) > 2:
+        self._device_cache_bytes[key] = int(nbytes)
+        while (sum(self._device_cache_bytes.values()) > self._cache_capacity()
+               and self._device_cache_order[0] != key):
             evict = self._device_cache_order.pop(0)
             self._device_cache.pop(evict, None)
+            self._device_cache_bytes.pop(evict, None)
         return entry
 
     def preload_device_group_data(self, data_dev: torch.Tensor, mp_hi_dev: torch.Tensor,
                                   mp_lo_dev: torch.Tensor,
-                                  group_idx: Optional[np.ndarray] = None) -> None:
-        """Install device-resident SED input data for a group directly.
+                                  group_idx: Optional[np.ndarray] = None,
+                                  mean_positions64: Optional[np.ndarray] = None) -> None:
+        """Install device-resident SED input data directly.
 
         For data that already lives on the device (generated there, or the
         output of an upstream computation) this skips the host→device upload.
-        The caller asserts ``data_dev`` equals what the calculator would have
-        uploaded for this group — velocities (or displacement data when
-        ``use_displacements``), with mass weights already applied — and
-        ``mp_hi_dev``/``mp_lo_dev`` are the group's split mean positions.
-        All three are float32 tensors on this calculator's device.  Entries
-        share the 2-slot LRU with uploaded groups.
+        ``data_dev`` holds what the trajectory holds for the atoms: the
+        velocities, or the positions when ``use_displacements``; the
+        calculator applies the displacement and √mass transforms to it as it
+        does to the data it uploads.  ``mp_hi_dev``/``mp_lo_dev`` are the
+        atoms' mean positions split into float32 pairs
+        (:func:`psa_tpu_torch.ops.spectral.split_f64`).  All three are
+        float32 tensors on this calculator's device.
+
+        Without ``group_idx`` the data are the whole trajectory in its atom
+        order: the resident install, which replaces what the device cache
+        held.  It serves every group a call resolves (index lists, type
+        lists, their union): each is gathered from it on the device once
+        (span ``psa.groups.gather``) and kept in the device cache, and nothing
+        of the trajectory's positions or velocities is read from the host
+        while the phases are anchored at the mean positions.  The install
+        is not counted against the cache's bytes; the all-atoms group with
+        no transform to apply is the install itself.  With ``group_idx`` the
+        data are that group's, kept in the device cache like an uploaded
+        group.
+
+        ``mean_positions64``, the (n_atoms, 3) float64 mean positions of the
+        whole trajectory, is what :attr:`mean_positions64` then returns: the
+        pass over ``traj.positions`` that computes it is skipped.  The caller
+        asserts it agrees with the splits.
         """
-        if group_idx is None:
+        whole = group_idx is None
+        if whole:
             group_idx = np.arange(self.traj.n_atoms)
         expect = (self.traj.n_frames, int(group_idx.size), 3)
         if tuple(data_dev.shape) != expect:
@@ -616,9 +665,22 @@ class SEDCalculator:
             if t.dtype != torch.float32 or t.device.type != self.device.type:
                 raise ValueError(f"preloaded tensors must be float32 on {self.device}, "
                                  f"got {t.dtype} on {t.device}")
-        key = self._group_cache_key(group_idx)
+        if mean_positions64 is not None:
+            means = np.asarray(mean_positions64, dtype=np.float64)
+            if means.shape != (self.traj.n_atoms, 3):
+                raise ValueError(f"mean_positions64 must have shape ({self.traj.n_atoms}, 3), "
+                                 f"got {means.shape}")
+            self._mean_pos64 = means
+        if whole:
+            with self._cache_lock:
+                self._device_cache.clear()
+                self._device_cache_order.clear()
+                self._device_cache_bytes.clear()
+                self._resident = (data_dev, mp_hi_dev, mp_lo_dev)
+            return
+        entry = self._transformed(data_dev, mp_hi_dev, mp_lo_dev, group_idx)
         with self._cache_lock:
-            self._cache_put(key, (data_dev, mp_hi_dev, mp_lo_dev))
+            self._cache_put(self._group_cache_key(group_idx), entry)
 
     def preload_mesh_group_data(self, mesh, shards: Dict[tuple, torch.Tensor],
                                 mp_hi: Dict[tuple, torch.Tensor],
@@ -655,32 +717,101 @@ class SEDCalculator:
         return None if self._resident_shards is None else self._resident_shards.mesh
 
     def _group_device_arrays(self, group_idx: np.ndarray):
-        """Device-resident (data, mp_hi, mp_lo) for a group, 2-entry LRU cache."""
+        """Device-resident (data, mp_hi, mp_lo) of a group: from the device
+        cache, else made (:meth:`_group_made`) and kept there."""
         key = self._group_cache_key(group_idx)
         with self._cache_lock:
             if key in self._device_cache:
                 return self._device_cache[key]
-        data_host, mp_hi_host, mp_lo_host = self._host_group_data(group_idx)
-        data_dev = self._to_device(data_host)
-        hi_dev = self._to_device(mp_hi_host)
-        lo_dev = self._to_device(mp_lo_host)
-        if self.use_displacements:
-            data_dev = spectral.displacement_data(data_dev, hi_dev, lo_dev)
-        if self.mass_weighted:
-            w = torch.sqrt(self._to_device(self.traj.masses[group_idx]))
-            data_dev = data_dev * w[None, :, None]
+        entry = self._group_made(group_idx)
         with self._cache_lock:
             # Two threads can race past the miss check; the first insert wins.
             if key in self._device_cache:
                 return self._device_cache[key]
-            return self._cache_put(key, (data_dev, hi_dev, lo_dev))
+            return self._cache_put(key, entry, self._entry_bytes(group_idx))
+
+    def _group_made(self, group_idx: np.ndarray):
+        """A group's (data, mp_hi, mp_lo) made anew on the device: gathered
+        from the resident install (the install itself for the all-atoms
+        group), else uploaded from the host trajectory; then transformed
+        (:meth:`_transformed`)."""
+        if self._install_serves():
+            data, hi, lo = self._resident
+            if not self._is_all_atoms(group_idx):
+                with span('psa.groups.gather'):
+                    idx = self._to_device(group_idx, np.int64)
+                    data, hi, lo = (data.index_select(1, idx), hi.index_select(0, idx),
+                                    lo.index_select(0, idx))
+            return self._transformed(data, hi, lo, group_idx)
+        data_host, mp_hi_host, mp_lo_host = self._host_group_data(group_idx)
+        return self._transformed(self._to_device(data_host), self._to_device(mp_hi_host),
+                                 self._to_device(mp_lo_host), group_idx)
+
+    def _transformed(self, data: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
+                     group_idx: np.ndarray):
+        """(data, hi, lo) of a group with the calculator's transforms applied
+        to the trajectory's data: displacements from the mean, √mass weights."""
+        if self.use_displacements:
+            data = spectral.displacement_data(data, hi, lo)
+        weights = self._mass_weights(group_idx)
+        if weights is not None:
+            data = data * weights[None, :, None]
+        return data, hi, lo
+
+    def _mass_weights(self, group_idx: np.ndarray) -> Optional[torch.Tensor]:
+        """√m of the group's atoms on the device, or None when not mass-weighted."""
+        if not self.mass_weighted:
+            return None
+        return torch.sqrt(self._to_device(self.traj.masses[group_idx]))
+
+    def _install_serves(self) -> bool:
+        """True while a resident install serves the groups (phases anchored
+        at the Cartesian mean positions, which its splits hold)."""
+        return self._resident is not None and self._phase_anchor == 'cartesian'
+
+    def _is_all_atoms(self, group_idx: np.ndarray) -> bool:
+        return group_idx.size == self.traj.n_atoms and np.array_equal(
+            group_idx, np.arange(self.traj.n_atoms))
+
+    def _entry_bytes(self, group_idx: np.ndarray) -> int:
+        """Device bytes a group's cache entry holds beyond the resident
+        install: its data and mean-position splits, none when it is the
+        install itself."""
+        if (self._install_serves() and not (self.use_displacements or self.mass_weighted)
+                and self._is_all_atoms(group_idx)):
+            return 0
+        return self._group_bytes(group_idx) + 24 * int(group_idx.size)
+
+    def _group_on_device(self, group_idx: np.ndarray) -> bool:
+        """True when serving a group reads nothing from the host: it is in
+        the device cache, or the resident install holds it."""
+        if self._install_serves():      # answered without hashing the group's key
+            return True
+        with self._cache_lock:
+            return self._group_cache_key(group_idx) in self._device_cache
 
     def _group_bytes(self, group_idx: np.ndarray) -> int:
         return 4 * self.traj.n_frames * int(group_idx.size) * 3
 
     def _oversize(self, group_idx: np.ndarray) -> bool:
-        """True for a group larger than ``max_device_bytes``: it streams."""
+        """True for a group larger than ``max_device_bytes``."""
         return self._group_bytes(group_idx) > self.max_device_bytes
+
+    def _streams(self, group_idx: np.ndarray) -> bool:
+        """True for a group that streams from the host: over
+        ``max_device_bytes``, with no resident install to serve it."""
+        return self._oversize(group_idx) and not self._install_serves()
+
+    def _streamed_groups(self, groups: List[np.ndarray]) -> List[bool]:
+        """Which of a sweep's groups stream from the host: those that
+        :meth:`_streams`, and every other one too when those others do not
+        fit the device cache together, so that none is uploaded again for
+        each k-chunk.  Groups the resident install serves never stream."""
+        if self._install_serves():
+            return [False] * len(groups)
+        alone = [self._oversize(g) for g in groups]
+        held = sum(self._entry_bytes(g) for g, s in zip(groups, alone) if not s)
+        return [s or held > self._cache_capacity() for s in alone]
 
     # ------------------------------------------------------------------
     # Groups over max_device_bytes: atom blocks streamed from the host
@@ -717,8 +848,7 @@ class SEDCalculator:
         block = block_atoms or self.stream_block_atoms(int(group_idx.size))
         hi_host, lo_host = spectral.split_f64(self.mean_positions64[group_idx])
         hi_dev, lo_dev = self._to_device(hi_host), self._to_device(lo_host)
-        weights = (torch.sqrt(self._to_device(self.traj.masses[group_idx]))
-                   if self.mass_weighted else None)
+        weights = self._mass_weights(group_idx)
         src = self.traj.positions if self.use_displacements else self.traj.velocities
         for a0, a1, (data,) in self._staged_blocks(group_idx, block, [src]):
             hi, lo = hi_dev[a0:a1], lo_dev[a0:a1]
@@ -1356,7 +1486,7 @@ class SEDCalculator:
             return plan, data
         if not union.size:
             return plan, np.zeros((self.traj.n_frames, 0, 3), dtype=np.float32)
-        if self._oversize(union):
+        if self._streams(union):
             return plan, self._group_block_source(union)
         return plan, self._group_device_arrays(union)[0]
 
@@ -1650,7 +1780,7 @@ class SEDCalculator:
     def _raw_device_arrays(self, group_idx: np.ndarray, need: str):
         """Device-resident raw (positions or None, velocities or None) of a
         group, no displacement or mass transform: ``need`` is 'P', 'V' or
-        'PV'.  Entries live in the calculator's 2-slot LRU, so warm
+        'PV'.  Entries live in the calculator's device cache, so warm
         DSF/S(k)/ISF/self/MSD/VACF calls upload nothing, and an entry with
         both arrays serves every caller."""
         base = group_idx.tobytes() + b'I'
@@ -2022,7 +2152,7 @@ class SEDCalculator:
             if group.size == 0:
                 continue
             dos = torch.zeros(freq_idx.size, dtype=torch.float32, device=self.device)
-            if self._oversize(group):
+            if self._streams(group):
                 for _, _, data, _, _ in self._stream_group(group, block_atoms=atom_chunk_size):
                     dos = spectral.dos_accumulate(dos, data, freq_idx_dev)
             else:
@@ -2052,7 +2182,7 @@ class SEDCalculator:
         back once.
 
         ``max_device_bytes`` bounds one resident array, as everywhere in the
-        calculator: the 2-slot cache may hold a group's positions (after an
+        calculator: the device cache may hold a group's positions (after an
         MSD) and its velocities (after a VACF) at once, each up to the
         budget, and a block's transients take another quarter of it.
         :meth:`clear_device_cache` between the two calls frees the first."""

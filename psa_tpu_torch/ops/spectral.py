@@ -276,6 +276,9 @@ def peak_reduce(inten: torch.Tensor, freqs_kept: torch.Tensor, n_peaks: int = 1,
       slope, FWHM = 2γ, clamped to the window span.  The window is divided
       by the peak height first: γ does not change under I → cI, and raw
       intensities near 1e10 would overflow the float32 I⁴-sized sums.
+      ν − ν₀ is the rows' distance times the rows' spacing, not the
+      difference of two float32 frequencies, which at 22 THz and a 5 GHz
+      spacing loses up to 2e-4 of a row.
 
     Args:
         inten: (n_f, K) intensity planes of one k-chunk; columns are
@@ -311,7 +314,7 @@ def peak_reduce(inten: torch.Tensor, freqs_kept: torch.Tensor, n_peaks: int = 1,
                 var = (w * (fk - mu[None]) ** 2).sum(dim=0) / wsum
                 width = torch.sqrt(torch.clamp(var, min=0.0))
             else:
-                x = (fk - peak_f[None]) ** 2
+                x = ((row - idx[None]).float() * df) ** 2
                 wn = w / torch.clamp(height, min=1e-30)[None]
                 y = 1.0 / torch.clamp(wn, min=1e-30)
                 wt = torch.where(in_win, wn * wn, 0.0)

@@ -37,6 +37,9 @@ the program.  The spans, each named where the work of its layer happens:
                          (weights, copies, GEMM, ``index_add``), resident or
                          streamed
   ``psa.gridded.budget`` the gridded grid budget (``cudaMemGetInfo``)
+  ``psa.groups.gather``  a group made on the device from the calculator's
+                         resident install (``SEDCalculator._group_made``):
+                         the index upload and the gather
   ``psa.readback.wait``  the host waiting for a result: ``DeviceToHost``'s
                          drain and the calculator's ``_to_host``
   ``psa.host.assemble``  a surface's host result arrays: their allocation,
@@ -65,6 +68,11 @@ whole by :func:`snapshot`:
     ``calculate`` chunk that spans the k axis), not into a staging block;
   * ``htod_bytes``: bytes sent to the device (``HostToDevice.put``, the
     calculator's ``_to_device``);
+  * ``groups.requested_bytes``: bytes of group data the one-device
+    projections asked for, each group once per k-chunk
+    (``core/calculator._Projections``), on any device;
+    ``groups.resident_bytes``: of those, the bytes served from the device
+    cache or the resident install, which crossed no host link;
   * ``launch.parity``, ``launch.table``, ``launch.product``: launches of the
     projection's kernels (``ops/sed_projection.kernel_launches`` sums
     them); ``launch.phasor_modes``: launches of the fused mode-stack

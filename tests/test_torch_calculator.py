@@ -280,9 +280,17 @@ def test_preload_and_lru(small_trajectory):
     port.clear_device_cache()
     assert rel_err(port.calculate(k_mags, k_vecs).sed,
                    reference_sed_oracle(small_trajectory, k_vecs)) < RTOL
+    # the cache is bounded by bytes, twice max_device_bytes in all, not by entries
     for g in ([0, 1], [2, 3], [4, 5]):
         port.calculate(k_mags, k_vecs, basis_atom_indices=g)
+    assert len(port._device_cache) == len(port._device_cache_order) == 4
+    # room for two small groups: the oldest entries go first
+    port.max_device_bytes = port._entry_bytes(np.array([0, 1]))
+    for g in ([1, 2], [3, 4], [5, 6]):
+        port.calculate(k_mags, k_vecs, basis_atom_indices=g)
     assert len(port._device_cache) == len(port._device_cache_order) == 2
+    assert [np.frombuffer(key[:-1], dtype=int).tolist() for key in port._device_cache_order] \
+        == [[3, 4], [5, 6]]
     with pytest.raises(ValueError, match="shape"):
         port.preload_device_group_data(torch.zeros(2, 2, 3), torch.from_numpy(hi),
                                        torch.from_numpy(lo))

@@ -9,7 +9,7 @@ and return bit for bit what they return without a profiler.  Without one,
 ``record_function``.  The counters replace the projection module's launch
 globals and lose no count to threads; the CPU moves and launches nothing,
 so none of them changes here but the count of the plain 'exact' chain's
-phasor elements.
+phasor elements and the group bytes the projections ask for.
 """
 import json
 import sys
@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 #: The spans the module docstring of ``utils/profiling.py`` names.
 VOCABULARY = {'psa.project', 'psa.spectrum', 'psa.spectrum.peaks', 'psa.phases',
               'psa.gridded.spread', 'psa.gridded.budget', 'psa.readback.wait',
-              'psa.host.assemble', 'psa.stage', 'psa.rdf.host'}
+              'psa.host.assemble', 'psa.stage', 'psa.rdf.host', 'psa.groups.gather'}
 GRID = (4, 4)
 
 
@@ -147,6 +147,7 @@ def test_the_launch_globals_are_counters():
 
 
 def test_the_cpu_counts_no_launch_and_moves_no_bytes(calc):
+    calc.clear_device_cache()
     before = snapshot()
     for fn, _, _ in surfaces(calc).values():
         fn()
@@ -155,8 +156,12 @@ def test_the_cpu_counts_no_launch_and_moves_no_bytes(calc):
     # the DSF surface's plain 'exact' chain counts its (t, atom, k) elements, and only that
     n_k = len(instantaneous.nearest_commensurate(calc.get_k_path('x', 1.0, 6)[1],
                                                  calc.traj.box_matrix))
+    # 'calculate' asks for the group in one k-chunk and uploads it, the peaks
+    # in three chunks find it on the device
+    group = 12 * calc.traj.n_frames * calc.traj.n_atoms
     assert counted_since(before) == {
-        'phasor.exact_elems': calc.traj.n_frames * calc.traj.n_atoms * n_k}
+        'phasor.exact_elems': calc.traj.n_frames * calc.traj.n_atoms * n_k,
+        'groups.requested_bytes': 4 * group, 'groups.resident_bytes': 3 * group}
     assert tproj.kernel_launches() == sum(before.get(n, 0) for n in (
         'launch.parity', 'launch.table', 'launch.product'))
 
